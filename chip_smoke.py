@@ -4,28 +4,46 @@
 
 Phases (each raises on failure; none catches its own):
   1. device  — CUDA with compute capability >= 9.0; card name and power limit
-  2. build   — nvcc builds both attention kernels from src/repro_torch/kernels/
-               csrc/ for sm_90a; prints ptxas' registers / shared memory / spills
+  2. build   — nvcc builds the three kernels from src/repro_torch/kernels/csrc/
+               for sm_90a, one process each, in parallel; prints ptxas'
+               registers / shared memory / spills
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                at main-path shapes, bf16 and f32, TF32 off; each bf16 output
-               also within half a bf16 ulp of the plain version's f32 result
-  4. model   — full-width qwen3-1.7b (28 layers, bf16, random weights from a
-               seed): one prefill batch and one paged decode step, kernels vs
+               also within half a bf16 ulp of the plain version's f32 result;
+               rwkv6_chunk also at c = 32 / 64, through strided chunk views,
+               and chained over 4 chunks against the sequential oracle
+  Two paths follow, each driven with the launch counters set to 0 just before
+  and read just after; each must launch the kernels of its own model:
+  4. qwen3   — full-width qwen3-1.7b (28 layers, bf16, random weights from a
+     model     seed): one prefill batch and one paged decode step, kernels vs
                the plain attention path
-  5. serve   — the paged engine with the paper's scheduler serving a rotten
-               trace on full-width qwen3-1.7b, serial then pipelined loop; the
-               launch counters must rise during this run
-  6. times   — each kernel, its plain version and (flash_prefill only) torch's
-               SDPA timed with CUDA events, beside the least time the card could
-               take (bytes / 3.35 TB/s, flops / 989 TFLOP/s)
-  7. profile — one more serial serve under torch.profiler: the device's busy
-               share of the wall time and the kernels that take it
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+  5. qwen3   — the paged engine with the paper's scheduler serving a rotten
+     serve     trace, serial then pipelined loop (paged_attention, flash_prefill)
+  6. qwen3   — one more serial serve under torch.profiler: the device's busy
+     profile   share of the wall time and the kernels that take it
+  7. rwkv6   — full-width rwkv6-7b (random weights from the seed), in float32
+     model     at full depth (32 layers) and in bf16 at 4 layers (reported at
+               32): one prefill at B=2 L=128 and one decode step from each
+               cache, kernel vs plain WKV chunks, beside the plain chunks with
+               their outputs perturbed by 1e-6 (the model's own sensitivity);
+               and in bf16 at 32 layers each layer's time mix on its own,
+               teacher-forced (output and state, kernel vs plain)
+  8. rwkv6   — the dense engine serving the same trace, serial then pipelined
+     serve     (rwkv6_chunk); the two runs' streams must be identical
+  9. rwkv6   — one more serial serve under torch.profiler
+     profile
+ 10. times   — each kernel, its plain version and (flash_prefill only) torch's
+               SDPA timed on the device with CUDA events (calls queued behind
+               a device-side sleep), beside the least time the card could
+               take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
+               67 TFLOP/s in f32 without tensor cores)
+The last three lines are the card's name and power limit, the kernels' JSON
+record and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -42,17 +60,22 @@ from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.data.trace import TraceConfig, build_trace  # noqa: E402
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models.layers import layernorm  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving import build_real_engine  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
-# tolerances of tests/test_kernels.py: f32 1e-5; bf16 2e-2 (paged), 3e-2 (prefill)
+F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+# tolerances of tests/test_kernels.py: f32 1e-5; bf16 2e-2 (paged), 3e-2
+# (prefill); rwkv6_chunk 5e-4 (one chunk), 1e-3 (a chain against the oracle)
 TOL = {("paged_attention", torch.float32): 1e-5,
        ("paged_attention", torch.bfloat16): 2e-2,
        ("flash_prefill", torch.float32): 1e-5,
-       ("flash_prefill", torch.bfloat16): 3e-2}
+       ("flash_prefill", torch.bfloat16): 3e-2,
+       ("rwkv6_chunk", torch.float32): 5e-4}
+RWKV_CHAIN_TOL = 1e-3
 # A bf16 kernel computes in f32 and rounds once, so its output lies within half
 # a bf16 ulp (<= 2^-8 |x|) of the plain version's f32 result, plus the f32
 # tolerance twice over for the two summation orders. This catches a kernel that
@@ -62,13 +85,38 @@ BF16_HALF_ULP = 2.0 ** -8
 # full-model bf16 logits, kernels vs plain attention: relative to the largest
 # |logit|. bf16 keeps 8 mantissa bits (3.9e-3 relative per rounding); the plain
 # prefill rounds softmax weights to bf16 before PV while the kernel keeps them
-# in f32, and those differences pass through 28 residual layers.
+# in f32, and those differences pass through 28 residual layers. For rwkv6-7b
+# the kernel and the plain chunk sum in different orders in f32; a last-bit
+# difference flips a bf16 rounding of the next layer's input, and that passes
+# through 32 residual layers the same way (logits and the f32 state caches).
 MODEL_REL_TOL = 5e-2
+# rwkv6-7b at random init amplifies any last-bit difference layer by layer:
+# in bf16, kernel vs plain chunks differ by 1.1e-2 of the largest logit after
+# 4 layers and 0.22 after 32, and multiplying each plain chunk's output by
+# (1 + 1e-6 randn) moves them by as much (2.1e-2 and 0.25; this script on an
+# H100, 700 W). So the full-depth comparison is made in float32, where the
+# same perturbation moves the logits by 1.2e-4 and kernel vs plain measured
+# 1.0e-4: RWKV_F32_REL_TOL leaves a factor of ten. In bf16 the model is held
+# to MODEL_REL_TOL at 4 layers and reported at 32.
+RWKV_F32_REL_TOL = 1e-3
+RWKV_BF16_LAYERS = 4
+PERTURB = 1e-6
+# At bf16 and full depth each layer is also held on its own, teacher-forced:
+# every layer's time mix gets the plain run's input, so its kernel-vs-plain
+# difference is not amplified by the layers before it. The f32 state is the
+# kernel's direct output, chained over the prefill's chunks: RWKV_CHAIN_TOL of
+# its largest value. The bf16 output differs where a last-bit difference of
+# the f32 WKV output flips a bf16 rounding, as the PERTURB witness does on the
+# same layer: it is held to WITNESS_FACTOR times the witness's difference, and
+# never below one bf16 rounding (BF16_HALF_ULP) of its largest value.
+WITNESS_FACTOR = 10.0
 
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
-           "flash_prefill": "src/repro_torch/kernels/csrc/flash_prefill.cu"}
+           "flash_prefill": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+           "rwkv6_chunk": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu"}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:78",
-            "flash_prefill": "src/repro/kernels/flash_prefill.py:75"}
+            "flash_prefill": "src/repro/kernels/flash_prefill.py:75",
+            "rwkv6_chunk": "src/repro/kernels/rwkv6_chunk.py:61"}
 
 
 def log(msg: str) -> None:
@@ -97,6 +145,7 @@ def assert_close(name: str, out, want, dtype, label: str) -> float:
 
 
 def assert_rounded_once(name: str, out, want32, label: str) -> None:
+    """The f32 tolerance enters twice, for the two summation orders."""
     lim = BF16_HALF_ULP * want32.abs() + 2 * TOL[(name, torch.float32)]
     worst = float(((out.float() - want32).abs() / lim).max())
     log(f"  {name} {label} bfloat16 vs f32 result: worst error {worst:.3f} of "
@@ -110,16 +159,28 @@ def upcast(args):
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call, CUDA events around ``iters`` calls. The calls
+    are queued behind a device-side sleep, so they run back to back on the
+    card whatever the host takes to issue them (a small kernel issues slower
+    than it runs); the sleep grows until the host has queued every call
+    before the device reaches the first event."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    cycles = 50_000_000
+    while True:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        queued_in_time = not t0.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return t0.elapsed_time(t1) / iters
+        cycles *= 4
 
 
 def nvidia_smi_line() -> str:
@@ -162,6 +223,31 @@ PREFILL_CASES = [   # (label, shape kwargs, causal, window, q_offset)
     ("window 128", {}, True, 128, 0),
     ("q_offset 256", {"S": 256}, True, 0, 256),
     ("non-causal", {}, False, 0, 0),
+]
+
+
+def rwkv_inputs(dtype, w_dtype=torch.float32, *, B=1, c=16, H=64, K=64, T=None,
+                seed=3):
+    """One WKV chunk at rwkv6-7b's widths (64 heads of 64), drawn as
+    tests/test_kernels.py draws them: r/k/v and the state randn, logw =
+    -exp(0.5 randn), u = 0.1 randn. With ``T`` the r/k/v/logw tensors span
+    T tokens, as the model's [B, S, H, K] projections do."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T = T or c
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    r, k, v = (randn(B, T, H, K).to(dtype) for _ in range(3))
+    logw = (-torch.exp(0.5 * randn(B, T, H, K))).to(w_dtype)
+    return r, k, v, logw, 0.1 * randn(H, K), randn(B, H, K, K)
+
+
+RWKV_CASES = [   # (label, input kwargs, out dtype)
+    ("path [1,16,64,64] bf16", {"dtype": torch.bfloat16}, torch.float32),
+    ("c=32", {"dtype": torch.bfloat16, "c": 32}, torch.float32),
+    ("c=64", {"dtype": torch.bfloat16, "c": 64}, torch.float32),
+    ("all f32", {"dtype": torch.float32}, torch.float32),
 ]
 
 
@@ -237,17 +323,77 @@ def phase_kernels() -> dict:
         out = ops.flash_prefill(qs, ks, vs, causal=True)
         want = ref.flash_prefill_ref(q, k, v, causal=True)
         assert_close("flash_prefill", out, want, dtype, "strided views")
+    errs["rwkv6_chunk"] = rwkv_kernel_checks()
     return errs
 
 
-def full_model(device="cuda"):
-    cfg = get_config("qwen3-1.7b")
+def rwkv_kernel_checks() -> float:
+    """rwkv6_chunk vs rwkv6_chunk_plain; returns the main-path max error."""
+    name, f32 = "rwkv6_chunk", torch.float32
+    log("[kernels] rwkv6_chunk vs rwkv6_chunk_plain")
+    err = None
+    for label, kw, out_dtype in RWKV_CASES:
+        args = rwkv_inputs(**kw)
+        o, s = ops.rwkv6_chunk(*args, out_dtype=out_dtype)
+        want_o, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        e = assert_close(name, o, want_o, f32, f"o {label}")
+        assert_close(name, s, want_s, f32, f"state {label}")
+        if err is None:
+            err = e
+    # B=4 through strided chunk views of [4, 64, 64, 64] projections
+    r, k, v, logw, u, s0 = rwkv_inputs(torch.bfloat16, B=4, T=64)
+    views = [x[:, 16:32] for x in (r, k, v, logw)]
+    check(not views[0].is_contiguous(), "strided case is not strided")
+    o, s = ops.rwkv6_chunk(*views, u, s0, out_dtype=f32)
+    want_o, want_s = ref.rwkv6_chunk_plain(*[x.contiguous() for x in views], u,
+                                           s0, out_dtype=f32)
+    assert_close(name, o, want_o, f32, "o B=4 strided views")
+    assert_close(name, s, want_s, f32, "state B=4 strided views")
+    # o in r's dtype, as the Pallas kernel writes it: the kernel's own f32
+    # result rounded once to nearest, and within half a bf16 ulp of the plain
+    # version's f32 result
+    args = rwkv_inputs(torch.bfloat16)
+    o16, _ = ops.rwkv6_chunk(*args)
+    o32, _ = ops.rwkv6_chunk(*args, out_dtype=f32)
+    check(o16.dtype == torch.bfloat16, f"default o dtype is {o16.dtype}")
+    check(torch.equal(o16, o32.to(torch.bfloat16)),
+          "rwkv6_chunk bf16 o is not its f32 result rounded to nearest")
+    want32, _ = ref.rwkv6_chunk_plain(*args, out_dtype=f32)
+    assert_rounded_once(name, o16, want32, "o path [1,16,64,64]")
+    # 4 chained chunks against the token-by-token oracle
+    r, k, v, logw, u, _ = rwkv_inputs(torch.float32, T=64, seed=4)
+    s = torch.zeros((1, 64, 64, 64), device="cuda")
+    outs = []
+    for i in range(4):
+        sl = slice(16 * i, 16 * (i + 1))
+        o, s = ops.rwkv6_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, s)
+        outs.append(o)
+    want_o, want_s = ref.rwkv6_chunk_ref(r, k, v, logw, u, torch.zeros_like(s))
+    torch.cuda.synchronize()
+    for label, got, want in (("o", torch.cat(outs, dim=1), want_o),
+                             ("state", s, want_s)):
+        e = max_err(got, want)
+        ok = bool(((got - want).abs()
+                   <= RWKV_CHAIN_TOL + RWKV_CHAIN_TOL * want.abs()).all())
+        log(f"  {name} 4-chunk chain {label} vs rwkv6_chunk_ref: max_abs_err "
+            f"{e:.3e} (atol = rtol = {RWKV_CHAIN_TOL:g})")
+        check(ok, f"{name} chain {label}: kernel disagrees with the oracle")
+    return err
+
+
+def full_model(arch: str, dtype: str = "", device="cuda"):
+    """Full-width config (in ``dtype`` if given), model and random weights
+    from SEED."""
+    cfg = get_config(arch)
+    if dtype:
+        cfg = cfg.replace(dtype=dtype)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=device).manual_seed(SEED))
     return cfg, model, params
 
 
-def phase_model(cfg, model, params, device="cuda") -> None:
+def phase_model_qwen(cfg, model, params, device="cuda") -> None:
     """One prefill batch and one paged decode step of the full-width model,
     kernel attention vs the plain attention path, on the same inputs."""
     B, L, bs = 4, 128, 16
@@ -292,6 +438,115 @@ def phase_model(cfg, model, params, device="cuda") -> None:
     check(err <= MODEL_REL_TOL * scale, "decode logits: kernel vs ref disagree")
 
 
+def rwkv_outputs(m, params, toks, seq_lens):
+    """Prefill logits, the prefill's state cache, and the logits of one decode
+    step from that cache."""
+    lg, cache = m.prefill(params, toks, seq_lens=seq_lens)
+    state = cache["state"].clone()
+    d, _ = m.decode_step(params, cache, lg.argmax(-1).to(torch.int32), seq_lens)
+    return lg, state, d
+
+
+def perturbed_plain(model):
+    """The plain-chunk model with each chunk's output multiplied by
+    (1 + PERTURB * randn): the model's own sensitivity to last-bit noise."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    m = model.with_wkv_impl("plain")
+
+    def chunk(*args):
+        o, s = ref.rwkv6_chunk_plain(*args, out_dtype=torch.float32)
+        noise = torch.randn(o.shape, generator=g, device=o.device)
+        return o * (1 + PERTURB * noise), s
+
+    m._wkv_chunk = chunk
+    return m
+
+
+def phase_model_rwkv(cfg, model, params, tol, device="cuda") -> None:
+    """One prefill at B=2, L=128 (one row padded) and one decode step from
+    each cache, kernel vs plain WKV chunks, beside what a PERTURB relative
+    perturbation of each plain chunk's output does to the same numbers.
+    ``tol`` None: report only."""
+    B, L = 2, 128
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, L)),
+                           dtype=torch.int32, device=device)
+    seq_lens = torch.as_tensor([128, 77], dtype=torch.int32, device=device)
+    kern = rwkv_outputs(model.with_wkv_impl("kernel"), params, toks, seq_lens)
+    plain = rwkv_outputs(model.with_wkv_impl("plain"), params, toks, seq_lens)
+    pert = rwkv_outputs(perturbed_plain(model), params, toks, seq_lens)
+    what = (f"{cfg.num_layers} layers {cfg.dtype} B={B} L={L} seq_lens "
+            f"[128, 77]")
+    for i, label in enumerate(("prefill logits", "prefill state",
+                               "decode logits")):
+        got, want = kern[i], plain[i]
+        scale = float(want.float().abs().max())
+        rel = max_err(got, want) / scale
+        floor = max_err(pert[i], want) / scale
+        same = ""
+        if "logits" in label:
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            same = f"; argmax agreement {agree:.2f}"
+        log(f"[rwkv model] {what} {label}: kernel vs plain max_abs_err "
+            f"{max_err(got, want):.3e} (max |value| {scale:.3e}, rel {rel:.3e}, "
+            f"tol {tol if tol is not None else 'reported only'}); plain with "
+            f"its chunk outputs perturbed by {PERTURB:g}: rel {floor:.3e}{same}")
+        check(bool(torch.isfinite(got.float()).all()), f"non-finite {label}")
+        if tol is not None:
+            check(rel <= tol, f"{what} {label}: kernel vs plain disagree")
+    check(tuple(kern[1].shape) == (cfg.num_layers, B, model.n_heads,
+                                   cfg.rwkv_head_dim, cfg.rwkv_head_dim)
+          and kern[1].dtype == torch.float32, "state cache layout")
+
+
+def phase_layers_rwkv(cfg, model, params, device="cuda") -> None:
+    """Every layer's time mix at the path's dtype and depth, teacher-forced:
+    the kernel, the plain chunks and the PERTURB witness all get the plain
+    run's input to that layer, at B=2 L=128 with one row padded."""
+    B, Ln = 2, 128
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, Ln)),
+                           dtype=torch.int32, device=device)
+    seq_lens = torch.as_tensor([128, 77], dtype=torch.int32, device=device)
+    valid = (torch.arange(Ln, device=device)[None, :] < seq_lens[:, None]).float()
+    kern, plain = model.with_wkv_impl("kernel"), model.with_wkv_impl("plain")
+    pert = perturbed_plain(model)
+    worst = {"out": (-1.0, 0.0, 0), "state": (-1.0, 0)}
+    with torch.no_grad():
+        x = layernorm(plain.embed_tokens(params, toks), params["ln0_s"],
+                      params["ln0_b"], cfg.norm_eps)
+        for g in range(cfg.num_layers):
+            pp = {k: v[g] for k, v in params["blocks"].items()}
+            h = layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
+            zero = torch.zeros_like(h[:, 0])
+            o_p, s_p, _ = plain._time_mix_seq(pp, h, zero, valid)
+            o_k, s_k, _ = kern._time_mix_seq(pp, h, zero, valid)
+            o_w, _, _ = pert._time_mix_seq(pp, h, zero, valid)
+            scale = float(o_p.float().abs().max())
+            rel, wit = max_err(o_k, o_p) / scale, max_err(o_w, o_p) / scale
+            limit = max(WITNESS_FACTOR * wit, BF16_HALF_ULP)
+            s_rel = max_err(s_k, s_p) / float(s_p.abs().max())
+            log(f"[rwkv layers] layer {g:2d}: output rel {rel:.3e} (witness "
+                f"{wit:.3e}, limit {limit:.3e}); state rel {s_rel:.3e} "
+                f"(limit {RWKV_CHAIN_TOL:g})")
+            check(bool(torch.isfinite(o_k.float()).all())
+                  and bool(torch.isfinite(s_k).all()),
+                  f"layer {g}: non-finite time-mix output or state")
+            check(rel <= limit, f"layer {g}: time-mix output, kernel vs plain "
+                                f"disagree")
+            check(s_rel <= RWKV_CHAIN_TOL, f"layer {g}: WKV state, kernel vs "
+                                           f"plain disagree")
+            if rel > worst["out"][0]:
+                worst["out"] = (rel, wit, g)
+            if s_rel > worst["state"][0]:
+                worst["state"] = (s_rel, g)
+            x, _ = plain._block_seq(x, pp, False, seq_lens)
+    log(f"[rwkv layers] {cfg.num_layers} layers {cfg.dtype}, teacher-forced: "
+        f"worst output rel {worst['out'][0]:.3e} (layer {worst['out'][2]}, "
+        f"witness {worst['out'][1]:.3e}); worst state rel "
+        f"{worst['state'][0]:.3e} (layer {worst['state'][1]})")
+
+
 def serve_trace(vocab_size: int = 151934):
     tok = HashTokenizer(vocab_size=vocab_size)
     ds = make_dataset("rotten", num_rows=1000, seed=SEED)
@@ -300,10 +555,17 @@ def serve_trace(vocab_size: int = 151934):
                        tokenizer=tok)
 
 
+# (kv backend, max_slots) of each path's serve; rwkv6-7b runs with as many
+# slots as layers on purpose (a slot axis found by its size would be wrong)
+SERVE = {"qwen3-1.7b": ("paged", 64), "rwkv6-7b": ("dense", 32)}
+
+
 def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
+    arch = model.cfg.name
+    backend, max_slots = SERVE[arch]
     trace = copy.deepcopy(trace)
-    engine = build_real_engine("qwen3-1.7b", "relserve", "paged", model=model,
-                               params=params, max_slots=64, max_len=1024,
+    engine = build_real_engine(arch, "relserve", backend, model=model,
+                               params=params, max_slots=max_slots, max_len=1024,
                                engine_loop=loop, device=device)
     ex = engine.executor
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -319,16 +581,23 @@ def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
         for r in rq.requests:
             check(1 <= len(r.output_tokens) <= r.max_output_tokens,
                   f"{loop}: {r.req_id} emitted {len(r.output_tokens)} tokens")
-    ex.bm.check_invariants()
-    check(ex.bm.free_blocks == ex.bm.num_blocks and ex.kv_tokens_resident() == 0,
-          f"{loop}: the paged pool did not drain")
+    if backend == "paged":
+        ex.bm.check_invariants()
+        check(ex.bm.free_blocks == ex.bm.num_blocks
+              and ex.kv_tokens_resident() == 0,
+              f"{loop}: the paged pool did not drain")
+        where = f"pool {ex.num_blocks + 1} blocks"
+    else:
+        check(all(s is None for s in ex.slots) and not ex._slot_of,
+              f"{loop}: a dense slot was not freed")
+        where = f"{max_slots} dense slots"
     fitted = ex.fitted_model()
-    log(f"[serve] {loop}: {len(report.latencies)} relQueries, "
+    log(f"[serve] {arch} {backend} {loop}: {len(report.latencies)} relQueries, "
         f"{sum(len(rq.requests) for rq in trace)} requests, {n_tok} tokens; "
         f"latency avg {report.avg_latency:.4f}s p50 {report.percentile(50):.4f}s "
         f"p99 {report.percentile(99):.4f}s; wall {wall:.3f}s, "
         f"{n_tok / wall:.1f} tokens/s; {len(report.events)} batches; "
-        f"pool {ex.num_blocks + 1} blocks; fitted alpha_p {fitted.alpha_p:.3e} "
+        f"{where}; fitted alpha_p {fitted.alpha_p:.3e} "
         f"beta_p {fitted.beta_p:.3e} alpha_d {fitted.alpha_d:.3e} "
         f"beta_d {fitted.beta_d:.3e}; {card}")
     streams = [tuple(r.output_tokens) for rq in trace for r in rq.requests]
@@ -338,23 +607,29 @@ def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
     return streams
 
 
-def phase_serve(model, params) -> dict:
+def phase_serve(model, params, *, exact: bool = False) -> dict:
+    """Serial then pipelined serve; each must launch the kernels of this
+    model's own path. ``exact``: the two runs' streams must be identical.
+    Returns this path's launch counts."""
     card = nvidia_smi_line()
-    trace = serve_trace()
+    trace = serve_trace(model.cfg.vocab_size - 2)
     ops.reset_launch_counts()
     serial = run_serve(model, params, trace, "serial", card=card)
     after_serial = ops.launch_counts()
     pipelined = run_serve(model, params, trace, "pipelined", card=card)
     counts = ops.launch_counts()
-    log(f"[serve] launches: serial {after_serial}, serial + pipelined {counts}")
-    for name in build.KERNELS:
+    log(f"[serve] {model.cfg.name} launches: serial {after_serial}, "
+        f"serial + pipelined {counts}")
+    for name in model.KERNELS:
         check(after_serial[name] > 0, f"serial serve never launched {name}")
         check(counts[name] > after_serial[name],
               f"pipelined serve never launched {name}")
     same = sum(a == b for a, b in zip(serial, pipelined)) / len(serial)
-    log(f"[serve] identical streams serial vs pipelined: {same:.3f} "
-        f"({card})")
-    return counts
+    log(f"[serve] {model.cfg.name} identical streams serial vs pipelined: "
+        f"{same:.3f} ({card})")
+    if exact:
+        check(serial == pipelined, "serial and pipelined streams differ")
+    return {name: counts[name] for name in model.KERNELS}
 
 
 def phase_times(errs: dict, counts: dict) -> list:
@@ -413,6 +688,43 @@ def phase_times(errs: dict, counts: dict) -> list:
                 "plain_ms": plain, "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": lib})
+
+    # rwkv6_chunk at the model's prefill chunk: r/k/v bf16 [1, 16, 64, 64],
+    # logw / u / state f32, o f32
+    args = rwkv_inputs(torch.bfloat16)
+    r, k, v, logw, u, s0 = args
+    B, c, H, K = r.shape
+    V = v.shape[3]
+    outs = ops.rwkv6_chunk(*args, out_dtype=torch.float32)
+    nbytes = (sum(x.numel() * x.element_size() for x in args)
+              + sum(x.numel() * x.element_size() for x in outs))
+    pairs = c * (c - 1) // 2
+    flops = B * H * (4 * c * K * V           # o = rd @ S + S' = ks^T v
+                     + c * (c + 1) * V       # A @ v, lower triangle
+                     + 4 * pairs * K         # decayed products of A
+                     + 3 * c * K + K * V)    # diagonal, decay of S
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*args, out_dtype=torch.float32))
+    plain = cuda_time_ms(lambda: ref.rwkv6_chunk_plain(*args,
+                                                       out_dtype=torch.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ops.rwkv6_chunk(*args, out_dtype=torch.float32)
+    issue = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    log(f"[times] rwkv6_chunk r={list(r.shape)} bf16, o f32: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bound:.4f} ms (flops {flops}, bytes "
+        f"{nbytes}), library null; host issue {issue:.4f} ms per call")
+    out.append({"name": "rwkv6_chunk", "route": "cuda",
+                "source": SOURCES["rwkv6_chunk"],
+                "replaces": REPLACES["rwkv6_chunk"],
+                "launches": counts["rwkv6_chunk"],
+                "max_abs_err": errs["rwkv6_chunk"], "ms": ms,
+                "plain_ms": plain, "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None})
     return out
 
 
@@ -439,7 +751,8 @@ def phase_profile(model, params, device="cuda") -> None:
         log("[profile] the profiler recorded no device time: not measured")
         return
     launches = sum(e.count for e in kernels)
-    log(f"[profile] serial serve under the profiler: wall {wall_us / 1e3:.1f} ms, "
+    log(f"[profile] {model.cfg.name} serial serve under the profiler: wall "
+        f"{wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall, "
         f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
@@ -448,18 +761,48 @@ def phase_profile(model, params, device="cuda") -> None:
             f"{e.key[:90]}")
 
 
+def load_model(arch: str, dtype: str = ""):
+    cfg, model, params = full_model(arch, dtype)
+    log(f"[model] {cfg.name}: {model.param_count() / 1e9:.3f}B params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}")
+    return cfg, model, params
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
     errs = phase_kernels()
-    cfg, model, params = full_model()
-    log(f"[model] {cfg.name}: {model.param_count() / 1e9:.3f}B params, "
-        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}")
-    phase_model(cfg, model, params)
+
+    cfg, model, params = load_model("qwen3-1.7b")
+    phase_model_qwen(cfg, model, params)
     counts = phase_serve(model, params)
-    kernels = phase_times(errs, counts)
     phase_profile(model, params)
+    del cfg, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model, params = load_model("rwkv6-7b", dtype="float32")
+    phase_model_rwkv(cfg, model, params, RWKV_F32_REL_TOL)
+    del cfg, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model, params = load_model("rwkv6-7b")
+    n = RWKV_BF16_LAYERS
+    phase_model_rwkv(cfg.replace(num_layers=n), model.with_layers(n),
+                     dict(params, blocks={k: v[:n] for k, v
+                                          in params["blocks"].items()}),
+                     MODEL_REL_TOL)
+    phase_layers_rwkv(cfg, model, params)
+    phase_model_rwkv(cfg, model, params, None)
+    counts.update(phase_serve(model, params, exact=True))
+    phase_profile(model, params)
+    del cfg, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels = phase_times(errs, counts)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

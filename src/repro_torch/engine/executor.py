@@ -7,8 +7,9 @@ with ``execute`` as the serial composition — plus ``release_request`` /
 ``validate_relquery`` / ``prestage`` / ``fitted_model``, the four swap hooks
 and ``kv_tokens_resident``):
 
-``RealExecutor`` — the dense baseline. ``max_slots`` decode cache slots of
-``max_len`` tokens each; prefill assigns slots one request at a time with
+``RealExecutor`` — the dense baseline, for any model family: ``max_slots``
+decode cache slots (``max_len`` tokens each for attention, one recurrent
+state each for RWKV6); prefill assigns slots one request at a time with
 bucketed padding, decode runs one ``decode_step`` over all slots. Kept
 bit-identical as the reference the paged backend is pinned against.
 
@@ -21,9 +22,9 @@ versions. Prefix-sharing chains map to physically shared (ref-counted) blocks
 with copy-on-write on divergence; preemption releases real blocks.
 
 PyTorch runs eagerly, so there is no ahead-of-time compile to keep out of the
-samples; what takes its place on CUDA is the kernel build, done in the paged
-executor's constructor. KV pools and caches are updated in place. Swapped-out
-KV is copied synchronously to host memory.
+samples; what takes its place on CUDA is the build of the model's kernels,
+done in the executors' constructors. KV pools and caches are updated in
+place. Swapped-out KV is copied synchronously to host memory.
 
 Both are the calibration source for the linear batch-cost model (paper
 Fig. 7): ``fitted_model()`` fits α/β from measured (tokens, duration) /
@@ -163,9 +164,14 @@ class Slot:
 
 
 class RealExecutor(_ExecutorBase):
-    """Dense per-slot KV backend (the bit-identical baseline). The dense
-    cache is ``{"k_full", "v_full"}`` of ``[G, 1, max_slots, max_len, KVs,
-    hd]``; axis 2 is the slot axis."""
+    """Dense per-slot cache backend (the bit-identical baseline), for any
+    model family. The cache is the model's ``init_cache(max_slots, max_len)``
+    (``k_full``/``v_full [G, 1, slots, max_len, KVs, hd]`` for attention,
+    ``state``/``tm_shift``/``cm_shift`` with slots on axis 1 for RWKV6); the
+    model's ``cache_slot_axes()`` names each entry's slot axis. The slot axis
+    is never guessed from the shapes, as the reference's ``_slot_axis`` does
+    (``repro/engine/executor.py:218-225``): with ``max_slots`` equal to the
+    layer count that search takes the layer axis of a recurrent state."""
 
     def __init__(self, model, params, *, max_slots: int = 32, max_len: int = 512,
                  prefix_cache: Optional[PrefixCache] = None, greedy: bool = True):
@@ -173,6 +179,10 @@ class RealExecutor(_ExecutorBase):
                          prefix_cache=prefix_cache, greedy=greedy)
         self.max_slots = max_slots
         self.cache = model.init_cache(max_slots, max_len, self.device)
+        self.slot_axes: Dict[str, int] = model.cache_slot_axes()
+        if self.device.type != "cpu":
+            # build time lands here, never in a batch's sample
+            build.build(model.KERNELS)
         self.slots: List[Optional[Slot]] = [None] * max_slots
         self._slot_of: Dict[str, int] = {}
         # host KV tier: req_id -> (request, slot position, {name: host slice})
@@ -182,6 +192,11 @@ class RealExecutor(_ExecutorBase):
         self._prestaged: Dict[str, Dict[str, torch.Tensor]] = {}
 
     # ------------------------------------------------------------------ slots
+    def _slot_view(self, name: str, i: int) -> torch.Tensor:
+        """Slot ``i`` of cache entry ``name``, as a view that keeps the slot
+        axis (size 1)."""
+        return self.cache[name].narrow(self.slot_axes[name], i, 1)
+
     def _alloc_slot(self, req: Request) -> int:
         for i, s in enumerate(self.slots):
             if s is None:
@@ -211,8 +226,8 @@ class RealExecutor(_ExecutorBase):
         if i is None:
             return 0.0
         slot = self.slots[i]
-        stash = {name: c[:, :, i:i + 1].to("cpu", copy=True)
-                 for name, c in self.cache.items()}
+        stash = {name: self._slot_view(name, i).to("cpu", copy=True)
+                 for name in self.cache}
         self._host_stash[req_id] = (slot.req, slot.position, stash)
         self._free_slot(req_id)
         return 0.0
@@ -243,8 +258,8 @@ class RealExecutor(_ExecutorBase):
         req, position, stash = entry
         stash = self._prestaged.pop(req_id, None) or stash
         i = self._alloc_slot(req)
-        for name, c in self.cache.items():
-            c[:, :, i:i + 1] = stash[name].to(self.device, c.dtype)
+        for name in self.cache:
+            self._slot_view(name, i).copy_(stash[name])
         self.slots[i].position = position
         return 0.0
 
@@ -264,19 +279,32 @@ class RealExecutor(_ExecutorBase):
             self.params, self._ints(toks), seq_lens=self._ints(np.array([n], np.int32)),
             max_len=self.max_len)
         slot = self._alloc_slot(req)
-        for name, c in self.cache.items():
-            c[:, :, slot:slot + 1] = kv[name].to(c.dtype)
+        for name in self.cache:
+            self._slot_view(name, slot).copy_(kv[name])
         self.slots[slot].position = n
         return logits, utok
 
     # ------------------------------------------------------------------ decode
     def _decode_issue(self, reqs: List[Request]) -> object:
+        """One ``decode_step`` over all ``max_slots`` rows.
+
+        For attention, occupied rows that are not in ``reqs`` (a request
+        prefilled in this same batch) point at their own next position with
+        their own last token: ``decode_step`` writes every row's K/V at
+        ``positions[i]``, and that write is idempotent (the row's own next
+        decode rewrites it before any read), never at (token 0, position 0),
+        which would corrupt a live slot.
+
+        For a recurrent cache (``model.RECURRENT_CACHE``) no such write is
+        harmless, so those rows' cache slices are copied before the step and
+        written back after it. Here the port departs from the reference
+        (``repro/engine/executor.py:393-400``), which lets them advance: it
+        folds a spurious step into the fresh request's state, and whether
+        that happens depends on whether the tick also decoded, i.e. on
+        measured timing. The port keeps every row exact, so its streams do
+        not depend on batch composition."""
         tokens = np.zeros((self.max_slots,), np.int32)
         positions = np.zeros((self.max_slots,), np.int32)
-        # decode_step writes every row's K/V at positions[i]: occupied
-        # off-batch rows point at their own next position with their own
-        # last token (an idempotent write whose logits are discarded), never
-        # at (token 0, position 0), which would corrupt a live slot.
         for i, s in enumerate(self.slots):
             if s is not None:
                 tokens[i] = s.req.output_tokens[-1] if s.req.output_tokens else 0
@@ -285,8 +313,20 @@ class RealExecutor(_ExecutorBase):
             i = self._slot_of[r.req_id]
             tokens[i] = r.output_tokens[-1] if r.output_tokens else 0
             positions[i] = self.slots[i].position
+        off = []
+        if self.model.RECURRENT_CACHE:
+            in_batch = {self._slot_of[r.req_id] for r in reqs}
+            off = [i for i, s in enumerate(self.slots)
+                   if s is not None and i not in in_batch]
+        if off:
+            rows = self._ints(np.asarray(off, np.int64))
+            kept = {name: c.index_select(self.slot_axes[name], rows)
+                    for name, c in self.cache.items()}
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._ints(tokens), self._ints(positions))
+        if off:
+            for name, c in self.cache.items():
+                c.index_copy_(self.slot_axes[name], rows, kept[name])
         for r in reqs:
             self.slots[self._slot_of[r.req_id]].position += 1
         return logits
@@ -397,7 +437,7 @@ class PagedRealExecutor(_ExecutorBase):
         self.attn_impl = "ref" if on_cpu else "kernel"
         if not on_cpu:
             # build time lands here, never in a batch's sample
-            build.build()
+            build.build(model.KERNELS)
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.scratch_block = num_blocks          # pools hold one extra page

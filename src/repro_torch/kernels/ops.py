@@ -1,4 +1,4 @@
-"""Device dispatch for the attention kernels, and their launch counters.
+"""Device dispatch for the kernels, and their launch counters.
 
 A CUDA tensor goes to the hand-written CUDA kernel (or the wrapper raises);
 a CPU tensor goes to the plain version in ``ref``, which is what the CPU
@@ -12,6 +12,7 @@ from typing import Dict
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk_cuda
 
 _launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
 
@@ -37,6 +38,16 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     out = flash_prefill_cuda(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     _launches["flash_prefill"] += 1
+    return out
+
+
+def rwkv6_chunk(r, k, v, logw, u, state, *, out_dtype=None):
+    """See ``rwkv6_chunk.py`` for layouts. Returns (o, new state)."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_chunk_plain(r, k, v, logw, u, state,
+                                     out_dtype=out_dtype)
+    out = rwkv6_chunk_cuda(r, k, v, logw, u, state, out_dtype=out_dtype)
+    _launches["rwkv6_chunk"] += 1
     return out
 
 

@@ -1,9 +1,16 @@
-"""Plain PyTorch versions of the attention kernels: the oracles
-``paged_attention_ref`` / ``flash_prefill_ref`` of ``repro/kernels/ref.py``.
+"""Plain PyTorch versions of the kernels.
+
+- ``paged_attention_ref`` / ``flash_prefill_ref``: the oracles of
+  ``repro/kernels/ref.py``; both compute in float32 and cast the result to q's
+  dtype.
+- ``rwkv6_chunk_plain``: the chunked form of one WKV6 chunk, as the model
+  computes it (``repro/models/rwkv6.py::wkv6_chunk``), and what the Pallas
+  kernel ``repro/kernels/rwkv6_chunk.py`` computes.
+- ``rwkv6_chunk_ref``: the token-by-token recurrence, the oracle of
+  ``repro/kernels/ref.py::rwkv6_chunk_ref`` that the chunked form is held to.
 
 The CPU tests run them, ``chip_smoke.py`` holds the CUDA kernels against them
-on the card, and ``ops`` dispatches to them for CPU tensors. Both compute in
-float32 and cast the result to q's dtype.
+on the card, and ``ops`` dispatches to them for CPU tensors.
 """
 from __future__ import annotations
 
@@ -62,3 +69,48 @@ def flash_prefill_ref(q, k, v, *, causal=True, q_offset=0, window=0):
     p = torch.softmax(s_, dim=-1)
     o = torch.einsum("bgsrt,bgth->bgsrh", p, v.float())
     return o.to(q.dtype)
+
+
+def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None):
+    """One chunk of the WKV6 recurrence, all in float32.
+
+    r/k/logw: [B, c, H, K]; v: [B, c, H, V]; u: [H, K]; state: [B, H, K, V].
+    Returns (o [B, c, H, V] in ``out_dtype`` — r's dtype by default, as the
+    Pallas kernel writes it — and the new state [B, H, K, V] in float32)."""
+    out_dtype = out_dtype or r.dtype
+    r, k, v, logw, u = (x.float() for x in (r, k, v, logw, u))
+    state = state.float()
+    c = r.shape[1]
+    ldi = torch.cumsum(logw, dim=1)              # inclusive decay log-sums
+    lde = ldi - logw                             # exclusive
+    # inter-chunk: the carried state's contribution
+    o_inter = torch.einsum("bthk,bhkv->bthv", r * torch.exp(lde), state)
+    # intra-chunk: A[t,j] = sum_k r[t,k] k[j,k] exp(lde[t]-ldi[j]), j < t
+    diff = lde[:, :, None] - ldi[:, None, :]     # [B, t, j, H, K]
+    tri = (torch.arange(c, device=r.device)[:, None]
+           > torch.arange(c, device=r.device)[None, :])[None, :, :, None, None]
+    w_decay = torch.where(tri, torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+    A = torch.einsum("bthk,bjhk,btjhk->bthj", r, k, w_decay)
+    diag = torch.einsum("bthk,bthk,hk->bth", r, k, u)
+    A = A + torch.eye(c, device=r.device)[None, :, None, :] * diag[..., None]
+    o = o_inter + torch.einsum("bthj,bjhv->bthv", A, v)
+    # state update: S' = diag(d_total) S + sum_j (k_j exp(ldi[-1]-ldi[j])) v_j^T
+    d_total = torch.exp(ldi[:, -1])              # [B, H, K]
+    k_scaled = k * torch.exp(ldi[:, -1][:, None] - ldi)
+    new_state = (state * d_total[..., None]
+                 + torch.einsum("bjhk,bjhv->bhkv", k_scaled, v))
+    return o.to(out_dtype), new_state
+
+
+def rwkv6_chunk_ref(r, k, v, logw, u, state):
+    """Naive sequential recurrence, in float32. r/k/v/logw: [B, c, H, K];
+    u: [H, K]; state: [B, H, K, V] -> (o [B, c, H, V], state)."""
+    r, k, v, logw, u = (x.float() for x in (r, k, v, logw, u))
+    state = state.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t][..., :, None] * v[:, t][..., None, :]       # [B, H, K, V]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 state + u[None, :, :, None] * kv))
+        state = state * torch.exp(logw[:, t])[..., None] + kv
+    return torch.stack(outs, dim=1), state

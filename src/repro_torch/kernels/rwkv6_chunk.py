@@ -1,0 +1,103 @@
+"""RWKV6 chunked-WKV kernel: the Python side of ``csrc/rwkv6_chunk.cu``
+(CUDA C++ for sm_90a), which replaces the Pallas kernel
+``repro/kernels/rwkv6_chunk.py``.
+
+Layouts:
+  r, k, logw [B, c, H, K]; v [B, c, H, V]; u [H, K]; state [B, H, K, V]
+  -> o [B, c, H, V], new state [B, H, K, V] (float32)
+
+r/k/v/logw may be strided views (the model hands over chunk slices of its
+``[B, S, H, K]`` projections); only the last dim must be contiguous. r, k
+and v are float32 or bfloat16, all three alike; logw is float32 or r's
+dtype; u and state are contiguous float32. ``o`` is written in ``out_dtype``,
+r's dtype by default as the Pallas kernel writes it (the model asks for
+float32, as its ``wkv6_chunk`` keeps it).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNKS = (16, 32, 64)
+MAX_HEAD_DIM = 64
+
+_launch = None
+
+
+def _launcher():
+    global _launch
+    if _launch is None:
+        fn = build.load("rwkv6_chunk").rwkv6_chunk_launch
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
+
+
+def _check(r, k, v, logw, u, state, out_dtype):
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"rwkv6_chunk_cuda needs CUDA tensors, got {dev}")
+    names = ("r", "k", "v", "logw", "u", "state")
+    for name, x in zip(names, (r, k, v, logw, u, state)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, r on {dev}")
+    if (r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype
+            or logw.dtype not in (torch.float32, r.dtype)
+            or u.dtype != torch.float32 or state.dtype != torch.float32
+            or out_dtype not in _DTYPES):
+        raise ValueError(
+            f"dtypes r {r.dtype} k {k.dtype} v {v.dtype} logw {logw.dtype} "
+            f"u {u.dtype} state {state.dtype} out {out_dtype}: r/k/v must be "
+            f"one of {list(_DTYPES)} alike, logw float32 or r's dtype, u and "
+            f"state float32, out one of {list(_DTYPES)}")
+    if r.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"shapes r {tuple(r.shape)} v {tuple(v.shape)}: "
+                         f"need [B, c, H, K] and [B, c, H, V]")
+    B, c, H, K = r.shape
+    V = v.shape[3]
+    if (k.shape != r.shape or logw.shape != r.shape
+            or tuple(v.shape[:3]) != (B, c, H) or tuple(u.shape) != (H, K)
+            or tuple(state.shape) != (B, H, K, V)):
+        raise ValueError(
+            f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+            f"logw {tuple(logw.shape)} u {tuple(u.shape)} "
+            f"state {tuple(state.shape)} do not agree")
+    if c not in CHUNKS:
+        raise ValueError(f"chunk length {c} must be one of {CHUNKS}")
+    for name, d in (("K", K), ("V", V)):
+        if d > MAX_HEAD_DIM or d % 16:
+            raise ValueError(f"head dim {name} = {d} must be a multiple of 16 "
+                             f"and at most {MAX_HEAD_DIM}")
+    for name, x in zip(names[:4], (r, k, v, logw)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    if not (u.is_contiguous() and state.is_contiguous()):
+        raise ValueError("u and state must be contiguous")
+
+
+def rwkv6_chunk_cuda(r, k, v, logw, u, state, *, out_dtype=None):
+    """Launch the kernel on the current stream; raises on any input it does
+    not take. Returns (o, new state), both new tensors."""
+    out_dtype = out_dtype or r.dtype
+    _check(r, k, v, logw, u, state, out_dtype)
+    B, c, H, K = r.shape
+    V = v.shape[3]
+    out = torch.empty((B, c, H, V), dtype=out_dtype, device=r.device)
+    s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    strides = [s for x in (r, k, v, logw) for s in x.stride()[:3]]
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                      u.data_ptr(), state.data_ptr(), out.data_ptr(),
+                      s_out.data_ptr(), B, c, H, K, V, *strides,
+                      _DTYPES[r.dtype], _DTYPES[logw.dtype],
+                      _DTYPES[out_dtype], stream)
+    if err:
+        raise RuntimeError(f"rwkv6_chunk kernel launch failed: CUDA error {err}")
+    return out, s_out

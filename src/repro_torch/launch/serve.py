@@ -5,10 +5,14 @@ Real mode of ``repro/launch/serve.py``: a smoke-scale model of ``--arch``
 with random weights from ``--seed``, one replica, driven closed-loop through
 the Frontend shim or, with ``--open-loop``, as a scripted open-loop session
 (mid-flight submission, token streaming, cancellation, a live snapshot).
-``--simulate``, ``--plan`` and ``--num-replicas > 1`` are not ported yet.
+``--arch`` takes the dense archs (qwen3-1.7b, qwen2-0.5b) on either KV
+backend and rwkv6-7b on the dense backend (``--kv-backend paged`` exits, as
+the reference refuses it). ``--simulate``, ``--plan`` and
+``--num-replicas > 1`` are not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-backend paged
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --num-relqueries 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
 """
 from __future__ import annotations
 

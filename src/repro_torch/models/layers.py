@@ -1,5 +1,6 @@
-"""Model primitives of the port: norms, RoPE, blockwise attention, decode
-attention against a dense KV cache, KV-cache writes and the SwiGLU MLP.
+"""Model primitives of the port: norms (RMS, layer, per-head group), RoPE,
+blockwise attention, decode attention against a dense KV cache, KV-cache
+writes and the SwiGLU MLP.
 
 PyTorch counterparts of ``repro/models/layers.py`` that keep its layouts and
 its dtype roundings, so both packages compare like with like:
@@ -37,6 +38,29 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (population variance, as ``jnp.var``), cast back
+    to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm over the trailing head dim (RWKV6), in float32,
+    cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return (((x - mu) * torch.rsqrt(var + eps)) * scale.float()).to(dt)
 
 
 def act_fn(name: str):

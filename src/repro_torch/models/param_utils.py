@@ -3,7 +3,7 @@
 A template tree mirrors the parameter tree (nested dicts); leaves are
 ``ParamTemplate``. ``init_params`` draws every leaf from one explicit
 ``torch.Generator`` on that generator's device, with the reference's
-distributions: normal / sqrt(fan_in), zeros, or a custom draw.
+distributions: normal / sqrt(fan_in), zeros, ones, or a custom draw.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 @dataclass(frozen=True)
 class ParamTemplate:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal | zeros | ones
     fan_in: Optional[int] = None  # overrides scale for 'normal'
     # generator -> float32 tensor on the generator's device (packed weights)
     custom: Optional[Callable[[torch.Generator], torch.Tensor]] = None
@@ -44,6 +44,8 @@ def init_params(templates, generator: torch.Generator,
             return tm.custom(generator).to(dtype)
         if tm.init == "zeros":
             return torch.zeros(tm.shape, dtype=dtype, device=device)
+        if tm.init == "ones":
+            return torch.ones(tm.shape, dtype=dtype, device=device)
         fan_in = tm.fan_in if tm.fan_in is not None else (
             tm.shape[-2] if len(tm.shape) >= 2 else tm.shape[-1])
         std = 1.0 / math.sqrt(max(1, fan_in))

@@ -1,0 +1,348 @@
+"""RWKV6 "Finch": attention-free token mixing with data-dependent per-channel
+decay. The PyTorch counterpart of ``repro/models/rwkv6.py::RWKV6Model``.
+
+Prefill runs the chunked form of the WKV recurrence: a Python loop over
+chunks of ``_chunk_size(S)`` tokens, each one call of ``ops.rwkv6_chunk``
+(the hand-written CUDA kernel for CUDA tensors, its plain version on the
+CPU) carrying a ``[B, H, K, V]`` float32 state. Decode is the one-token
+recurrence ``wkv6_decode`` in plain PyTorch, as the reference has no kernel
+for it.
+
+Parameters are an explicit tree of tensors with the reference's keys and
+layouts (per-layer params stacked ``[L, ...]``), so weights carry across from
+the JAX package unchanged (``repro_torch.bridge``). Caches keep the
+reference's layouts: ``state [L, B, H, K, V]`` in float32 and ``tm_shift`` /
+``cm_shift [L, B, D]`` in the model dtype. The dtype flow is the
+reference's: products of model-dtype operands, the decay and the bonus in
+float32, the WKV output and its group norm in float32, cast back to the model
+dtype before the gate.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as L
+from repro_torch.models.param_utils import count_params, init_params, t
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MIX_NAMES = ("w", "k", "v", "r", "g")
+CACHE_NAMES = ("state", "tm_shift", "cm_shift")
+
+
+def _chunk_size(seq: int) -> int:
+    # <= 128 chunk steps; chunks of at least 16 tokens
+    c = max(16, seq // 128)
+    while seq % c:
+        c //= 2
+    return max(c, 1)
+
+
+def wkv6_decode(r, k, v, logw, u, state):
+    """Single-token WKV6 step in float32. r/k/v/logw: [B, H, K];
+    state: [B, H, K, V] -> (out [B, H, V], new state)."""
+    r, k, v, logw = (x.float() for x in (r, k, v, logw))
+    state = state.float()
+    kv = k[..., :, None] * v[..., None, :]                 # [B, H, K, V]
+    out = torch.einsum("bhk,bhkv->bhv", r, state + u[None, :, :, None] * kv)
+    new_state = state * torch.exp(logw)[..., None] + kv
+    return out, new_state
+
+
+class RWKV6Model(nn.Module):
+    """Inference model over an explicit parameter tree."""
+
+    # kernels the model's sequence path launches on CUDA
+    KERNELS = ("rwkv6_chunk",)
+    # every decode step folds its token into each row's state
+    RECURRENT_CACHE = True
+    # WKV chunk implementation: 'kernel' goes through ops.rwkv6_chunk (the
+    # CUDA kernel for CUDA tensors, the plain version on the CPU); 'plain'
+    # always runs the plain version. Instance-level; see with_wkv_impl().
+    wkv_impl = "kernel"
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.d_model % cfg.rwkv_head_dim:
+            raise ValueError(f"{cfg.name}: d_model {cfg.d_model} is not a "
+                             f"multiple of rwkv_head_dim {cfg.rwkv_head_dim}")
+        self.cfg = cfg
+        self.n_heads = cfg.d_model // cfg.rwkv_head_dim
+        self.n_groups = cfg.num_layers
+        self.group = 1
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.cfg.dtype]
+
+    # ---------------------------------------------------------------- params
+    def templates(self):
+        cfg = self.cfg
+        Lyr, D, F_ = cfg.num_layers, cfg.d_model, cfg.d_ff
+        mlo, dlo = cfg.rwkv_mix_lora, cfg.rwkv_decay_lora
+        blocks = {
+            "ln1_s": t((Lyr, D), "ones"),
+            "ln1_b": t((Lyr, D), "zeros"),
+            "ln2_s": t((Lyr, D), "ones"),
+            "ln2_b": t((Lyr, D), "zeros"),
+            # time-mix ddlerp
+            "mu_base": t((Lyr, D), "zeros"),
+            "mu": t((Lyr, 5, D), "zeros"),
+            "lora_a": t((Lyr, D, 5 * mlo), fan_in=D),
+            "lora_b": t((Lyr, 5, mlo, D), "zeros"),
+            # projections
+            "w_r": t((Lyr, D, D), fan_in=D),
+            "w_k": t((Lyr, D, D), fan_in=D),
+            "w_v": t((Lyr, D, D), fan_in=D),
+            "w_g": t((Lyr, D, D), fan_in=D),
+            "w_o": t((Lyr, D, D), fan_in=D),
+            # decay
+            "w0": t((Lyr, D), "zeros"),
+            "wd1": t((Lyr, D, dlo), fan_in=D),
+            "wd2": t((Lyr, dlo, D), "zeros"),
+            "bonus": t((Lyr, D), "zeros"),
+            "gn": t((Lyr, D), "ones"),
+            # channel-mix
+            "mu_ck": t((Lyr, D), "zeros"),
+            "mu_cr": t((Lyr, D), "zeros"),
+            "wc_k": t((Lyr, D, F_), fan_in=D),
+            "wc_v": t((Lyr, F_, D), fan_in=F_),
+            "wc_r": t((Lyr, D, D), fan_in=D),
+        }
+        V = cfg.vocab_size          # one device: no tensor-parallel padding
+        return {
+            "embed": t((V, D), fan_in=D),
+            "ln0_s": t((D,), "ones"),
+            "ln0_b": t((D,), "zeros"),
+            "blocks": blocks,
+            "final_norm": t((D,), "zeros"),
+            "lm_head": t((D, V), fan_in=D),
+        }
+
+    def init_params(self, generator: torch.Generator):
+        """Random parameters on ``generator.device`` in the config's dtype."""
+        return init_params(self.templates(), generator, self.dtype)
+
+    def param_count(self) -> int:
+        return count_params(self.templates())
+
+    # ---------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int = 0, device=None):
+        """Recurrent cache: ``state [L, batch, H, K, K]`` float32 and the
+        token-shift rows ``tm_shift`` / ``cm_shift [L, batch, D]``.
+        ``max_len`` is unused: the cache does not grow with the sequence."""
+        cfg = self.cfg
+        H, K, Lyr = self.n_heads, cfg.rwkv_head_dim, cfg.num_layers
+        return {
+            "state": torch.zeros((Lyr, batch, H, K, K), dtype=torch.float32,
+                                 device=device),
+            "tm_shift": torch.zeros((Lyr, batch, cfg.d_model),
+                                    dtype=self.dtype, device=device),
+            "cm_shift": torch.zeros((Lyr, batch, cfg.d_model),
+                                    dtype=self.dtype, device=device),
+        }
+
+    @staticmethod
+    def cache_slot_axes() -> Dict[str, int]:
+        """Axis of each cache entry that indexes the sequence (slot)."""
+        return {name: 1 for name in CACHE_NAMES}
+
+    def supports_paged(self) -> bool:
+        """The recurrent cache has no pages: dense backend only."""
+        return False
+
+    # ------------------------------------------------------------- internals
+    def _ddlerp(self, pp, x, x_prev):
+        """Data-dependent token-shift interpolation -> dict of mixed inputs."""
+        dx = x_prev - x
+        base = x + dx * pp["mu_base"]
+        lora = torch.tanh(base @ pp["lora_a"])
+        mlo = self.cfg.rwkv_mix_lora
+        mixed = {}
+        for i, name in enumerate(MIX_NAMES):
+            delta = lora[..., i * mlo:(i + 1) * mlo] @ pp["lora_b"][i]
+            mixed[name] = x + dx * (pp["mu"][i] + delta)
+        return mixed
+
+    def _decay(self, pp, mix_w):
+        dw = pp["w0"].float() + (
+            torch.tanh(mix_w @ pp["wd1"]) @ pp["wd2"]).float()
+        # log decay in [-~20, -1e-9]: w = exp(-exp(dw))
+        return -torch.exp(torch.clamp(dw, -20.0, 10.0))
+
+    def _heads(self, x):
+        return x.reshape(*x.shape[:-1], self.n_heads, self.cfg.rwkv_head_dim)
+
+    def _wkv_chunk(self, r, k, v, logw, u, state):
+        """One chunk of the recurrence with ``o`` kept in float32, as the
+        model's ``wkv6_chunk`` keeps it (the Pallas kernel writes r's dtype)."""
+        fn = ref.rwkv6_chunk_plain if self.wkv_impl == "plain" else ops.rwkv6_chunk
+        return fn(r, k, v, logw, u, state, out_dtype=torch.float32)
+
+    def _time_mix_seq(self, pp, x, boundary, valid=None):
+        """x: [B, S, D] post-ln1; boundary: [B, D] last token of the previous
+        context; valid: [B, S] mask — pad tokens leave the WKV state untouched
+        (k := 0 kills their contribution, log w := 0 freezes decay)."""
+        B, S, D = x.shape
+        K = self.cfg.rwkv_head_dim
+        x_prev = torch.cat([boundary[:, None], x[:, :-1]], dim=1)
+        m = self._ddlerp(pp, x, x_prev)
+        r = self._heads(m["r"] @ pp["w_r"])
+        k = self._heads(m["k"] @ pp["w_k"])
+        v = self._heads(m["v"] @ pp["w_v"])
+        g = m["g"] @ pp["w_g"]
+        logw = self._heads(self._decay(pp, m["w"]))
+        if valid is not None:
+            vm = valid[:, :, None, None]
+            k = k * vm.to(k.dtype)
+            logw = logw * vm
+        u = self._heads(pp["bonus"].float())
+        c = _chunk_size(S)
+        state = torch.zeros((B, self.n_heads, K, K), dtype=torch.float32,
+                            device=x.device)
+        outs = []
+        for i in range(S // c):
+            sl = slice(i * c, (i + 1) * c)
+            o, state = self._wkv_chunk(r[:, sl], k[:, sl], v[:, sl],
+                                       logw[:, sl], u, state)
+            outs.append(o)
+        o = torch.cat(outs, dim=1)
+        o = L.groupnorm_heads(o, o.new_ones(())).reshape(B, S, D)
+        o = (o * pp["gn"].float()).to(self.dtype)
+        o = o * F.silu(g.float()).to(self.dtype)
+        return o @ pp["w_o"], state, x[:, -1]
+
+    def _channel_mix_seq(self, pp, x, boundary):
+        x_prev = torch.cat([boundary[:, None], x[:, :-1]], dim=1)
+        mk = x + (x_prev - x) * pp["mu_ck"]
+        mr = x + (x_prev - x) * pp["mu_cr"]
+        kk = torch.square(F.relu(mk @ pp["wc_k"]))
+        return torch.sigmoid(mr @ pp["wc_r"]) * (kk @ pp["wc_v"]), x[:, -1]
+
+    def _block_seq(self, x, pp, collect: bool, seq_lens=None):
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        valid = None
+        if seq_lens is not None:
+            valid = (torch.arange(S, device=x.device)[None, :]
+                     < seq_lens[:, None]).float()
+        h = L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
+        tm, state, tm_b = self._time_mix_seq(pp, h, torch.zeros_like(h[:, 0]),
+                                             valid)
+        x = x + tm
+        h2 = L.layernorm(x, pp["ln2_s"], pp["ln2_b"], cfg.norm_eps)
+        cm, cm_b = self._channel_mix_seq(pp, h2, torch.zeros_like(h2[:, 0]))
+        x = x + cm
+        if not collect:
+            return x, {}
+        if seq_lens is not None:  # token-shift boundaries at the last *valid* token
+            rows = torch.arange(B, device=x.device)
+            last = seq_lens.long() - 1
+            tm_b, cm_b = h[rows, last], h2[rows, last]
+        return x, {"state": state, "tm_shift": tm_b, "cm_shift": cm_b}
+
+    # ------------------------------------------------------------- public steps
+    def forward_hidden(self, params, embeds, *, collect_cache=False,
+                       seq_lens=None):
+        """embeds: [B, S, D] -> (hidden [B, S, D], caches | {}), caches stacked
+        ``[L, B, ...]`` as the reference's layer scan stacks them."""
+        cfg = self.cfg
+        x = L.layernorm(embeds, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+        blocks = params["blocks"]
+        per_layer = []
+        for g in range(self.n_groups):
+            pp = {k: v[g] for k, v in blocks.items()}
+            x, caches = self._block_seq(x, pp, collect_cache, seq_lens)
+            per_layer.append(caches)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if not collect_cache:
+            return x, {}
+        return x, {name: torch.stack([c[name] for c in per_layer])
+                   for name in CACHE_NAMES}
+
+    def embed_tokens(self, params, tokens):
+        return params["embed"][tokens.long()].to(self.dtype)
+
+    def logits(self, params, hidden):
+        lg = hidden @ params["lm_head"]
+        V, Vp = self.cfg.vocab_size, lg.shape[-1]
+        if Vp > V:
+            lg = torch.where(torch.arange(Vp, device=lg.device) < V, lg,
+                             L.NEG_INF)
+        return lg
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, *, seq_lens=None, max_len: int = 0):
+        """tokens [B, S] -> (last-token logits [B, V], caches). ``seq_lens``
+        masks pad tokens out of the recurrence; ``max_len`` is unused."""
+        B = tokens.shape[0]
+        embeds = self.embed_tokens(params, tokens)
+        hidden, caches = self.forward_hidden(params, embeds, collect_cache=True,
+                                             seq_lens=seq_lens)
+        if seq_lens is not None:
+            last = hidden[torch.arange(B, device=hidden.device),
+                          seq_lens.long() - 1]
+        else:
+            last = hidden[:, -1]
+        return self.logits(params, last), caches
+
+    def _block_decode(self, x, pp, cache):
+        cfg = self.cfg
+        h = L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
+        m = self._ddlerp(pp, h, cache["tm_shift"])
+        r = self._heads(m["r"] @ pp["w_r"])
+        k = self._heads(m["k"] @ pp["w_k"])
+        v = self._heads(m["v"] @ pp["w_v"])
+        g = m["g"] @ pp["w_g"]
+        logw = self._heads(self._decay(pp, m["w"]))
+        u = self._heads(pp["bonus"].float())
+        o, new_state = wkv6_decode(r, k, v, logw, u, cache["state"])
+        o = L.groupnorm_heads(o, o.new_ones(())).reshape(x.shape)
+        o = (o * pp["gn"].float()).to(self.dtype)
+        o = o * F.silu(g.float()).to(self.dtype)
+        x = x + o @ pp["w_o"]
+
+        h2 = L.layernorm(x, pp["ln2_s"], pp["ln2_b"], cfg.norm_eps)
+        mk = h2 + (cache["cm_shift"] - h2) * pp["mu_ck"]
+        mr = h2 + (cache["cm_shift"] - h2) * pp["mu_cr"]
+        kk = torch.square(F.relu(mk @ pp["wc_k"]))
+        x = x + torch.sigmoid(mr @ pp["wc_r"]) * (kk @ pp["wc_v"])
+        return x, {"state": new_state, "tm_shift": h, "cm_shift": h2}
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, positions):
+        """tokens: [B] int32 -> (logits [B, V], cache). Every row advances one
+        token; each layer's state and shifts are written into ``cache`` in
+        place. ``positions`` is unused: the recurrence has no positions."""
+        x = self.embed_tokens(params, tokens)
+        x = L.layernorm(x, params["ln0_s"], params["ln0_b"], self.cfg.norm_eps)
+        blocks = params["blocks"]
+        for g in range(self.n_groups):
+            pp = {k: v[g] for k, v in blocks.items()}
+            x, new_g = self._block_decode(x, pp, {n: cache[n][g]
+                                                  for n in CACHE_NAMES})
+            for n in CACHE_NAMES:
+                cache[n][g] = new_g[n]
+        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return self.logits(params, x), cache
+
+    def _sibling(self, cfg: ModelConfig, wkv_impl: str) -> "RWKV6Model":
+        m = type(self)(cfg)
+        m.wkv_impl = wkv_impl
+        return m
+
+    def with_layers(self, num_layers: int) -> "RWKV6Model":
+        return self._sibling(self.cfg.replace(num_layers=num_layers),
+                             self.wkv_impl)
+
+    def with_wkv_impl(self, impl: str) -> "RWKV6Model":
+        """A sibling model instance (same config, same parameter tree) whose
+        prefill chunks run via ``impl`` ('kernel' | 'plain')."""
+        if impl not in ("kernel", "plain"):
+            raise ValueError(f"unknown WKV impl {impl!r}")
+        return self._sibling(self.cfg, impl)

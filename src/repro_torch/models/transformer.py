@@ -32,6 +32,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class DenseTransformer(nn.Module):
     """Inference model over an explicit parameter tree."""
 
+    # kernels the model's paged path launches on CUDA
+    KERNELS = ("paged_attention", "flash_prefill")
+    # the dense cache is written at a row's position, not folded into a state
+    RECURRENT_CACHE = False
     # prefill attention implementation: 'block' (plain blockwise attention)
     # or 'flash' (the flash_prefill kernel on CUDA, its plain version on the
     # CPU). Instance-level; see with_prefill_attn().
@@ -123,6 +127,11 @@ class DenseTransformer(nn.Module):
                self.cfg.head_dim)
         return {"k_full": torch.zeros(shp, dtype=self.dtype, device=device),
                 "v_full": torch.zeros(shp, dtype=self.dtype, device=device)}
+
+    @staticmethod
+    def cache_slot_axes() -> Dict[str, int]:
+        """Axis of each dense-cache entry that indexes the sequence (slot)."""
+        return {"k_full": 2, "v_full": 2}
 
     # ---------------------------------------------------------------- paged cache
     def supports_paged(self) -> bool:

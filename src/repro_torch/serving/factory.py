@@ -1,6 +1,8 @@
 """Assemble a real serving stack: ``build_real_engine`` pairs the paper's
 scheduler (or a baseline) with a PyTorch executor on either KV backend (dense
-slots or the block-paged pool). The simulated multi-replica cluster
+slots or the block-paged pool). Every ported family serves on the dense
+backend (the dense transformers and RWKV6); the paged backend takes the
+dense transformers only. The simulated multi-replica cluster
 (``build_simulated_cluster`` in the JAX package) is not ported yet."""
 from __future__ import annotations
 
@@ -48,10 +50,11 @@ def build_real_engine(arch: str = "qwen3-1.7b", scheduler: str = "relserve",
                       device=None, **executor_kw):
     """A single-replica real serving engine on the chosen KV backend.
 
-    ``kv_backend='dense'`` is the per-slot baseline; ``'paged'`` runs the
-    block-paged executor (BlockManager pools + paged-attention decode), with
-    physically shared prefix blocks whenever the scheduler runs with
-    ``prefix_sharing=True``. Without ``model``/``params`` the arch's smoke
+    ``kv_backend='dense'`` is the per-slot baseline, for any ported family;
+    ``'paged'`` runs the block-paged executor (BlockManager pools +
+    paged-attention decode), with physically shared prefix blocks whenever
+    the scheduler runs with ``prefix_sharing=True``, and raises
+    ``NotImplementedError`` for a model without paged KV (RWKV6). Without ``model``/``params`` the arch's smoke
     config is built with random weights from ``seed`` on ``device``; passed
     ``params`` must already live on ``device``. ``device=None`` means CUDA
     (see ``resolve_device``).

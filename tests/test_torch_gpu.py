@@ -7,8 +7,9 @@ tests. Run them on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are those of tests/test_kernels.py (f32 1e-5; bf16 2e-2 for paged
-attention, 3e-2 for flash prefill). TF32 is off: the plain versions' float32
-products must run in full float32.
+attention, 3e-2 for flash prefill; rwkv6_chunk 5e-4 in f32, 1e-3 over a chain
+of chunks against the sequential oracle). TF32 is off: the plain versions'
+float32 products must run in full float32.
 """
 import numpy as np
 import pytest
@@ -158,6 +159,153 @@ def test_paged_engine_on_the_card_launches_both_kernels(card):
         if backend == "paged":
             assert counts["paged_attention"] > 0 and counts["flash_prefill"] > 0
         else:
-            assert counts == {"paged_attention": 0, "flash_prefill": 0}
+            assert not any(counts.values()), counts
     same = sum(a == b for a, b in zip(streams["dense"], streams["paged"]))
     assert same >= len(streams["dense"]) - 1
+
+
+def _rwkv_inputs(card, B, c, H, K, dtype, w_dtype, seed=5, T=None):
+    """Inputs as tests/test_kernels.py draws them: logw = -exp(0.5 randn),
+    u = 0.1 randn, state randn. With ``T`` the r/k/v/logw tensors span T
+    tokens (the model's [B, S, H, K] projections) for chunk views."""
+    rng = np.random.RandomState(seed)
+    T = T or c
+    r, k, v = (_t(rng.randn(B, T, H, K), dtype, card) for _ in range(3))
+    logw = _t(-np.exp(0.5 * rng.randn(B, T, H, K)), w_dtype, card)
+    u = _t(0.1 * rng.randn(H, K), "float32", card)
+    s0 = _t(rng.randn(B, H, K, K), "float32", card)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("B,c,H,K,dtype,w_dtype,out", [
+    (1, 16, 64, 64, "bfloat16", "float32", "float32"),   # rwkv6-7b prefill chunk
+    (1, 32, 64, 64, "bfloat16", "float32", "float32"),
+    (1, 64, 64, 64, "bfloat16", "float32", "float32"),
+    (2, 16, 4, 16, "float32", "float32", "float32"),     # smoke config heads
+    (2, 64, 3, 32, "float32", "float32", "float32"),
+    (2, 16, 8, 64, "bfloat16", "bfloat16", "float32"),
+])
+def test_rwkv6_chunk_kernel(card, B, c, H, K, dtype, w_dtype, out):
+    args = _rwkv_inputs(card, B, c, H, K, dtype, w_dtype)
+    before = ops.launch_counts()["rwkv6_chunk"]
+    o, s = ops.rwkv6_chunk(*args, out_dtype=DTYPES[out])
+    assert ops.launch_counts()["rwkv6_chunk"] == before + 1
+    assert o.dtype == DTYPES[out] and s.dtype == torch.float32
+    want_o, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=DTYPES[out])
+    _close(o, want_o, 5e-4)
+    _close(s, want_s, 5e-4)
+
+
+def test_rwkv6_chunk_kernel_bf16_output_is_rounded_once(card):
+    """o in r's dtype (bf16), as the Pallas kernel writes it: the kernel's
+    f32 result rounded once to nearest, within half a bf16 ulp of the plain
+    version's f32 result."""
+    args = _rwkv_inputs(card, 1, 16, 64, 64, "bfloat16", "float32", seed=6)
+    o16, s16 = ops.rwkv6_chunk(*args)
+    o32, _ = ops.rwkv6_chunk(*args, out_dtype=torch.float32)
+    assert o16.dtype == torch.bfloat16
+    assert torch.equal(o16, o32.to(torch.bfloat16))
+    want32, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=torch.float32)
+    lim = 2.0 ** -8 * want32.abs() + 1e-3
+    assert bool(((o16.float() - want32).abs() <= lim).all())
+    _close(s16, want_s, 5e-4)
+
+
+def test_rwkv6_chunk_kernel_reads_strided_chunk_views(card):
+    """The model hands over chunk slices of its [B, S, H, K] projections."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(card, 4, 16, 64, 64, "bfloat16",
+                                        "float32", seed=7, T=64)
+    sl = slice(16, 32)
+    views = [x[:, sl] for x in (r, k, v, logw)]
+    assert not views[0].is_contiguous()
+    o, s = ops.rwkv6_chunk(*views, u, s0, out_dtype=torch.float32)
+    want_o, want_s = ref.rwkv6_chunk_plain(*[x.contiguous() for x in views],
+                                           u, s0, out_dtype=torch.float32)
+    _close(o, want_o, 5e-4)
+    _close(s, want_s, 5e-4)
+
+
+def test_rwkv6_chunk_kernel_chain_matches_sequential_oracle(card):
+    r, k, v, logw, u, _ = _rwkv_inputs(card, 1, 16, 8, 64, "float32",
+                                       "float32", seed=8, T=64)
+    s = torch.zeros((1, 8, 64, 64), device=card)
+    outs = []
+    for i in range(4):
+        sl = slice(16 * i, 16 * (i + 1))
+        o, s = ops.rwkv6_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, s)
+        outs.append(o)
+    want_o, want_s = ref.rwkv6_chunk_ref(r, k, v, logw, u, torch.zeros_like(s))
+    _close(torch.cat(outs, dim=1), want_o, 1e-3)
+    _close(s, want_s, 1e-3)
+
+
+def test_rwkv6_chunk_wrapper_refuses_what_it_does_not_take(card):
+    def args(B=1, c=16, H=2, K=16, dtype=torch.float32):
+        x = torch.zeros((B, c, H, K), device=card, dtype=dtype)
+        return [x, x, x, x, torch.zeros((H, K), device=card),
+                torch.zeros((B, H, K, K), device=card)]
+
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.rwkv6_chunk(*args(dtype=torch.float16))
+    a = args()
+    with pytest.raises(ValueError, match="dtypes"):          # bf16 u
+        ops.rwkv6_chunk(*a[:4], a[4].bfloat16(), a[5])
+    with pytest.raises(ValueError, match="dtypes"):          # bf16 logw, f32 r
+        ops.rwkv6_chunk(*a[:3], a[3].bfloat16(), *a[4:])
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.rwkv6_chunk(*a, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="chunk length"):
+        ops.rwkv6_chunk(*args(c=8))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv6_chunk(*args(K=24))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv6_chunk(*args(K=80))
+    with pytest.raises(ValueError, match="do not agree"):
+        ops.rwkv6_chunk(*a[:5], torch.zeros((1, 2, 16, 32), device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv6_chunk(*a[:5], a[5].transpose(2, 3))
+    x = torch.zeros((1, 16, 2, 32), device=card)[..., ::2]   # strided last dim
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv6_chunk(x, *a[1:])
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.rwkv6_chunk(*a[:4], a[4].cpu(), a[5])
+
+
+def test_rwkv6_dense_engine_on_the_card_launches_its_kernel(card):
+    """A smoke-config RWKV6 serve on CUDA goes through the rwkv6_chunk
+    kernel, serial == pipelined, and its streams match the plain-chunk
+    model's (the model runs in float32)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.trace import TraceConfig, build_trace
+    from repro_torch.engine.tokenizer import HashTokenizer
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import build_real_engine
+
+    cfg = get_smoke_config("rwkv6-7b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    trace = build_trace(make_dataset("beer", num_rows=64, seed=1),
+                        TraceConfig(num_relqueries=3, rate=100.0, seed=4,
+                                    max_requests=4, output_token_cap=8),
+                        tokenizer=HashTokenizer(vocab_size=cfg.vocab_size - 2))
+    streams = {}
+    for impl, loop in (("kernel", "serial"), ("kernel", "pipelined"),
+                       ("plain", "serial")):
+        tr = copy.deepcopy(trace)
+        ops.reset_launch_counts()
+        engine = build_real_engine("rwkv6-7b", "relserve", "dense",
+                                   model=model.with_wkv_impl(impl),
+                                   params=params, engine_loop=loop, device=card)
+        engine.run_trace(tr)
+        streams[impl, loop] = [tuple(r.output_tokens) for rq in tr
+                               for r in rq.requests]
+        counts = ops.launch_counts()
+        assert (counts["rwkv6_chunk"] > 0) == (impl == "kernel"), counts
+        assert counts["paged_attention"] == counts["flash_prefill"] == 0
+    assert streams["kernel", "serial"] == streams["kernel", "pipelined"]
+    plain = streams["plain", "serial"]
+    same = sum(a == b for a, b in zip(streams["kernel", "serial"], plain))
+    assert same >= len(plain) - 1

@@ -1,11 +1,20 @@
-"""The port's plain attention kernels (``repro_torch.kernels.ref``) against
-the JAX package's Pallas kernels (interpret mode, as tests/test_kernels.py
-runs them) and the JAX oracles, on the same numpy inputs.
+"""The port's plain kernels (``repro_torch.kernels.ref``) against the JAX
+package's Pallas kernels (interpret mode, as tests/test_kernels.py runs them)
+and the JAX oracles, on the same numpy inputs.
 
 Tolerances are those of tests/test_kernels.py: 1e-5 in float32, 2e-2 for
 paged attention and 3e-2 for flash prefill in bfloat16. Contexts are >= 1
 token except in the test that pins the ``ctx == 0`` convention, where the
 port follows the Pallas kernel (zeros), not the JAX oracle (mean of V).
+
+``rwkv6_chunk_plain`` (what the CUDA kernel is held to on the card) is held
+to the Pallas ``rwkv6_chunk`` and the model's ``wkv6_chunk`` in float32 to
+1e-5 of the largest value: the two frameworks order the cumulative log-decay
+sums differently, and ``exp`` of a sum of up to 64 terms carries that
+rounding into every output, so at c = 64 both sides lie ~1e-4 (absolute, on
+outputs up to ~70) from the float64 result. Against the sequential oracle
+to 5e-4, and over a 4-chunk chain to 1e-3, the tolerances of
+tests/test_kernels.py.
 """
 import numpy as np
 import pytest
@@ -18,6 +27,9 @@ from repro.kernels.flash_prefill import flash_prefill as jax_flash_prefill  # no
 from repro.kernels.paged_attention import paged_attention as jax_paged_attention  # noqa: E402
 from repro.kernels.ref import flash_prefill_ref as jax_flash_ref  # noqa: E402
 from repro.kernels.ref import paged_attention_ref as jax_paged_ref  # noqa: E402
+from repro.kernels.ref import rwkv6_chunk_ref as jax_chunk_ref  # noqa: E402
+from repro.kernels.rwkv6_chunk import rwkv6_chunk as jax_pallas_chunk  # noqa: E402
+from repro.models.rwkv6 import wkv6_chunk as jax_wkv6_chunk  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -125,7 +137,8 @@ def test_ops_dispatch_cpu_tensors_to_the_plain_path():
     k = torch.from_numpy(rng.randn(1, 2, 32, 32).astype(np.float32))
     assert torch.equal(ops.flash_prefill(q, k, k, causal=True, window=8),
                        ref.flash_prefill_ref(q, k, k, causal=True, window=8))
-    assert ops.launch_counts() == {"paged_attention": 0, "flash_prefill": 0}
+    assert ops.launch_counts() == {"paged_attention": 0, "flash_prefill": 0,
+                                   "rwkv6_chunk": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -140,3 +153,116 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     k = torch.zeros(1, 1, 16, 32)
     with pytest.raises(ValueError, match="CUDA"):
         flash_prefill_cuda(q, k, k)
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk_cuda
+
+    r = torch.zeros(1, 16, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_chunk_cuda(r, r, r, r, torch.zeros(2, 16),
+                         torch.zeros(1, 2, 16, 16))
+
+
+# ----------------------------------------------------------------------------
+# rwkv6_chunk
+# ----------------------------------------------------------------------------
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dtype)
+
+
+def _close_rel(out_t, want_j, tol):
+    """Max abs difference within ``tol`` of the largest |value|."""
+    want = np.asarray(want_j, np.float32)
+    err = float(np.abs(out_t.float().numpy() - want).max())
+    assert err <= tol * (float(np.abs(want).max()) or 1.0)
+
+
+def _chunk_inputs(B, c, H, K, seed=0):
+    """Inputs as tests/test_kernels.py draws them, from numpy."""
+    rng = np.random.RandomState(seed)
+    r, k, v = (rng.randn(B, c, H, K).astype(np.float32) for _ in range(3))
+    logw = -np.exp(0.5 * rng.randn(B, c, H, K)).astype(np.float32)
+    u = (0.1 * rng.randn(H, K)).astype(np.float32)
+    s0 = rng.randn(B, H, K, K).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("B,c,H,K", [(2, 16, 2, 16), (1, 32, 4, 32), (2, 64, 2, 64)])
+def test_rwkv6_plain_chunk_matches_pallas_model_and_oracle(B, c, H, K):
+    args = _chunk_inputs(B, c, H, K)
+    o, s = ref.rwkv6_chunk_plain(*map(_t, args))
+    assert o.dtype == torch.float32 and s.dtype == torch.float32
+    jargs = [jnp.asarray(a) for a in args]
+    for jo, js in (jax_pallas_chunk(*jargs, interpret=True),
+                   jax_wkv6_chunk(*jargs)):
+        _close_rel(o, jo, 1e-5)
+        _close_rel(s, js, 1e-5)
+    o_seq, s_seq = ref.rwkv6_chunk_ref(*map(_t, args))
+    _close(o, o_seq.numpy(), 5e-4)
+    _close(s, s_seq.numpy(), 5e-4)
+
+
+def test_rwkv6_sequential_oracle_matches_jax_oracle():
+    args = _chunk_inputs(2, 16, 2, 16, seed=1)
+    o, s = ref.rwkv6_chunk_ref(*map(_t, args))
+    jo, js = jax_chunk_ref(*[jnp.asarray(a) for a in args])
+    _close(o, jo, 1e-5)
+    _close(s, js, 1e-5)
+
+
+def test_rwkv6_plain_chunk_mixed_dtypes():
+    """bf16 r/k/v with f32 logw, as the model's bf16 prefill hands them over:
+    ``o`` comes back in r's dtype by default (as the Pallas kernel writes it)
+    or in float32 on request (as the model keeps it)."""
+    r, k, v, logw, u, s0 = _chunk_inputs(2, 16, 2, 16, seed=2)
+    bf = [_t(x, torch.bfloat16) for x in (r, k, v)]
+    rest = [_t(logw), _t(u), _t(s0)]
+    o16, s16 = ref.rwkv6_chunk_plain(*bf, *rest)
+    o32, s32 = ref.rwkv6_chunk_plain(*bf, *rest, out_dtype=torch.float32)
+    assert o16.dtype == torch.bfloat16 and o32.dtype == torch.float32
+    assert s16.dtype == torch.float32
+    jbf = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in bf]
+    jrest = [jnp.asarray(x) for x in (logw, u, s0)]
+    # the model's wkv6_chunk on the same bf16 inputs returns f32
+    jo, js = jax_wkv6_chunk(*jbf, *jrest)
+    assert jo.dtype == jnp.float32
+    _close_rel(o32, jo, 1e-5)
+    _close_rel(s32, js, 1e-5)
+    torch.testing.assert_close(o16, o32.to(torch.bfloat16), atol=0, rtol=0)
+    # the Pallas kernel writes o in r's dtype
+    po, ps = jax_pallas_chunk(*jbf, *jrest, interpret=True)
+    assert po.dtype == jnp.bfloat16
+    _close(o16, po, 2e-2)
+    _close_rel(s16, ps, 1e-5)
+
+
+def test_rwkv6_chunk_chain_matches_long_recurrence():
+    """Chaining the plain chunk across a sequence == one long recurrence, and
+    == the Pallas chunk chained the same way."""
+    B, c, H, K, n = 1, 16, 2, 16, 4
+    r, k, v, logw, u, _ = _chunk_inputs(B, c * n, H, K, seed=3)
+    s = torch.zeros((B, H, K, K))
+    js = jnp.zeros((B, H, K, K))
+    outs, jouts = [], []
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        o, s = ref.rwkv6_chunk_plain(_t(r[:, sl]), _t(k[:, sl]), _t(v[:, sl]),
+                                     _t(logw[:, sl]), _t(u), s)
+        outs.append(o)
+        jo, js = jax_pallas_chunk(*[jnp.asarray(x[:, sl]) for x in (r, k, v, logw)],
+                                  jnp.asarray(u), js, interpret=True)
+        jouts.append(jo)
+    o_all = torch.cat(outs, dim=1)
+    o_seq, s_seq = ref.rwkv6_chunk_ref(_t(r), _t(k), _t(v), _t(logw), _t(u),
+                                       torch.zeros((B, H, K, K)))
+    _close(o_all, o_seq.numpy(), 1e-3)
+    _close(s, s_seq.numpy(), 1e-3)
+    _close_rel(o_all, jnp.concatenate(jouts, axis=1), 1e-5)
+    _close_rel(s, js, 1e-5)
+
+
+def test_rwkv6_ops_dispatch_runs_plain_on_cpu_and_counts_nothing():
+    args = [_t(a) for a in _chunk_inputs(1, 16, 2, 16, seed=4)]
+    before = ops.launch_counts()
+    o, s = ops.rwkv6_chunk(*args, out_dtype=torch.float32)
+    want_o, want_s = ref.rwkv6_chunk_plain(*args)
+    assert torch.equal(o, want_o) and torch.equal(s, want_s)
+    assert ops.launch_counts() == before

@@ -137,3 +137,19 @@ def test_causal_positions():
     assert out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(),
                                   np.asarray(JL.causal_positions(5, 3)))
+
+
+def test_layernorm_and_groupnorm_heads():
+    x = 3.0 * _rand(3, 5, 64, seed=5) + 0.5
+    scale, bias = _rand(64, seed=6), _rand(64, seed=7)
+    jx, tx = _both(x)
+    (js, ts), (jb, tb) = _both(scale), _both(bias)
+    _close(TL.layernorm(tx, ts, tb, 1e-6), JL.layernorm(jx, js, jb, 1e-6), 1e-6)
+    jh, th = _both(x.reshape(3, 5, 4, 16))
+    _close(TL.groupnorm_heads(th, torch.ones(())),
+           JL.groupnorm_heads(jh, jnp.ones(())), 1e-6)
+    # both cast back to the input dtype
+    _, xb = _both(x, "bfloat16")
+    assert TL.layernorm(xb, ts, tb).dtype == torch.bfloat16
+    assert TL.groupnorm_heads(xb.reshape(3, 5, 4, 16), torch.ones(())).dtype \
+        == torch.bfloat16
