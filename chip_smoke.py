@@ -6,12 +6,19 @@ Phases (each raises on failure; none catches its own):
   1. device  — CUDA with compute capability >= 9.0; card name and power limit
   2. build   — nvcc builds the three kernels from src/repro_torch/kernels/csrc/
                for sm_90a, one process each, in parallel; prints ptxas'
-               registers / shared memory / spills
+               registers / shared memory / spills, and each library's count
+               of tensor-core instructions (HMMA) in its SASS from cuobjdump
+               ("not measured" without it; flash_prefill's must be > 0)
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                at main-path shapes, bf16 and f32, TF32 off; each bf16 output
-               also within half a bf16 ulp of the plain version's f32 result;
-               rwkv6_chunk also at c = 32 / 64, through strided chunk views,
-               and chained over 4 chunks against the sequential oracle
+               also within half a bf16 ulp of the plain version's f32 result.
+               Which kernel serves which dtype: flash_prefill bf16 runs on
+               the tensor cores (mma.sync, P split into bf16 hi + lo), f32
+               on the SIMT kernel; paged_attention is one split-KV kernel
+               (plus its merge launch) for both; rwkv6_chunk takes bf16 or
+               f32 r/k/v with f32 state. rwkv6_chunk also at c = 32 / 64,
+               through strided chunk views, and chained over 4 chunks
+               against the sequential oracle
   Two paths follow, each driven with the launch counters set to 0 just before
   and read just after; each must launch the kernels of its own model:
   4. qwen3   — full-width qwen3-1.7b (28 layers, bf16, random weights from a
@@ -268,6 +275,19 @@ def phase_device() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def sass_hmma_count(path) -> int | None:
+    """Tensor-core instructions (HMMA) in a library's SASS, from the
+    toolkit's cuobjdump; None where the toolkit has none."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    res = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        return None
+    return sum("HMMA" in line for line in res.stdout.splitlines())
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = build.build()
@@ -279,6 +299,13 @@ def phase_build() -> None:
         for line in b.ptxas.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 log(f"[build]   {line.strip()}")
+    for b in built.values():
+        n = sass_hmma_count(b.path)
+        log(f"[build] {b.name}: HMMA in SASS: "
+            f"{'not measured (no cuobjdump)' if n is None else n}")
+        if b.name == "flash_prefill" and n is not None:
+            check(n > 0, "flash_prefill's library has no tensor-core "
+                         "instruction (HMMA)")
 
 
 def phase_kernels() -> dict:
@@ -759,6 +786,12 @@ def phase_profile(model, params, device="cuda") -> None:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<6d} "
             f"{e.key[:90]}")
+    for e in kernels:   # this repo's kernels, wherever they rank
+        if "relserve::" in e.key:
+            name = e.key.split("::")[-1].split("(")[0]
+            log(f"[profile] own kernel {name}: {e.self_device_time_total / 1e3:.2f} "
+                f"ms over {e.count} launches, "
+                f"{e.self_device_time_total / max(e.count, 1):.2f} us each")
 
 
 def load_model(arch: str, dtype: str = ""):

@@ -9,6 +9,11 @@ Layouts:
 q, k and v may be strided views (the model hands over ``movedim`` views of
 its ``[B, S, G, ...]`` projections); only the head dim must be contiguous.
 The output is a new contiguous ``[B, G, S, R, hd]`` tensor in q's dtype.
+
+The library holds two kernels and the C launcher picks one by dtype:
+bfloat16 (the serve's dtype) runs on the tensor cores (``mma.sync``, P V
+with P split into bf16 hi + lo so the output is the f32 result rounded
+once); float32 runs the SIMT kernel in full f32. No workspace.
 """
 from __future__ import annotations
 

@@ -10,6 +10,16 @@ Layouts (the engine's packed-GQA scheme):
 
 Block table entries must be valid page ids below ``P`` for every page the
 context covers; the kernel reads them on the device without a bounds check.
+
+Split plan (``split_plan``): the block table is cut into ``n_split`` spans
+of ``pages_per_split`` pages, about ``SPLIT_TOKENS`` tokens each, from
+``block_tables.shape[1]`` and the page size alone (no host sync on the
+context lengths). One block per (split, kv slot, sequence) streams its span;
+with ``n_split > 1`` the blocks write float32 partials into a workspace that
+the wrapper allocates with ``torch.empty`` (``o`` [B, KV, n_split, rows, hd],
+``m`` and ``l`` [B, KV, n_split, rows]) and a second kernel of the same
+library merges them by log-sum-exp. A call counts as one launch whatever it
+issues.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_ROWS = 32          # Qt * Qp rows per (sequence, kv slot)
+SPLIT_TOKENS = 256     # tokens per split of the context
 
 _launch = None
 
@@ -31,11 +42,21 @@ def _launcher():
     global _launch
     if _launch is None:
         fn = build.load("paged_attention").paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
+
+
+def split_plan(max_pages: int, page: int) -> tuple:
+    """(pages_per_split, n_split) for a block table of ``max_pages`` pages of
+    ``page`` tokens: spans of ``SPLIT_TOKENS`` tokens (at least one page),
+    as many as cover the table (one for an empty table)."""
+    if max_pages < 0 or page < 1:
+        raise ValueError(f"max_pages {max_pages} must be >= 0 and page {page} >= 1")
+    pages_per_split = max(1, SPLIT_TOKENS // page)
+    return pages_per_split, max(1, -(-max_pages // pages_per_split))
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
@@ -77,13 +98,22 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    max_pages = block_tables.shape[1]
+    pages_per_split, n_split = split_plan(max_pages, page)
     out = torch.empty_like(q)
+    ws = [None] * 3
+    if n_split > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        ws_o = torch.empty((B, KV, n_split, rows, hd), **f32)
+        ws_m = torch.empty((B, KV, n_split, rows), **f32)
+        ws_l = torch.empty((B, KV, n_split, rows), **f32)
+        ws = [ws_o.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       block_tables.data_ptr(), context_lens.data_ptr(),
-                      out.data_ptr(), B, KV, rows, hd, num_q_tokens, page,
-                      block_tables.shape[1], 1.0 / math.sqrt(hd),
-                      _DTYPES[q.dtype], stream)
+                      out.data_ptr(), *ws, B, KV, rows, hd, num_q_tokens, page,
+                      max_pages, pages_per_split, n_split,
+                      1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     return out

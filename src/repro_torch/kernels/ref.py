@@ -11,12 +11,20 @@
 
 The CPU tests run them, ``chip_smoke.py`` holds the CUDA kernels against them
 on the card, and ``ops`` dispatches to them for CPU tensors.
+
+Two more rehearse the CUDA kernels' own arithmetic on the CPU, and run on no
+path (the CPU tests hold them to the oracles above):
+- ``flash_prefill_tc_emulation``: the bf16 tensor-core prefill kernel.
+- ``paged_attention_split_ref``: the split-KV decode kernel's partials and
+  their log-sum-exp merge.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.kernels.paged_attention import split_plan
 
 NEG_INF = -1e30
 
@@ -69,6 +77,90 @@ def flash_prefill_ref(q, k, v, *, causal=True, q_offset=0, window=0):
     p = torch.softmax(s_, dim=-1)
     o = torch.einsum("bgsrt,bgth->bgsrh", p, v.float())
     return o.to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, context_lens,
+                              *, num_q_tokens: int = 1,
+                              pages_per_split: int | None = None):
+    """``paged_attention_ref``'s function computed as the split-KV kernel
+    does, in float32: each span of ``pages_per_split`` pages (the wrapper's
+    split plan by default) gives a partial (o unnormalised, m, l) in which
+    masked keys add nothing; the partials with l > 0 are merged by
+    log-sum-exp. Rows with no key (``ctx == 0``) get zeros."""
+    B, KV, rows, hd = q.shape
+    page = k_pages.shape[1]
+    max_pages = block_tables.shape[1]
+    if pages_per_split is None:
+        pages_per_split = split_plan(max_pages, page)[0]
+    n_split = max(1, -(-max_pages // pages_per_split))
+    span = pages_per_split * page
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, max_pages * page, KV, hd).float()
+    v = v_pages[bt].reshape(B, max_pages * page, KV, hd).float()
+    s = torch.einsum("bgqh,btgh->bgqt", q.float() * (1.0 / math.sqrt(hd)), k)
+    idx = torch.arange(max_pages * page, device=q.device)
+    qtok = torch.arange(num_q_tokens, device=q.device).repeat_interleave(
+        rows // num_q_tokens)
+    ctx = context_lens.long()
+    qpos = ctx[:, None] - num_q_tokens + qtok[None, :]                 # [B, rows]
+    valid = (idx[None, None, :] <= qpos[:, :, None])[:, None]          # [B, 1, rows, T]
+    s = torch.where(valid, s, NEG_INF)
+    os_, ms, ls = [], [], []
+    for i in range(n_split):
+        sl = slice(i * span, (i + 1) * span)
+        m = s[..., sl].max(dim=-1).values
+        p = torch.where(valid[..., sl], torch.exp(s[..., sl] - m[..., None]), 0.0)
+        os_.append(torch.einsum("bgqt,btgh->bgqh", p, v[:, sl]))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    o, m, l = torch.stack(os_), torch.stack(ms), torch.stack(ls)  # split first
+    live = l > 0
+    M = torch.where(live, m, NEG_INF).max(dim=0).values
+    f = torch.where(live, torch.exp(m - M), 0.0)
+    out = (o * f[..., None]).sum(dim=0) / torch.clamp(
+        (l * f).sum(dim=0), min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def flash_prefill_tc_emulation(q, k, v, *, causal=True, q_offset=0, window=0,
+                               block_n: int = 32):
+    """``flash_prefill_ref``'s function computed as the bf16 tensor-core
+    kernel does: bf16 operands, f32 products, the scale applied to S in
+    f32, an online softmax over ``block_n``-key tiles, and P V as two
+    products with P split into bf16 hi = bf16(p) and lo = bf16(p - hi).
+    Returns the f32 result cast once to q's dtype."""
+    B, G, S, R, hd = q.shape
+    T = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    bf = torch.bfloat16
+    qf = q.to(bf).float().reshape(B, G, S * R, hd)
+    kf, vf = k.to(bf).float(), v.to(bf).float()
+    qpos = q_offset + torch.arange(S * R, device=q.device) // R
+    m = torch.full((B, G, S * R), NEG_INF, device=q.device)
+    l = torch.zeros((B, G, S * R), device=q.device)
+    acc = torch.zeros((B, G, S * R, hd), device=q.device)
+    for k0 in range(0, T, block_n):
+        kpos = torch.arange(k0, min(T, k0 + block_n), device=q.device)
+        s = torch.einsum("bgrh,bgth->bgrt", qf, kf[:, :, k0:k0 + block_n]) * scale
+        mask = torch.ones((S * R, len(kpos)), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.max(dim=-1).values)
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        p_hi = p.to(bf).float()
+        p_lo = (p - p_hi).to(bf).float()
+        vt = vf[:, :, k0:k0 + block_n]
+        acc = (acc * corr[..., None]
+               + torch.einsum("bgrt,bgth->bgrh", p_hi, vt)
+               + torch.einsum("bgrt,bgth->bgrh", p_lo, vt))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, G, S, R, hd).to(q.dtype)
 
 
 def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None):

@@ -41,27 +41,44 @@ def _close(out, want, tol):
                                want.float().cpu().numpy(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,KV,Qp,hd,page,maxp,qt", [
-    (2, 2, 1, 32, 8, 4, 1),
-    (4, 2, 3, 64, 16, 6, 1),
-    (1, 4, 2, 128, 16, 3, 1),
-    (3, 1, 3, 16, 16, 2, 1),
-    (2, 2, 2, 32, 8, 4, 2),      # chunked queries
-    (2, 2, 2, 128, 16, 5, 4),
-    (32, 8, 2, 128, 16, 64, 1),  # qwen3-1.7b decode widths
-])
-def test_paged_attention_kernel(card, B, KV, Qp, hd, page, maxp, qt, dtype):
-    rng = np.random.RandomState(0)
+def _paged_inputs(card, B, KV, rows, hd, page, maxp, dtype, ctx, qt=1, seed=0):
+    """Random q and pool, a shuffled block table; ``ctx`` None draws ragged
+    contexts of at least ``qt`` tokens with ctx[0] the whole table."""
+    rng = np.random.RandomState(seed)
     P = B * maxp + 2
-    q = _t(rng.randn(B, KV, qt * Qp, hd), dtype, card)
+    q = _t(rng.randn(B, KV, rows, hd), dtype, card)
     kp = _t(rng.randn(P, page, KV, hd), dtype, card)
     vp = _t(rng.randn(P, page, KV, hd), dtype, card)
     bt = torch.as_tensor(rng.permutation(P)[: B * maxp].reshape(B, maxp),
                          dtype=torch.int32, device=card)
-    ctx = rng.randint(qt, page * maxp + 1, size=(B,))
-    ctx[0] = page * maxp
-    cl = torch.as_tensor(ctx, dtype=torch.int32, device=card)
+    if ctx is None:
+        ctx = rng.randint(qt, page * maxp + 1, size=(B,))
+        ctx[0] = page * maxp
+    return q, kp, vp, bt, torch.as_tensor(ctx, dtype=torch.int32, device=card)
+
+
+# The kernel splits a context into spans of 256 tokens (16 pages of 16, 32
+# of 8); the cases with explicit contexts sit on and across those borders.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,KV,Qp,hd,page,maxp,qt,ctx", [
+    (2, 2, 1, 32, 8, 4, 1, None),
+    (4, 2, 3, 64, 16, 6, 1, None),
+    (1, 4, 2, 128, 16, 3, 1, None),
+    (3, 1, 3, 16, 16, 2, 1, None),
+    (2, 2, 2, 32, 8, 4, 2, None),      # chunked queries
+    (2, 2, 2, 128, 16, 5, 4, None),
+    (32, 8, 2, 128, 16, 64, 1, None),  # qwen3-1.7b decode widths
+    (2, 2, 2, 128, 16, 64, 1, [256, 255]),           # exactly one span
+    (2, 2, 2, 128, 16, 64, 1, [257, 513]),           # one span + 1
+    (4, 2, 2, 128, 16, 64, 1, [1024, 1, 1, 1]),      # longest, 1-token rows
+    (3, 2, 2, 64, 16, 64, 1, [0, 1024, 700]),        # ctx 0 beside splits
+    (2, 2, 3, 32, 8, 40, 1, [320, 257]),             # page 8: 32-page spans
+    (3, 2, 2, 128, 16, 64, 4, [1024, 300, 257]),     # Qt 4, rows 8
+    (2, 1, 4, 64, 16, 64, 8, [700, 8]),              # rows 32
+])
+def test_paged_attention_kernel(card, B, KV, Qp, hd, page, maxp, qt, ctx, dtype):
+    q, kp, vp, bt, cl = _paged_inputs(card, B, KV, qt * Qp, hd, page, maxp,
+                                      dtype, ctx, qt)
     before = ops.launch_counts()["paged_attention"]
     out = ops.paged_attention(q, kp, vp, bt, cl, num_q_tokens=qt)
     assert ops.launch_counts()["paged_attention"] == before + 1
@@ -88,6 +105,8 @@ def test_paged_attention_kernel_zero_context(card):
     (1, 2, 32, 3, 64, 96, True, 0, 64),     # prefix-cache offset
     (2, 1, 64, 1, 32, 64, False, 0, 0),     # non-causal
     (1, 2, 40, 3, 16, 40, True, 0, 0),      # ragged tiles, head_dim 16
+    (1, 2, 100, 2, 16, 130, True, 0, 30),   # head_dim 16, S*R = 200, offset
+    (2, 1, 77, 2, 128, 77, True, 32, 0),    # S*R = 154, window
     (2, 8, 256, 2, 128, 256, True, 0, 0),   # qwen3-1.7b prefill widths
 ])
 def test_flash_prefill_kernel(card, B, G, S, R, hd, T, causal, window, qoff,
@@ -104,15 +123,45 @@ def test_flash_prefill_kernel(card, B, G, S, R, hd, T, causal, window, qoff,
     _close(out, want, 1e-5 if dtype == "float32" else 3e-2)
 
 
-def test_flash_prefill_kernel_reads_strided_views(card):
-    """The model hands over movedim views of [B, S, G, R, hd] projections."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_kernel_reads_strided_views(card, dtype):
+    """The model hands over movedim views of [B, S, G, R, hd] projections
+    (float32 takes the SIMT kernel, bfloat16 the tensor-core one)."""
     rng = np.random.RandomState(3)
-    q = _t(rng.randn(2, 48, 2, 2, 64), "float32", card).movedim(1, 2)
-    k = _t(rng.randn(2, 48, 2, 64), "float32", card).movedim(1, 2)
+    q = _t(rng.randn(2, 48, 2, 2, 64), dtype, card).movedim(1, 2)
+    k = _t(rng.randn(2, 48, 2, 64), dtype, card).movedim(1, 2)
+    v = _t(rng.randn(2, 48, 2, 64), dtype, card).movedim(1, 2)
     assert not q.is_contiguous()
-    out = ops.flash_prefill(q, k, k, causal=True)
+    out = ops.flash_prefill(q, k, v, causal=True)
     _close(out, ref.flash_prefill_ref(q.contiguous(), k.contiguous(),
-                                      k.contiguous(), causal=True), 1e-5)
+                                      v.contiguous(), causal=True),
+           1e-5 if dtype == "float32" else 3e-2)
+
+
+@pytest.mark.parametrize("kernel", ["paged_attention", "flash_prefill"])
+def test_attention_kernels_bf16_output_is_rounded_once(card, kernel):
+    """bf16 in, bf16 out: the kernel's result is the f32 result rounded once,
+    within half a bf16 ulp (+ 2e-5 for the two f32 summation orders) of the
+    plain version's f32 result on the same bf16 inputs. A tensor-core P V
+    with P rounded to bf16 would break this."""
+    if kernel == "paged_attention":
+        args = _paged_inputs(card, 4, 8, 2, 128, 16, 64, "bfloat16",
+                             [1024, 257, 1, 600], seed=9)
+        out = ops.paged_attention(*args)
+        want32 = ref.paged_attention_ref(*[a.float() if a.is_floating_point()
+                                           else a for a in args])
+    else:
+        rng = np.random.RandomState(9)
+        q = _t(rng.randn(2, 4, 200, 2, 128), "bfloat16", card)
+        k = _t(rng.randn(2, 4, 200, 128), "bfloat16", card)
+        v = _t(rng.randn(2, 4, 200, 128), "bfloat16", card)
+        out = ops.flash_prefill(q, k, v, causal=True)
+        want32 = ref.flash_prefill_ref(q.float(), k.float(), v.float(),
+                                       causal=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    lim = 2.0 ** -8 * want32.abs() + 2e-5
+    assert bool(((out.float() - want32).abs() <= lim).all())
 
 
 def test_kernels_refuse_what_they_do_not_take(card):

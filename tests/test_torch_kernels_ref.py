@@ -266,3 +266,81 @@ def test_rwkv6_ops_dispatch_runs_plain_on_cpu_and_counts_nothing():
     want_o, want_s = ref.rwkv6_chunk_plain(*args)
     assert torch.equal(o, want_o) and torch.equal(s, want_s)
     assert ops.launch_counts() == before
+
+
+# ----------------------------------------------------------------------------
+# the CUDA kernels' own arithmetic, rehearsed on the CPU
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("max_pages,page,plan", [
+    (64, 16, (16, 4)),      # the serve's pool: 256-token spans
+    (4, 8, (32, 1)),
+    (40, 8, (32, 2)),
+    (3, 512, (1, 3)),       # pages longer than a span: one page each
+    (0, 16, (16, 1)),       # an empty table still launches one split
+])
+def test_paged_attention_split_plan(max_pages, page, plan):
+    from repro_torch.kernels.paged_attention import split_plan
+
+    assert split_plan(max_pages, page) == plan
+    pps, n_split = plan
+    assert n_split * pps >= max_pages and (n_split - 1) * pps < max(max_pages, 1)
+
+
+def test_paged_attention_split_plan_refuses_bad_geometry():
+    from repro_torch.kernels.paged_attention import split_plan
+
+    with pytest.raises(ValueError):
+        split_plan(4, 0)
+    with pytest.raises(ValueError):
+        split_plan(-1, 16)
+
+
+@pytest.mark.parametrize("B,KV,Qp,hd,page,maxp,qt,pps,ctx", [
+    (3, 2, 2, 32, 8, 6, 1, 2, [0, 48, 17]),        # ctx 0; row 2: split 2 empty
+    (2, 2, 1, 64, 8, 6, 1, 2, [16, 33]),           # exactly one span; span + 1
+    (2, 2, 2, 32, 8, 6, 4, 2, [34, 9]),            # Qt 4: split 2 holds no key
+                                                   # that tokens 0-1 may see
+    (2, 1, 3, 16, 16, 5, 1, 1, [80, 1]),           # one page per split
+    (2, 2, 2, 32, 8, 4, 1, None, [32, 5]),         # the wrapper's plan: 1 split
+])
+def test_paged_attention_split_ref_matches_oracles(B, KV, Qp, hd, page, maxp,
+                                                   qt, pps, ctx):
+    """Per-split partials merged by log-sum-exp == the one-pass softmax, in
+    float32 to 1e-5: against the port's ``paged_attention_ref`` and the JAX
+    Pallas kernel (interpret mode)."""
+    jargs, targs = _paged_case(B, KV, qt * Qp, hd, page, maxp, "float32",
+                               seed=11, ctx=ctx)
+    out = ref.paged_attention_split_ref(*targs, num_q_tokens=qt,
+                                        pages_per_split=pps)
+    assert torch.isfinite(out).all()
+    assert torch.count_nonzero(out[np.asarray(ctx) == 0]) == 0
+    _close(out, ref.paged_attention_ref(*targs, num_q_tokens=qt).numpy(), 1e-5)
+    _close(out, jax_paged_attention(*jargs, interpret=True,
+                                    num_q_tokens=qt), 1e-5)
+
+
+@pytest.mark.parametrize("B,G,S,R,hd,T,causal,window,qoff", [
+    (2, 2, 100, 2, 128, 100, True, 0, 0),   # 200 packed rows, ragged tiles
+    (1, 2, 64, 2, 64, 64, True, 16, 0),     # sliding window
+    (1, 1, 48, 3, 16, 112, True, 0, 64),    # head_dim 16, prefix offset
+    (1, 2, 70, 1, 32, 70, False, 0, 0),     # non-causal
+])
+def test_flash_prefill_tc_emulation_rounds_once(B, G, S, R, hd, T, causal,
+                                                window, qoff):
+    """The tensor-core kernel's arithmetic (bf16 operands, f32 products, the
+    scale on S, P split into bf16 hi + lo) returns the f32 result rounded
+    once: within half a bf16 ulp + 2e-5 of ``flash_prefill_ref``'s f32
+    result on the same bf16 inputs, the bound chip_smoke.py holds the
+    kernel to."""
+    rng = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to(torch.bfloat16)
+               for shape in ((B, G, S, R, hd), (B, G, T, hd), (B, G, T, hd)))
+    out = ref.flash_prefill_tc_emulation(q, k, v, causal=causal,
+                                         window=window, q_offset=qoff)
+    assert out.dtype == torch.bfloat16
+    want32 = ref.flash_prefill_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window,
+                                   q_offset=qoff)
+    lim = 2.0 ** -8 * want32.abs() + 2e-5
+    assert bool(((out.float() - want32).abs() <= lim).all())
