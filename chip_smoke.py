@@ -16,9 +16,13 @@ Phases (each raises on failure; none catches its own):
                the tensor cores (mma.sync, P split into bf16 hi + lo), f32
                on the SIMT kernel; paged_attention is one split-KV kernel
                (plus its merge launch) for both; rwkv6_chunk takes bf16 or
-               f32 r/k/v with f32 state. rwkv6_chunk also at c = 32 / 64,
-               through strided chunk views, and chained over 4 chunks
-               against the sequential oracle
+               f32 r/k/v with f32 state. rwkv6_chunk one chunk per launch
+               at c = 16 / 32 / 64 and through strided chunk views; one
+               launch per layer (every chunk of [1, 256], [1, 1024],
+               [1, 4096] at c = 32, a padded row, views cut from wider
+               projections, f32) against the chained plain version and
+               against chained one-chunk launches; 4 chunks, chained and
+               in one launch, against the sequential oracle
   Two paths follow, each driven with the launch counters set to 0 just before
   and read just after; each must launch the kernels of its own model:
   4. qwen3   — full-width qwen3-1.7b (28 layers, bf16, random weights from a
@@ -36,14 +40,17 @@ Phases (each raises on failure; none catches its own):
                and in bf16 at 32 layers each layer's time mix on its own,
                teacher-forced (output and state, kernel vs plain)
   8. rwkv6   — the dense engine serving the same trace, serial then pipelined
-     serve     (rwkv6_chunk); the two runs' streams must be identical
+     serve     (rwkv6_chunk, one launch per layer per prefill call); the two
+               runs' streams must be identical
   9. rwkv6   — one more serial serve under torch.profiler
      profile
  10. times   — each kernel, its plain version and (flash_prefill only) torch's
                SDPA timed on the device with CUDA events (calls queued behind
                a device-side sleep), beside the least time the card could
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
-               67 TFLOP/s in f32 without tensor cores)
+               67 TFLOP/s in f32 without tensor cores); rwkv6_chunk at one
+               layer's call, beside the same work as one-chunk launches, its
+               host issue time, and one chunk alone
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
 """
@@ -165,15 +172,27 @@ def upcast(args):
     return [a.float() if a.is_floating_point() else a for a in args]
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
+                 queued: bool = True) -> float:
     """Device time per call, CUDA events around ``iters`` calls. The calls
     are queued behind a device-side sleep, so they run back to back on the
     card whatever the host takes to issue them (a small kernel issues slower
     than it runs); the sleep grows until the host has queued every call
-    before the device reaches the first event."""
+    before the device reaches the first event. ``queued=False`` for a call
+    of hundreds of launches, more than the host can queue ahead: no sleep,
+    so the time includes the host's gaps between launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if not queued:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / iters
     cycles = 50_000_000
     while True:
         t0 = torch.cuda.Event(enable_timing=True)
@@ -250,11 +269,46 @@ def rwkv_inputs(dtype, w_dtype=torch.float32, *, B=1, c=16, H=64, K=64, T=None,
     return r, k, v, logw, 0.1 * randn(H, K), randn(B, H, K, K)
 
 
-RWKV_CASES = [   # (label, input kwargs, out dtype)
+RWKV_CASES = [   # (label, input kwargs, out dtype): one chunk per launch
     ("path [1,16,64,64] bf16", {"dtype": torch.bfloat16}, torch.float32),
     ("c=32", {"dtype": torch.bfloat16, "c": 32}, torch.float32),
     ("c=64", {"dtype": torch.bfloat16, "c": 64}, torch.float32),
     ("all f32", {"dtype": torch.float32}, torch.float32),
+]
+
+
+def rwkv_layer_inputs(dtype, *, B=1, S=256, lens=None, cut=False, seed=5):
+    """One layer's WKV call at rwkv6-7b's widths: r/k/v/logw [B, S, 64, 64]
+    as rwkv_inputs draws them. ``lens``: row b's k and logw zeroed from token
+    lens[b] on, as the model's ``valid`` mask does. ``cut``: each of r/k/v/
+    logw is a view cut from a wider, longer projection (time offset 16,
+    channels 16:80 of 96)."""
+    r, k, v, logw, u, s0 = rwkv_inputs(dtype, B=B, c=S, T=S + 32 if cut else S,
+                                       seed=seed)
+    if cut:
+        def wide(x):
+            w = torch.zeros(x.shape[:3] + (96,), dtype=x.dtype, device=x.device)
+            w[..., 16:80] = x
+            return w[:, 16:16 + S, :, 16:80]
+        r, k, v, logw = (wide(x) for x in (r, k, v, logw))
+        check(not r.is_contiguous() and r.stride(1) == 64 * 96,
+              "cut case is not strided")
+    if lens is not None:
+        for b, n in enumerate(lens):
+            k[b, n:] = 0
+            logw[b, n:] = 0
+    return r, k, v, logw, u, s0
+
+
+RWKV_LAYER_CASES = [   # (label, input kwargs, chunk, lens): one launch per layer
+    ("layer [1,256,64,64] bf16", {"dtype": torch.bfloat16}, 16, None),
+    ("max_len [1,1024] bf16", {"dtype": torch.bfloat16, "S": 1024}, 16, None),
+    ("bucket [1,4096] bf16", {"dtype": torch.bfloat16, "S": 4096}, 32, None),
+    ("[2,128] row 1 padded from 77", {"dtype": torch.bfloat16, "B": 2,
+                                      "S": 128}, 16, [128, 77]),
+    ("[4,512] views cut from wider projections",
+     {"dtype": torch.bfloat16, "B": 4, "S": 512, "cut": True}, 16, None),
+    ("all f32 [1,256]", {"dtype": torch.float32}, 16, None),
 ]
 
 
@@ -354,18 +408,54 @@ def phase_kernels() -> dict:
     return errs
 
 
+def assert_chain_close(label: str, got, want) -> float:
+    """Within RWKV_CHAIN_TOL (atol = rtol) of a chain of chunks' reference."""
+    e = max_err(got, want)
+    ok = bool(((got.float() - want.float()).abs()
+               <= RWKV_CHAIN_TOL + RWKV_CHAIN_TOL * want.float().abs()).all())
+    log(f"  rwkv6_chunk {label}: max_abs_err {e:.3e} (atol = rtol = "
+        f"{RWKV_CHAIN_TOL:g})")
+    check(ok, f"rwkv6_chunk {label}: kernel disagrees with its reference")
+    return e
+
+
+def chained_launches(r, k, v, logw, u, state, chunk, out_dtype):
+    """The same work as n one-chunk launches, each carrying the state."""
+    outs = []
+    for i in range(r.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        o, state = ops.rwkv6_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u,
+                                   state, out_dtype=out_dtype)
+        outs.append(o)
+    return torch.cat(outs, dim=1), state
+
+
 def rwkv_kernel_checks() -> float:
-    """rwkv6_chunk vs rwkv6_chunk_plain; returns the main-path max error."""
+    """rwkv6_chunk vs rwkv6_chunk_plain; returns the main-path max error (one
+    layer's call of the serve, RWKV_LAYER_CASES[0])."""
     name, f32 = "rwkv6_chunk", torch.float32
     log("[kernels] rwkv6_chunk vs rwkv6_chunk_plain")
-    err = None
     for label, kw, out_dtype in RWKV_CASES:
         args = rwkv_inputs(**kw)
         o, s = ops.rwkv6_chunk(*args, out_dtype=out_dtype)
         want_o, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        e = assert_close(name, o, want_o, f32, f"o {label}")
+        assert_close(name, o, want_o, f32, f"o {label}")
         assert_close(name, s, want_s, f32, f"state {label}")
+    # one launch per layer: n chunks against the chained plain version, and
+    # against n chained one-chunk launches (the same arithmetic: expected 0)
+    err = None
+    for label, kw, chunk, lens in RWKV_LAYER_CASES:
+        args = rwkv_layer_inputs(lens=lens, **kw)
+        o, s = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=chunk)
+        want_o, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=f32, chunk=chunk)
+        e = assert_chain_close(f"o {label} c={chunk}", o, want_o)
+        assert_chain_close(f"state {label} c={chunk}", s, want_s)
+        chain_o, chain_s = chained_launches(*args, chunk, f32)
+        torch.cuda.synchronize()
+        log(f"  {name} {label}: one launch vs {args[0].shape[1] // chunk} "
+            f"chained one-chunk launches: o {max_err(o, chain_o):.3e}, state "
+            f"{max_err(s, chain_s):.3e} (expected 0)")
         if err is None:
             err = e
     # B=4 through strided chunk views of [4, 64, 64, 64] projections
@@ -388,24 +478,18 @@ def rwkv_kernel_checks() -> float:
           "rwkv6_chunk bf16 o is not its f32 result rounded to nearest")
     want32, _ = ref.rwkv6_chunk_plain(*args, out_dtype=f32)
     assert_rounded_once(name, o16, want32, "o path [1,16,64,64]")
-    # 4 chained chunks against the token-by-token oracle
+    # 4 chunks against the token-by-token oracle: chained one-chunk launches,
+    # then one launch
     r, k, v, logw, u, _ = rwkv_inputs(torch.float32, T=64, seed=4)
-    s = torch.zeros((1, 64, 64, 64), device="cuda")
-    outs = []
-    for i in range(4):
-        sl = slice(16 * i, 16 * (i + 1))
-        o, s = ops.rwkv6_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, s)
-        outs.append(o)
-    want_o, want_s = ref.rwkv6_chunk_ref(r, k, v, logw, u, torch.zeros_like(s))
+    s0 = torch.zeros((1, 64, 64, 64), device="cuda")
+    want_o, want_s = ref.rwkv6_chunk_ref(r, k, v, logw, u, s0)
+    chain = chained_launches(r, k, v, logw, u, s0, 16, f32)
+    one = ops.rwkv6_chunk(r, k, v, logw, u, s0, chunk=16)
     torch.cuda.synchronize()
-    for label, got, want in (("o", torch.cat(outs, dim=1), want_o),
-                             ("state", s, want_s)):
-        e = max_err(got, want)
-        ok = bool(((got - want).abs()
-                   <= RWKV_CHAIN_TOL + RWKV_CHAIN_TOL * want.abs()).all())
-        log(f"  {name} 4-chunk chain {label} vs rwkv6_chunk_ref: max_abs_err "
-            f"{e:.3e} (atol = rtol = {RWKV_CHAIN_TOL:g})")
-        check(ok, f"{name} chain {label}: kernel disagrees with the oracle")
+    for how, (got_o, got_s) in (("4-chunk chain", chain),
+                                ("4 chunks in one launch", one)):
+        assert_chain_close(f"{how} o vs rwkv6_chunk_ref", got_o, want_o)
+        assert_chain_close(f"{how} state vs rwkv6_chunk_ref", got_s, want_s)
     return err
 
 
@@ -480,12 +564,18 @@ def perturbed_plain(model):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     m = model.with_wkv_impl("plain")
 
-    def chunk(*args):
-        o, s = ref.rwkv6_chunk_plain(*args, out_dtype=torch.float32)
-        noise = torch.randn(o.shape, generator=g, device=o.device)
-        return o * (1 + PERTURB * noise), s
+    def wkv(r, k, v, logw, u, state, *, chunk):
+        outs = []
+        for i in range(r.shape[1] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            o, state = ref.rwkv6_chunk_plain(r[:, sl], k[:, sl], v[:, sl],
+                                             logw[:, sl], u, state,
+                                             out_dtype=torch.float32)
+            noise = torch.randn(o.shape, generator=g, device=o.device)
+            outs.append(o * (1 + PERTURB * noise))
+        return torch.cat(outs, dim=1), state
 
-    m._wkv_chunk = chunk
+    m._wkv = wkv
     return m
 
 
@@ -588,10 +678,22 @@ SERVE = {"qwen3-1.7b": ("paged", 64), "rwkv6-7b": ("dense", 32)}
 
 
 def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
+    """Serve ``trace``; returns (token streams, number of prefill calls). The
+    calls are counted on the dense backend, whose executor calls the model it
+    is given (the paged one builds a sibling): None on the paged backend."""
     arch = model.cfg.name
     backend, max_slots = SERVE[arch]
     trace = copy.deepcopy(trace)
-    engine = build_real_engine(arch, "relserve", backend, model=model,
+    prefills = [0] if backend == "dense" else [None]
+    counted = copy.copy(model)
+
+    def prefill(*args, **kw):
+        prefills[0] += 1
+        return model.prefill(*args, **kw)
+
+    if backend == "dense":
+        counted.prefill = prefill
+    engine = build_real_engine(arch, "relserve", backend, model=counted,
                                params=params, max_slots=max_slots, max_len=1024,
                                engine_loop=loop, device=device)
     ex = engine.executor
@@ -626,12 +728,13 @@ def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
         f"{n_tok / wall:.1f} tokens/s; {len(report.events)} batches; "
         f"{where}; fitted alpha_p {fitted.alpha_p:.3e} "
         f"beta_p {fitted.beta_p:.3e} alpha_d {fitted.alpha_d:.3e} "
-        f"beta_d {fitted.beta_d:.3e}; {card}")
+        f"beta_d {fitted.beta_d:.3e}; "
+        f"{'' if prefills[0] is None else f'{prefills[0]} prefill calls; '}{card}")
     streams = [tuple(r.output_tokens) for rq in trace for r in rq.requests]
     del engine, ex
     if device == "cuda":
         torch.cuda.empty_cache()
-    return streams
+    return streams, prefills[0]
 
 
 def phase_serve(model, params, *, exact: bool = False) -> dict:
@@ -641,9 +744,9 @@ def phase_serve(model, params, *, exact: bool = False) -> dict:
     card = nvidia_smi_line()
     trace = serve_trace(model.cfg.vocab_size - 2)
     ops.reset_launch_counts()
-    serial = run_serve(model, params, trace, "serial", card=card)
+    serial, n_serial = run_serve(model, params, trace, "serial", card=card)
     after_serial = ops.launch_counts()
-    pipelined = run_serve(model, params, trace, "pipelined", card=card)
+    pipelined, n_pipe = run_serve(model, params, trace, "pipelined", card=card)
     counts = ops.launch_counts()
     log(f"[serve] {model.cfg.name} launches: serial {after_serial}, "
         f"serial + pipelined {counts}")
@@ -651,6 +754,15 @@ def phase_serve(model, params, *, exact: bool = False) -> dict:
         check(after_serial[name] > 0, f"serial serve never launched {name}")
         check(counts[name] > after_serial[name],
               f"pipelined serve never launched {name}")
+    if "rwkv6_chunk" in model.KERNELS:   # one launch per layer per prefill
+        L = model.cfg.num_layers
+        log(f"[serve] {model.cfg.name} rwkv6_chunk launches per prefill call: "
+            f"serial {after_serial['rwkv6_chunk'] / n_serial:g}, pipelined "
+            f"{(counts['rwkv6_chunk'] - after_serial['rwkv6_chunk']) / n_pipe:g} "
+            f"({n_serial} and {n_pipe} prefill calls; {L} layers)")
+        check(after_serial["rwkv6_chunk"] == L * n_serial
+              and counts["rwkv6_chunk"] == L * (n_serial + n_pipe),
+              "rwkv6_chunk is not one launch per layer per prefill")
     same = sum(a == b for a, b in zip(serial, pipelined)) / len(serial)
     log(f"[serve] {model.cfg.name} identical streams serial vs pipelined: "
         f"{same:.3f} ({card})")
@@ -716,34 +828,44 @@ def phase_times(errs: dict, counts: dict) -> list:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": lib})
 
-    # rwkv6_chunk at the model's prefill chunk: r/k/v bf16 [1, 16, 64, 64],
-    # logw / u / state f32, o f32
-    args = rwkv_inputs(torch.bfloat16)
+    # rwkv6_chunk at one layer's call of the serve: r/k/v bf16 [1, 256, 64,
+    # 64] in chunks of 16, logw / u / state f32, o f32
+    f32 = torch.float32
+    args = rwkv_layer_inputs(torch.bfloat16)
     r, k, v, logw, u, s0 = args
-    B, c, H, K = r.shape
+    B, S, H, K = r.shape
     V = v.shape[3]
-    outs = ops.rwkv6_chunk(*args, out_dtype=torch.float32)
+    c = 16
+    outs = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c)
     nbytes = (sum(x.numel() * x.element_size() for x in args)
               + sum(x.numel() * x.element_size() for x in outs))
     pairs = c * (c - 1) // 2
-    flops = B * H * (4 * c * K * V           # o = rd @ S + S' = ks^T v
-                     + c * (c + 1) * V       # A @ v, lower triangle
-                     + 4 * pairs * K         # decayed products of A
-                     + 3 * c * K + K * V)    # diagonal, decay of S
+    flops = B * H * (S // c) * (4 * c * K * V         # rd @ S and ks^T v
+                                + c * (c + 1) * V     # A @ v, lower triangle
+                                + 4 * pairs * K       # decayed products of A
+                                + 3 * c * K + K * V)  # diagonal, decay of S
     t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound = max(t_ops, t_bytes) * 1e3
-    ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*args, out_dtype=torch.float32))
-    plain = cuda_time_ms(lambda: ref.rwkv6_chunk_plain(*args,
-                                                       out_dtype=torch.float32))
+    ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c))
+    chained = cuda_time_ms(lambda: chained_launches(*args, c, f32))
+    # ~30 launches per chunk: too many to queue ahead of the device
+    plain = cuda_time_ms(lambda: ref.rwkv6_chunk_plain(*args, out_dtype=f32,
+                                                       chunk=c),
+                         iters=5, warmup=1, queued=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
-        ops.rwkv6_chunk(*args, out_dtype=torch.float32)
+        ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c)
     issue = (time.perf_counter() - t0) / 20 * 1e3
     torch.cuda.synchronize()
-    log(f"[times] rwkv6_chunk r={list(r.shape)} bf16, o f32: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bound:.4f} ms (flops {flops}, bytes "
-        f"{nbytes}), library null; host issue {issue:.4f} ms per call")
+    one = rwkv_inputs(torch.bfloat16)    # one chunk [1, 16, 64, 64] alone
+    one_ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*one, out_dtype=f32))
+    log(f"[times] rwkv6_chunk r={list(r.shape)} bf16 c={c}, o f32 (one layer's "
+        f"call): kernel {ms:.4f} ms, the same work as {S // c} one-chunk "
+        f"launches {chained:.4f} ms, plain {plain:.4f} ms (not queued: with "
+        f"the host's gaps), bound {bound:.4f} ms "
+        f"(flops {flops}, bytes {nbytes}), library null; host issue "
+        f"{issue:.4f} ms per call; one chunk r=[1, 16, 64, 64]: {one_ms:.4f} ms")
     out.append({"name": "rwkv6_chunk", "route": "cuda",
                 "source": SOURCES["rwkv6_chunk"],
                 "replaces": REPLACES["rwkv6_chunk"],
@@ -769,7 +891,7 @@ def phase_profile(model, params, device="cuda") -> None:
     trace = serve_trace(model.cfg.vocab_size - 2)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run_serve(model, params, trace, "serial", device)
+        _, n_prefill = run_serve(model, params, trace, "serial", device)
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -781,14 +903,15 @@ def phase_profile(model, params, device="cuda") -> None:
     log(f"[profile] {model.cfg.name} serial serve under the profiler: wall "
         f"{wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall, "
-        f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches")
+        f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches"
+        f"{'' if n_prefill is None else f', {n_prefill} prefill calls'}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<6d} "
             f"{e.key[:90]}")
     for e in kernels:   # this repo's kernels, wherever they rank
         if "relserve::" in e.key:
-            name = e.key.split("::")[-1].split("(")[0]
+            name = e.key.split("(anonymous namespace)::")[1].split("(")[0]
             log(f"[profile] own kernel {name}: {e.self_device_time_total / 1e3:.2f} "
                 f"ms over {e.count} launches, "
                 f"{e.self_device_time_total / max(e.count, 1):.2f} us each")

@@ -41,12 +41,14 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
-def rwkv6_chunk(r, k, v, logw, u, state, *, out_dtype=None):
-    """See ``rwkv6_chunk.py`` for layouts. Returns (o, new state)."""
+def rwkv6_chunk(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
+    """See ``rwkv6_chunk.py`` for layouts; ``chunk`` None is one chunk of
+    S tokens. Returns (o, state after the last chunk)."""
     if r.device.type == "cpu":
         return ref.rwkv6_chunk_plain(r, k, v, logw, u, state,
-                                     out_dtype=out_dtype)
-    out = rwkv6_chunk_cuda(r, k, v, logw, u, state, out_dtype=out_dtype)
+                                     out_dtype=out_dtype, chunk=chunk)
+    out = rwkv6_chunk_cuda(r, k, v, logw, u, state, out_dtype=out_dtype,
+                           chunk=chunk)
     _launches["rwkv6_chunk"] += 1
     return out
 

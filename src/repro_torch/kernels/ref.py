@@ -3,9 +3,10 @@
 - ``paged_attention_ref`` / ``flash_prefill_ref``: the oracles of
   ``repro/kernels/ref.py``; both compute in float32 and cast the result to q's
   dtype.
-- ``rwkv6_chunk_plain``: the chunked form of one WKV6 chunk, as the model
-  computes it (``repro/models/rwkv6.py::wkv6_chunk``), and what the Pallas
-  kernel ``repro/kernels/rwkv6_chunk.py`` computes.
+- ``rwkv6_chunk_plain``: the chunked WKV6 recurrence over a sequence, a
+  loop of the one-chunk form that the model computes
+  (``repro/models/rwkv6.py::wkv6_chunk``) and the Pallas kernel
+  ``repro/kernels/rwkv6_chunk.py`` computes.
 - ``rwkv6_chunk_ref``: the token-by-token recurrence, the oracle of
   ``repro/kernels/ref.py::rwkv6_chunk_ref`` that the chunked form is held to.
 
@@ -25,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels.paged_attention import split_plan
+from repro_torch.kernels.rwkv6_chunk import check_chunk
 
 NEG_INF = -1e30
 
@@ -163,13 +165,8 @@ def flash_prefill_tc_emulation(q, k, v, *, causal=True, q_offset=0, window=0,
     return out.reshape(B, G, S, R, hd).to(q.dtype)
 
 
-def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None):
-    """One chunk of the WKV6 recurrence, all in float32.
-
-    r/k/logw: [B, c, H, K]; v: [B, c, H, V]; u: [H, K]; state: [B, H, K, V].
-    Returns (o [B, c, H, V] in ``out_dtype`` — r's dtype by default, as the
-    Pallas kernel writes it — and the new state [B, H, K, V] in float32)."""
-    out_dtype = out_dtype or r.dtype
+def _wkv6_one_chunk(r, k, v, logw, u, state):
+    """One chunk of the WKV6 recurrence in float32 -> (o f32, new state)."""
     r, k, v, logw, u = (x.float() for x in (r, k, v, logw, u))
     state = state.float()
     c = r.shape[1]
@@ -191,7 +188,30 @@ def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None):
     k_scaled = k * torch.exp(ldi[:, -1][:, None] - ldi)
     new_state = (state * d_total[..., None]
                  + torch.einsum("bjhk,bjhv->bhkv", k_scaled, v))
-    return o.to(out_dtype), new_state
+    return o, new_state
+
+
+def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
+    """The chunked WKV6 recurrence, all in float32: a loop over chunks of
+    ``chunk`` tokens (S by default: one chunk), each the one-chunk form that
+    the model computes (``repro/models/rwkv6.py::wkv6_chunk``) and the Pallas
+    kernel ``repro/kernels/rwkv6_chunk.py`` computes, carrying the state.
+
+    r/k/logw: [B, S, H, K]; v: [B, S, H, V]; u: [H, K]; state: [B, H, K, V].
+    Returns (o [B, S, H, V] in ``out_dtype`` — r's dtype by default, as the
+    Pallas kernel writes it — and the state after the last chunk
+    [B, H, K, V] in float32). Raises unless ``chunk`` divides S."""
+    out_dtype = out_dtype or r.dtype
+    S = r.shape[1]
+    c = check_chunk(S, chunk)
+    outs = []
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        o, state = _wkv6_one_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl],
+                                   u, state)
+        outs.append(o)
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return o.to(out_dtype), state
 
 
 def rwkv6_chunk_ref(r, k, v, logw, u, state):

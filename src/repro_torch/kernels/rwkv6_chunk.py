@@ -1,17 +1,22 @@
 """RWKV6 chunked-WKV kernel: the Python side of ``csrc/rwkv6_chunk.cu``
 (CUDA C++ for sm_90a), which replaces the Pallas kernel
-``repro/kernels/rwkv6_chunk.py``.
+``repro/kernels/rwkv6_chunk.py``. One launch walks every chunk of a
+sequence with the WKV state kept on chip.
 
 Layouts:
-  r, k, logw [B, c, H, K]; v [B, c, H, V]; u [H, K]; state [B, H, K, V]
-  -> o [B, c, H, V], new state [B, H, K, V] (float32)
+  r, k, logw [B, S, H, K]; v [B, S, H, V]; u [H, K]; state [B, H, K, V]
+  -> o [B, S, H, V], state after the last chunk [B, H, K, V] (float32)
 
-r/k/v/logw may be strided views (the model hands over chunk slices of its
-``[B, S, H, K]`` projections); only the last dim must be contiguous. r, k
-and v are float32 or bfloat16, all three alike; logw is float32 or r's
-dtype; u and state are contiguous float32. ``o`` is written in ``out_dtype``,
-r's dtype by default as the Pallas kernel writes it (the model asks for
-float32, as its ``wkv6_chunk`` keeps it).
+``S`` is split into chunks of ``chunk`` tokens (``S`` by default: one
+chunk, the Pallas kernel's contract), walked in order; each chunk computes
+what the one-chunk kernel computes, so one launch over n chunks equals n
+chained one-chunk launches bit for bit. r/k/v/logw may be strided views (the
+model's ``[B, S, H, K]`` projections, or slices of them); only the last dim
+must be contiguous, and every row must start on 16 bytes (the kernel copies
+16 bytes at a time). r, k and v are float32 or bfloat16, all three alike;
+logw is float32 or r's dtype; u and state are contiguous float32. ``o`` is
+written in ``out_dtype``, r's dtype by default as the Pallas kernel writes
+it (the model asks for float32, as its ``wkv6_chunk`` keeps it).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ def _launcher():
     global _launch
     if _launch is None:
         fn = build.load("rwkv6_chunk").rwkv6_chunk_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -40,7 +45,16 @@ def _launcher():
     return _launch
 
 
-def _check(r, k, v, logw, u, state, out_dtype):
+def check_chunk(S: int, chunk: int | None) -> int:
+    """The chunk length for a sequence of S tokens (S when ``chunk`` is
+    None); raises unless it divides S."""
+    c = S if chunk is None else chunk
+    if c <= 0 or S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of chunk {c}")
+    return c
+
+
+def _check(r, k, v, logw, u, state, out_dtype, chunk):
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_chunk_cuda needs CUDA tensors, got {dev}")
@@ -59,16 +73,17 @@ def _check(r, k, v, logw, u, state, out_dtype):
             f"state float32, out one of {list(_DTYPES)}")
     if r.ndim != 4 or v.ndim != 4:
         raise ValueError(f"shapes r {tuple(r.shape)} v {tuple(v.shape)}: "
-                         f"need [B, c, H, K] and [B, c, H, V]")
-    B, c, H, K = r.shape
+                         f"need [B, S, H, K] and [B, S, H, V]")
+    B, S, H, K = r.shape
     V = v.shape[3]
     if (k.shape != r.shape or logw.shape != r.shape
-            or tuple(v.shape[:3]) != (B, c, H) or tuple(u.shape) != (H, K)
+            or tuple(v.shape[:3]) != (B, S, H) or tuple(u.shape) != (H, K)
             or tuple(state.shape) != (B, H, K, V)):
         raise ValueError(
             f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
             f"logw {tuple(logw.shape)} u {tuple(u.shape)} "
             f"state {tuple(state.shape)} do not agree")
+    c = check_chunk(S, chunk)
     if c not in CHUNKS:
         raise ValueError(f"chunk length {c} must be one of {CHUNKS}")
     for name, d in (("K", K), ("V", V)):
@@ -78,24 +93,30 @@ def _check(r, k, v, logw, u, state, out_dtype):
     for name, x in zip(names[:4], (r, k, v, logw)):
         if x.stride(-1) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
+        steps = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
+        if x.data_ptr() % 16 or any(st * x.element_size() % 16 for st in steps):
+            raise ValueError(f"{name}'s rows must start on 16-byte boundaries "
+                             f"(strides {x.stride()}, {x.element_size()}-byte "
+                             f"elements)")
     if not (u.is_contiguous() and state.is_contiguous()):
         raise ValueError("u and state must be contiguous")
+    return c
 
 
-def rwkv6_chunk_cuda(r, k, v, logw, u, state, *, out_dtype=None):
+def rwkv6_chunk_cuda(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
     """Launch the kernel on the current stream; raises on any input it does
-    not take. Returns (o, new state), both new tensors."""
+    not take. Returns (o, state after the last chunk), both new tensors."""
     out_dtype = out_dtype or r.dtype
-    _check(r, k, v, logw, u, state, out_dtype)
-    B, c, H, K = r.shape
+    c = _check(r, k, v, logw, u, state, out_dtype, chunk)
+    B, S, H, K = r.shape
     V = v.shape[3]
-    out = torch.empty((B, c, H, V), dtype=out_dtype, device=r.device)
+    out = torch.empty((B, S, H, V), dtype=out_dtype, device=r.device)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     strides = [s for x in (r, k, v, logw) for s in x.stride()[:3]]
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                       u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                      s_out.data_ptr(), B, c, H, K, V, *strides,
+                      s_out.data_ptr(), B, S // c, c, H, K, V, *strides,
                       _DTYPES[r.dtype], _DTYPES[logw.dtype],
                       _DTYPES[out_dtype], stream)
     if err:

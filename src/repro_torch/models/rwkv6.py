@@ -1,10 +1,11 @@
 """RWKV6 "Finch": attention-free token mixing with data-dependent per-channel
 decay. The PyTorch counterpart of ``repro/models/rwkv6.py::RWKV6Model``.
 
-Prefill runs the chunked form of the WKV recurrence: a Python loop over
-chunks of ``_chunk_size(S)`` tokens, each one call of ``ops.rwkv6_chunk``
-(the hand-written CUDA kernel for CUDA tensors, its plain version on the
-CPU) carrying a ``[B, H, K, V]`` float32 state. Decode is the one-token
+Prefill runs the chunked form of the WKV recurrence over chunks of
+``_chunk_size(S)`` tokens, carrying a ``[B, H, K, V]`` float32 state: one
+call of ``ops.rwkv6_chunk`` per layer (the hand-written CUDA kernel, one
+launch that walks every chunk, for CUDA tensors; its plain version, a loop
+over the chunks, on the CPU). Decode is the one-token
 recurrence ``wkv6_decode`` in plain PyTorch, as the reference has no kernel
 for it.
 
@@ -61,9 +62,9 @@ class RWKV6Model(nn.Module):
     KERNELS = ("rwkv6_chunk",)
     # every decode step folds its token into each row's state
     RECURRENT_CACHE = True
-    # WKV chunk implementation: 'kernel' goes through ops.rwkv6_chunk (the
-    # CUDA kernel for CUDA tensors, the plain version on the CPU); 'plain'
-    # always runs the plain version. Instance-level; see with_wkv_impl().
+    # WKV implementation: 'kernel' goes through ops.rwkv6_chunk (the CUDA
+    # kernel for CUDA tensors, the plain version on the CPU); 'plain' always
+    # runs the plain version. Instance-level; see with_wkv_impl().
     wkv_impl = "kernel"
 
     def __init__(self, cfg: ModelConfig):
@@ -178,11 +179,12 @@ class RWKV6Model(nn.Module):
     def _heads(self, x):
         return x.reshape(*x.shape[:-1], self.n_heads, self.cfg.rwkv_head_dim)
 
-    def _wkv_chunk(self, r, k, v, logw, u, state):
-        """One chunk of the recurrence with ``o`` kept in float32, as the
-        model's ``wkv6_chunk`` keeps it (the Pallas kernel writes r's dtype)."""
+    def _wkv(self, r, k, v, logw, u, state, *, chunk):
+        """The recurrence over the whole sequence in chunks of ``chunk``
+        tokens, with ``o`` kept in float32 as the model's ``wkv6_chunk``
+        keeps it (the Pallas kernel writes r's dtype)."""
         fn = ref.rwkv6_chunk_plain if self.wkv_impl == "plain" else ops.rwkv6_chunk
-        return fn(r, k, v, logw, u, state, out_dtype=torch.float32)
+        return fn(r, k, v, logw, u, state, out_dtype=torch.float32, chunk=chunk)
 
     def _time_mix_seq(self, pp, x, boundary, valid=None):
         """x: [B, S, D] post-ln1; boundary: [B, D] last token of the previous
@@ -205,13 +207,7 @@ class RWKV6Model(nn.Module):
         c = _chunk_size(S)
         state = torch.zeros((B, self.n_heads, K, K), dtype=torch.float32,
                             device=x.device)
-        outs = []
-        for i in range(S // c):
-            sl = slice(i * c, (i + 1) * c)
-            o, state = self._wkv_chunk(r[:, sl], k[:, sl], v[:, sl],
-                                       logw[:, sl], u, state)
-            outs.append(o)
-        o = torch.cat(outs, dim=1)
+        o, state = self._wkv(r, k, v, logw, u, state, chunk=c)
         o = L.groupnorm_heads(o, o.new_ones(())).reshape(B, S, D)
         o = (o * pp["gn"].float()).to(self.dtype)
         o = o * F.silu(g.float()).to(self.dtype)
@@ -342,7 +338,7 @@ class RWKV6Model(nn.Module):
 
     def with_wkv_impl(self, impl: str) -> "RWKV6Model":
         """A sibling model instance (same config, same parameter tree) whose
-        prefill chunks run via ``impl`` ('kernel' | 'plain')."""
+        prefill WKV runs via ``impl`` ('kernel' | 'plain')."""
         if impl not in ("kernel", "plain"):
             raise ValueError(f"unknown WKV impl {impl!r}")
         return self._sibling(self.cfg, impl)

@@ -288,6 +288,72 @@ def test_rwkv6_chunk_kernel_chain_matches_sequential_oracle(card):
     _close(s, want_s, 1e-3)
 
 
+def _rwkv_layer_inputs(card, B, S, dtype, lens=None, cut=False, seed=9):
+    """One layer's call at rwkv6-7b's widths (64 heads of 64). ``lens``: row
+    b's k and logw zeroed from token lens[b] on, as the model's ``valid``
+    does; ``cut``: views cut from wider, longer projections."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(card, B, S, 64, 64, dtype, "float32",
+                                        seed=seed, T=S + 32 if cut else S)
+    if cut:
+        def wide(x):
+            w = torch.zeros(x.shape[:3] + (96,), dtype=x.dtype, device=card)
+            w[..., 16:80] = x
+            return w[:, 16:16 + S, :, 16:80]
+        r, k, v, logw = (wide(x) for x in (r, k, v, logw))
+        assert not r.is_contiguous()
+    for b, n in enumerate(lens or []):
+        k[b, n:] = 0
+        logw[b, n:] = 0
+    return r, k, v, logw, u, s0
+
+
+def _chained_launches(r, k, v, logw, u, state, chunk, out_dtype):
+    outs = []
+    for i in range(r.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        o, state = ops.rwkv6_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u,
+                                   state, out_dtype=out_dtype)
+        outs.append(o)
+    return torch.cat(outs, dim=1), state
+
+
+# chip_smoke.py's phase-3 shapes of one layer's call
+@pytest.mark.parametrize("B,S,chunk,dtype,lens,cut", [
+    (1, 256, 16, "bfloat16", None, False),     # the serve's prefill
+    (1, 1024, 16, "bfloat16", None, False),    # max_len
+    (1, 4096, 32, "bfloat16", None, False),    # the bucket where c grows
+    (2, 128, 16, "bfloat16", [128, 77], False),
+    (4, 512, 16, "bfloat16", None, True),
+    (1, 256, 16, "float32", None, False),
+    (2, 128, 64, "float32", [128, 50], False),
+])
+def test_rwkv6_chunk_kernel_walks_every_chunk_in_one_launch(card, B, S, chunk,
+                                                            dtype, lens, cut):
+    """One launch per layer against the chained plain version (the chain
+    tolerance), and bit for bit against n chained one-chunk launches."""
+    args = _rwkv_layer_inputs(card, B, S, dtype, lens, cut)
+    f32 = torch.float32
+    before = ops.launch_counts()["rwkv6_chunk"]
+    o, s = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=chunk)
+    assert ops.launch_counts()["rwkv6_chunk"] == before + 1
+    want_o, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=f32, chunk=chunk)
+    _close(o, want_o, 1e-3)
+    _close(s, want_s, 1e-3)
+    chain_o, chain_s = _chained_launches(*args, chunk, f32)
+    torch.cuda.synchronize()
+    assert torch.equal(o, chain_o) and torch.equal(s, chain_s)
+
+
+def test_rwkv6_chunk_kernel_one_launch_chain_matches_sequential_oracle(card):
+    r, k, v, logw, u, _ = _rwkv_inputs(card, 1, 16, 8, 64, "float32",
+                                       "float32", seed=8, T=64)
+    s0 = torch.zeros((1, 8, 64, 64), device=card)
+    o, s = ops.rwkv6_chunk(r, k, v, logw, u, s0, chunk=16)
+    want_o, want_s = ref.rwkv6_chunk_ref(r, k, v, logw, u, s0)
+    _close(o, want_o, 1e-3)
+    _close(s, want_s, 1e-3)
+
+
 def test_rwkv6_chunk_wrapper_refuses_what_it_does_not_take(card):
     def args(B=1, c=16, H=2, K=16, dtype=torch.float32):
         x = torch.zeros((B, c, H, K), device=card, dtype=dtype)
@@ -318,12 +384,23 @@ def test_rwkv6_chunk_wrapper_refuses_what_it_does_not_take(card):
         ops.rwkv6_chunk(x, *a[1:])
     with pytest.raises(ValueError, match="on cpu"):
         ops.rwkv6_chunk(*a[:4], a[4].cpu(), a[5])
+    long = args(c=48)
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        ops.rwkv6_chunk(*long, chunk=32)
+    with pytest.raises(ValueError, match="chunk length"):
+        ops.rwkv6_chunk(*long, chunk=8)
+    x = torch.zeros((1, 17, 2, 16), device=card)[:, 1:]     # rows of 16 floats
+    assert x.data_ptr() % 16 == 0
+    y = torch.zeros((1, 16, 2, 18), device=card)[..., 2:]   # 8-byte aligned
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rwkv6_chunk(y, *a[1:])
+    ops.rwkv6_chunk(x, *a[1:])                              # aligned: taken
 
 
 def test_rwkv6_dense_engine_on_the_card_launches_its_kernel(card):
     """A smoke-config RWKV6 serve on CUDA goes through the rwkv6_chunk
-    kernel, serial == pipelined, and its streams match the plain-chunk
-    model's (the model runs in float32)."""
+    kernel, one launch per layer per prefill, serial == pipelined, and its
+    streams match the plain-chunk model's (the model runs in float32)."""
     import copy
 
     from repro_torch.configs import get_smoke_config
@@ -345,14 +422,24 @@ def test_rwkv6_dense_engine_on_the_card_launches_its_kernel(card):
                        ("plain", "serial")):
         tr = copy.deepcopy(trace)
         ops.reset_launch_counts()
-        engine = build_real_engine("rwkv6-7b", "relserve", "dense",
-                                   model=model.with_wkv_impl(impl),
+        m = model.with_wkv_impl(impl)
+        prefills = []
+
+        def prefill(*a, _real=m.prefill, _calls=prefills, **kw):
+            _calls.append(1)
+            return _real(*a, **kw)
+
+        m.prefill = prefill
+        engine = build_real_engine("rwkv6-7b", "relserve", "dense", model=m,
                                    params=params, engine_loop=loop, device=card)
         engine.run_trace(tr)
         streams[impl, loop] = [tuple(r.output_tokens) for rq in tr
                                for r in rq.requests]
         counts = ops.launch_counts()
-        assert (counts["rwkv6_chunk"] > 0) == (impl == "kernel"), counts
+        assert prefills
+        # one launch per layer per prefill call, none on the plain path
+        assert counts["rwkv6_chunk"] == (cfg.num_layers * len(prefills)
+                                         if impl == "kernel" else 0), counts
         assert counts["paged_attention"] == counts["flash_prefill"] == 0
     assert streams["kernel", "serial"] == streams["kernel", "pipelined"]
     plain = streams["plain", "serial"]

@@ -265,7 +265,80 @@ def test_rwkv6_ops_dispatch_runs_plain_on_cpu_and_counts_nothing():
     o, s = ops.rwkv6_chunk(*args, out_dtype=torch.float32)
     want_o, want_s = ref.rwkv6_chunk_plain(*args)
     assert torch.equal(o, want_o) and torch.equal(s, want_s)
+    o, s = ops.rwkv6_chunk(*args, out_dtype=torch.float32, chunk=8)
+    want_o, want_s = ref.rwkv6_chunk_plain(*args, chunk=8)
+    assert torch.equal(o, want_o) and torch.equal(s, want_s)
     assert ops.launch_counts() == before
+
+
+def _padded(args, lens):
+    """Row b's k and logw zeroed from token lens[b] on, as the model's
+    ``valid`` mask does for pad tokens."""
+    r, k, v, logw, u, s0 = (np.array(a) for a in args)
+    for b, n in enumerate(lens):
+        k[b, n:] = 0.0
+        logw[b, n:] = 0.0
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("padded", [False, True])
+def test_rwkv6_plain_chunked_equals_loop_of_one_chunk_calls(c, n, padded):
+    """One chunked call == the loop of one-chunk calls that the model used to
+    make, bit for bit: o, its bf16 rounding and the carried state."""
+    B, H, K, S = 2, 2, 16, c * n
+    args = _chunk_inputs(B, S, H, K, seed=10 + n)
+    if padded:
+        args = _padded(args, [S, S - c // 2 - 3])
+    r, k, v, logw, u, s0 = map(_t, args)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        o, s = ref.rwkv6_chunk_plain(r, k, v, logw, u, s0, out_dtype=out_dtype,
+                                     chunk=c)
+        st, outs = s0, []
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            oi, st = ref.rwkv6_chunk_plain(r[:, sl], k[:, sl], v[:, sl],
+                                           logw[:, sl], u, st,
+                                           out_dtype=out_dtype)
+            outs.append(oi)
+        assert o.dtype == out_dtype and tuple(o.shape) == (B, S, H, K)
+        assert torch.equal(o, torch.cat(outs, dim=1))
+        assert torch.equal(s, st)
+
+
+@pytest.mark.parametrize("B,c,n,H,K,padded", [
+    (1, 16, 4, 2, 16, False),
+    (2, 32, 2, 2, 32, True),
+    (1, 64, 2, 1, 64, False),
+])
+def test_rwkv6_plain_chunked_matches_loops_of_pallas_and_model_chunks(
+        B, c, n, H, K, padded):
+    """The chunked plain call against loops of the Pallas kernel (interpret
+    mode) and of the model's ``wkv6_chunk``, chunk by chunk, to 1e-5 of the
+    largest value, as the one-chunk test holds them."""
+    S = c * n
+    args = _chunk_inputs(B, S, H, K, seed=20 + c)
+    if padded:
+        args = _padded(args, [S, S - c - 5])
+    r, k, v, logw, u, s0 = args
+    o, s = ref.rwkv6_chunk_plain(*map(_t, args), chunk=c)
+    for fn in (lambda *a: jax_pallas_chunk(*a, interpret=True), jax_wkv6_chunk):
+        js, jouts = jnp.asarray(s0), []
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            jo, js = fn(*[jnp.asarray(x[:, sl]) for x in (r, k, v, logw)],
+                        jnp.asarray(u), js)
+            jouts.append(jo)
+        _close_rel(o, jnp.concatenate(jouts, axis=1), 1e-5)
+        _close_rel(s, js, 1e-5)
+
+
+@pytest.mark.parametrize("S,chunk", [(48, 32), (16, 64), (40, 16)])
+def test_rwkv6_ops_refuses_a_chunk_that_does_not_divide_the_sequence(S, chunk):
+    args = [_t(a) for a in _chunk_inputs(1, S, 2, 16, seed=5)]
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        ops.rwkv6_chunk(*args, chunk=chunk)
 
 
 # ----------------------------------------------------------------------------

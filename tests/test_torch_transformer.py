@@ -27,6 +27,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models.registry import build_model as jax_build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy, tensor_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.rwkv6 import RWKV6Model  # noqa: E402
 
@@ -314,6 +315,32 @@ def test_rwkv6_padded_prefill_matches_exact():
     lg_d, _ = m.decode_step(params, cache, tk[:, n], sl)
     lg_ref, _ = m.prefill(params, tk[:, :n + 1], max_len=64)
     assert _rel_err(lg_d.float().numpy(), lg_ref.float().numpy()) < 0.02
+
+
+@pytest.mark.parametrize("L,chunk", [(32, 16), (256, 16), (4096, 32)])
+@pytest.mark.parametrize("padded", [False, True])
+def test_rwkv6_prefill_makes_one_wkv_call_per_layer(monkeypatch, L, chunk,
+                                                    padded):
+    """Each layer's prefill hands the whole sequence to ``ops.rwkv6_chunk``
+    once, with the model's chunk length (the chunk loop runs inside it)."""
+    cfg = get_smoke_config(RWKV).replace(dtype="float32")
+    m = build_model(cfg)
+    params = m.init_params(torch.Generator().manual_seed(4))
+    calls = []
+    real = ops.rwkv6_chunk
+
+    def counting(r, *args, **kw):
+        calls.append((tuple(r.shape), kw.get("chunk")))
+        return real(r, *args, **kw)
+
+    monkeypatch.setattr(ops, "rwkv6_chunk", counting)
+    toks = torch.randint(0, cfg.vocab_size, (1, L),
+                         generator=torch.Generator().manual_seed(5))
+    sl = torch.tensor([L - 9], dtype=torch.int32) if padded else None
+    lg, _ = m.prefill(params, toks, seq_lens=sl)
+    assert bool(torch.isfinite(lg).all())
+    H, K = m.n_heads, cfg.rwkv_head_dim
+    assert calls == [((1, L, H, K), chunk)] * cfg.num_layers
 
 
 def test_rwkv6_plain_and_kernel_impls_agree_on_cpu():
