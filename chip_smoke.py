@@ -10,7 +10,8 @@ Phases (each raises on failure; none catches its own):
                of tensor-core instructions (HMMA) in its SASS from cuobjdump
                ("not measured" without it; flash_prefill's must be > 0)
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
-               at main-path shapes, bf16 and f32, TF32 off; each bf16 output
+               at main-path shapes (paged_attention also at the planned
+               serve's 8-token pages), bf16 and f32, TF32 off; each bf16 output
                also within half a bf16 ulp of the plain version's f32 result.
                Which kernel serves which dtype: flash_prefill bf16 runs on
                the tensor cores (mma.sync, P split into bf16 hi + lo), f32
@@ -32,19 +33,28 @@ Phases (each raises on failure; none catches its own):
      serve     trace, serial then pipelined loop (paged_attention, flash_prefill)
   6. qwen3   — one more serial serve under torch.profiler: the device's busy
      profile   share of the wall time and the kernels that take it
-  7. rwkv6   — full-width rwkv6-7b (random weights from the seed), in float32
+  7. qwen3   — the workload planner (dedup fan-out, prefix-maximizing
+     planned   reorder) in front of the paged engine with physically shared
+               prefix blocks, optimistic admission at a tight KV cap,
+               preemption, swaps to a host tier with proactive offload and
+               prefetch; serial then pipelined. Checks every row's stream,
+               the dedup fan-out, shared blocks, preemptions, swaps, both
+               pools drained; reports the share of rows whose streams equal
+               an unplanned serve of the same engine; then one more planned
+               serial serve under torch.profiler
+  8. rwkv6   — full-width rwkv6-7b (random weights from the seed), in float32
      model     at full depth (32 layers) and in bf16 at 4 layers (reported at
                32): one prefill at B=2 L=128 and one decode step from each
                cache, kernel vs plain WKV chunks, beside the plain chunks with
                their outputs perturbed by 1e-6 (the model's own sensitivity);
                and in bf16 at 32 layers each layer's time mix on its own,
                teacher-forced (output and state, kernel vs plain)
-  8. rwkv6   — the dense engine serving the same trace, serial then pipelined
+  9. rwkv6   — the dense engine serving the same trace, serial then pipelined
      serve     (rwkv6_chunk, one launch per layer per prefill call); the two
                runs' streams must be identical
-  9. rwkv6   — one more serial serve under torch.profiler
+ 10. rwkv6   — one more serial serve under torch.profiler
      profile
- 10. times   — each kernel, its plain version and (flash_prefill only) torch's
+ 11. times   — each kernel, its plain version and (flash_prefill only) torch's
                SDPA timed on the device with CUDA events (calls queued behind
                a device-side sleep), beside the least time the card could
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
@@ -70,13 +80,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.priority import BatchLimits  # noqa: E402
 from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.data.trace import TraceConfig, build_trace  # noqa: E402
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.layers import layernorm  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.serving import build_real_engine  # noqa: E402
+from repro_torch.planner import PlanExecutor, Planner  # noqa: E402
+from repro_torch.serving import Frontend, build_real_engine  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
@@ -366,18 +378,22 @@ def phase_kernels() -> dict:
     """Kernel vs plain on the card. Returns the bf16 main-path errors."""
     errs = {}
     log("[kernels] paged_attention vs paged_attention_ref")
+    # the serve's pool of 16-token pages at Qt 1 and 4; the planned serve's
+    # pool of 8-token pages (8193 of them, contexts up to 512 tokens)
+    cases = [(f"B=32 ctx<=1024 Qt={qt}", qt, {}) for qt in (1, 4)] + [
+        ("page 8 B=32 ctx<=512 Qt=1", 1,
+         {"page": PLANNED_BLOCK, "num_pages": 8193})]
     for dtype in (torch.bfloat16, torch.float32):
-        for qt in (1, 4):
-            args = paged_inputs(dtype, num_q_tokens=qt)
+        for label, qt, geometry in cases:
+            args = paged_inputs(dtype, num_q_tokens=qt, **geometry)
             out = ops.paged_attention(*args, num_q_tokens=qt)
             want = ref.paged_attention_ref(*args, num_q_tokens=qt)
             torch.cuda.synchronize()
-            label = f"B=32 ctx<=1024 Qt={qt}"
             e = assert_close("paged_attention", out, want, dtype, label)
             if dtype == torch.bfloat16:
                 want32 = ref.paged_attention_ref(*upcast(args), num_q_tokens=qt)
                 assert_rounded_once("paged_attention", out, want32, label)
-                if qt == 1:
+                if label == cases[0][0]:
                     errs["paged_attention"] = e
     log("[kernels] flash_prefill vs flash_prefill_ref")
     for dtype in (torch.bfloat16, torch.float32):
@@ -664,12 +680,13 @@ def phase_layers_rwkv(cfg, model, params, device="cuda") -> None:
         f"{worst['state'][0]:.3e} (layer {worst['state'][1]})")
 
 
-def serve_trace(vocab_size: int = 151934):
+def serve_trace(vocab_size: int = 151934, **kw):
+    """The serve phases' rotten trace; ``kw`` overrides TraceConfig fields."""
     tok = HashTokenizer(vocab_size=vocab_size)
     ds = make_dataset("rotten", num_rows=1000, seed=SEED)
-    return build_trace(ds, TraceConfig(num_relqueries=8, rate=4.0, seed=SEED,
-                                       max_requests=8, output_token_cap=16),
-                       tokenizer=tok)
+    cfg = dict(num_relqueries=8, rate=4.0, seed=SEED, max_requests=8,
+               output_token_cap=16)
+    return build_trace(ds, TraceConfig(**dict(cfg, **kw)), tokenizer=tok)
 
 
 # (kv backend, max_slots) of each path's serve; rwkv6-7b runs with as many
@@ -768,6 +785,165 @@ def phase_serve(model, params, *, exact: bool = False) -> dict:
         f"{same:.3f} ({card})")
     if exact:
         check(serial == pipelined, "serial and pipelined streams differ")
+    return {name: counts[name] for name in model.KERNELS}
+
+
+# The planned serve (phase 7): the serve trace with half of each relQuery's
+# rows exact copies of earlier rows, 16 relQueries with outputs up to 32
+# tokens, all arriving at once. With every relQuery present from the start
+# the scheduler's decisions follow from the trace alone, not from the measured
+# batch times (staggered arrivals let a fast host finish one relQuery before
+# the next arrives, and the cap is then never reached).
+PLANNED_TRACE = dict(num_relqueries=16, output_token_cap=32, rate=1e9,
+                     dup_row_fraction=0.5)
+# The templates' common prefixes are 13 tokens, under one block of 16; blocks
+# of 8 share them physically.
+PLANNED_BLOCK = 8
+# The device KV cap C, in multiples of the trace's largest request footprint
+# (prompt + output cap): tight enough that decode growth overflows it and the
+# scheduler reclaims (tests/test_torch_engine.py derives its cap the same way).
+PLANNED_CAP_FACTOR = 3.0
+# The swap cost model's link rate: at the default 32 GB/s a swap is always
+# cheaper than re-prefill, so no victim is ever recomputed. At 8 GB/s victims
+# under ~240 tokens swap to the host tier and longer ones are preempted and
+# recomputed, so both reclaim paths run in one serve.
+PLANNED_SWAP_GBPS = 8.0
+
+
+def watch_cow(ex, bad: list) -> None:
+    """Record every copy-on-write append whose sequence's block table does
+    not point at the fresh copy right after it (so the next decode would
+    read the shared page)."""
+    bm = ex.bm
+    inner = bm.append_token_cow
+
+    def append_token_cow(seq_id):
+        bid, cow = inner(seq_id)
+        if cow is not None:
+            src, dst = cow
+            table = bm.block_table(seq_id)
+            if dst not in table or src in table:
+                bad.append((seq_id, cow, list(table)))
+        return bid, cow
+
+    bm.append_token_cow = append_token_cow
+
+
+def planned_cap(trace) -> int:
+    return int(PLANNED_CAP_FACTOR * max(r.num_prompt_tokens + r.max_output_tokens
+                                        for rq in trace for r in rq.requests))
+
+
+def planned_engine(model, params, loop: str, cap: int, device="cuda"):
+    return build_real_engine(
+        model.cfg.name, "relserve", "paged", model=model, params=params,
+        max_slots=64, max_len=1024, block_size=PLANNED_BLOCK, engine_loop=loop,
+        prefix_sharing=True, kv_admission="optimistic", kv_tiering=True,
+        proactive_offload=True, swap_prefetch=True,
+        limits=BatchLimits(cap=cap), host_kv_cap=4 * cap,
+        swap_bandwidth_gbps=PLANNED_SWAP_GBPS, device=device)
+
+
+def run_planned(model, params, trace, loop: str, cap: int, device="cuda",
+                card: str = "") -> list:
+    """Replay ``trace`` through the planner (dedup + prefix-maximizing
+    reorder) on the tight-cap, prefix-shared, KV-tiered paged engine and
+    check it. Returns every logical row's stream, in trace order."""
+    trace = copy.deepcopy(trace)
+    engine = planned_engine(model, params, loop, cap, device)
+    ex = engine.executor
+    bad_cow: list = []
+    watch_cow(ex, bad_cow)
+    tok = HashTokenizer(vocab_size=model.cfg.vocab_size - 2)
+    planner = Planner("full", tokenizer=tok)
+    planned = planner.plan_trace(trace)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    report = PlanExecutor(Frontend(engine), planner).replay(planned)
+    sync()
+    wall = time.perf_counter() - t0
+    rows = [r for p in planned for r in p.logical_requests]
+    n_tok = sum(len(r.output_tokens) for p in planned
+                for r in p.physical.requests)
+    check(sorted(report.latencies) == sorted(rq.rel_id for rq in trace),
+          f"planned {loop}: not every relQuery finished")
+    for r in rows:
+        check(1 <= len(r.output_tokens) <= r.max_output_tokens,
+              f"planned {loop}: row {r.req_id} has {len(r.output_tokens)} tokens")
+    for p in planned:
+        leaders = {r.req_id: r for r in p.physical.requests}
+        for leader_id, followers in p.fanout.items():
+            for f in followers:
+                check(f.output_tokens == leaders[leader_id].output_tokens,
+                      f"planned {loop}: deduped row {f.req_id} differs from "
+                      f"its representative {leader_id}")
+    deduped = sum(p.deduped_requests for p in planned)
+    check(report.deduped_requests == deduped > 0,
+          f"planned {loop}: {report.deduped_requests} rows answered by dedup")
+    for name, n in (("shared KV tokens", report.shared_kv_tokens),
+                    ("shared prefix block hits", ex.shared_block_hits),
+                    ("preemptions", report.preemptions),
+                    ("swap-outs", report.swap_outs),
+                    ("swap-ins", report.swap_ins)):
+        check(n > 0, f"planned {loop}: no {name} (cap {cap} tokens)")
+    check(not bad_cow, f"planned {loop}: a block table still points at the "
+          f"shared page after copy-on-write: {bad_cow[:3]}")
+    ex.bm.check_invariants()
+    check(ex.bm.free_blocks == ex.bm.num_blocks
+          and ex.kv_tokens_resident() == 0,
+          f"planned {loop}: the device pool did not drain")
+    check(ex.bm.host_free_blocks == ex.bm.num_host_blocks
+          and ex.bm.host_tokens_in_use() == 0 and not ex._host_stash,
+          f"planned {loop}: the host pool did not drain")
+    log(f"[planned] {model.cfg.name} paged {loop}: {len(trace)} relQueries, "
+        f"{len(rows)} logical rows -> {len(rows) - deduped} physical "
+        f"({deduped} deduped), {n_tok} tokens decoded; latency avg "
+        f"{report.avg_latency:.4f}s p50 {report.percentile(50):.4f}s p99 "
+        f"{report.percentile(99):.4f}s; wall {wall:.3f}s, "
+        f"{n_tok / wall:.1f} tokens/s; {len(report.events)} batches; cap "
+        f"{cap} tokens, pool {ex.num_blocks + 1} blocks of {ex.block_size}, "
+        f"host {ex.num_host_blocks} blocks; shared: {report.shared_kv_tokens} "
+        f"KV tokens, {ex.shared_block_hits} prefix block hits, "
+        f"{ex.cow_copies} cow copies; {report.preemptions} preemptions "
+        f"({report.preempted_tokens} tokens); {report.swap_outs} swap-outs "
+        f"({report.swapped_out_tokens} tokens), {report.swap_ins} swap-ins "
+        f"({report.swapped_in_tokens} tokens), {report.proactive_offloads} "
+        f"proactive offloads, {report.swap_prefetches} prefetches; {card}")
+    streams = [tuple(r.output_tokens) for r in rows]
+    del engine, ex
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return streams
+
+
+def phase_planned(model, params, device="cuda") -> dict:
+    """The planned, prefix-shared, KV-tiered serve, serial then pipelined;
+    each loop must launch both attention kernels. Then the same engine
+    serves the trace unplanned, and the share of rows whose streams match is
+    reported (not checked: in bf16 another batch composition may change a
+    greedy token). Returns the two loops' launch counts."""
+    card = nvidia_smi_line() if device == "cuda" else "cpu"
+    trace = serve_trace(model.cfg.vocab_size - 2, **PLANNED_TRACE)
+    cap = planned_cap(trace)
+    ops.reset_launch_counts()
+    serial = run_planned(model, params, trace, "serial", cap, device, card)
+    after_serial = ops.launch_counts()
+    pipelined = run_planned(model, params, trace, "pipelined", cap, device, card)
+    counts = ops.launch_counts()
+    log(f"[planned] launches: serial {after_serial}, serial + pipelined {counts}")
+    for name in model.KERNELS:
+        check(after_serial[name] > 0, f"planned serial serve never launched {name}")
+        check(counts[name] > after_serial[name],
+              f"planned pipelined serve never launched {name}")
+    tr = copy.deepcopy(trace)
+    planned_engine(model, params, "serial", cap, device).run_trace(tr)
+    unplanned = [tuple(r.output_tokens) for rq in tr for r in rq.requests]
+    n = len(serial)
+    log(f"[planned] identical streams: planned serial vs pipelined "
+        f"{sum(a == b for a, b in zip(serial, pipelined)) / n:.3f}, planned "
+        f"vs unplanned {sum(a == b for a, b in zip(serial, unplanned)) / n:.3f} "
+        f"({n} rows; {card})")
     return {name: counts[name] for name in model.KERNELS}
 
 
@@ -877,30 +1053,44 @@ def phase_times(errs: dict, counts: dict) -> list:
     return out
 
 
-def phase_profile(model, params, device="cuda") -> None:
-    """Where the serve phase's time goes: one more serial serve of the same
-    trace under torch.profiler (after the launch counters were read). Prints
-    the device's busy and idle share of the wall time and the kernels that
-    take the device time."""
+def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
+    """Where a serve phase's time goes: one more serial serve of the same
+    trace under torch.profiler (after the launch counters were read), the
+    planned serve of phase 7 with ``planned``. Prints the device's busy and
+    idle share of the wall time and the kernels that take the device time.
+    The planned serve launches ~700k kernels: it is traced on the device
+    only, since the host's operator events would multiply the trace and the
+    time to sum it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
+    acts = [] if planned and device == "cuda" else [ProfilerActivity.CPU]
     if device == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    trace = serve_trace(model.cfg.vocab_size - 2)
+    if planned:
+        trace = serve_trace(model.cfg.vocab_size - 2, **PLANNED_TRACE)
+        cap = planned_cap(trace)
+    else:
+        trace = serve_trace(model.cfg.vocab_size - 2)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, n_prefill = run_serve(model, params, trace, "serial", device)
+        if planned:
+            run_planned(model, params, trace, "serial", cap, device)
+            n_prefill = None
+        else:
+            _, n_prefill = run_serve(model, params, trace, "serial", device)
         wall_us = (time.perf_counter() - t0) * 1e6
+    t1 = time.perf_counter()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
+    log(f"[profile] summing the trace took {time.perf_counter() - t1:.1f}s")
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         log("[profile] the profiler recorded no device time: not measured")
         return
     launches = sum(e.count for e in kernels)
-    log(f"[profile] {model.cfg.name} serial serve under the profiler: wall "
+    log(f"[profile] {model.cfg.name} {'planned ' if planned else ''}serial "
+        f"serve under the profiler: wall "
         f"{wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall, "
         f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches"
@@ -924,22 +1114,40 @@ def load_model(arch: str, dtype: str = ""):
     return cfg, model, params
 
 
+def lap(label: str, t0: float) -> float:
+    """Log the seconds since ``t0`` under ``label``; returns now."""
+    now = time.perf_counter()
+    log(f"[time] {label}: {now - t0:.1f}s")
+    return now
+
+
 def main() -> None:
-    t_start = time.perf_counter()
+    t_start = t = time.perf_counter()
     phase_device()
     phase_build()
+    t = lap("device and build", t)
     errs = phase_kernels()
+    t = lap("kernels", t)
 
     cfg, model, params = load_model("qwen3-1.7b")
     phase_model_qwen(cfg, model, params)
+    t = lap("qwen3 model", t)
     counts = phase_serve(model, params)
+    t = lap("qwen3 serve", t)
     phase_profile(model, params)
+    t = lap("qwen3 profile", t)
+    planned = phase_planned(model, params)
+    counts = {name: counts[name] + planned[name] for name in counts}
+    t = lap("qwen3 planned serve", t)
+    phase_profile(model, params, planned=True)
+    t = lap("qwen3 planned profile", t)
     del cfg, model, params
     gc.collect()
     torch.cuda.empty_cache()
 
     cfg, model, params = load_model("rwkv6-7b", dtype="float32")
     phase_model_rwkv(cfg, model, params, RWKV_F32_REL_TOL)
+    t = lap("rwkv6 model f32", t)
     del cfg, model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -952,13 +1160,17 @@ def main() -> None:
                      MODEL_REL_TOL)
     phase_layers_rwkv(cfg, model, params)
     phase_model_rwkv(cfg, model, params, None)
+    t = lap("rwkv6 model bf16", t)
     counts.update(phase_serve(model, params, exact=True))
+    t = lap("rwkv6 serve", t)
     phase_profile(model, params)
+    t = lap("rwkv6 profile", t)
     del cfg, model, params
     gc.collect()
     torch.cuda.empty_cache()
 
     kernels = phase_times(errs, counts)
+    lap("times", t)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

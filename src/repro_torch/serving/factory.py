@@ -1,19 +1,24 @@
-"""Assemble a real serving stack: ``build_real_engine`` pairs the paper's
-scheduler (or a baseline) with a PyTorch executor on either KV backend (dense
-slots or the block-paged pool). Every ported family serves on the dense
-backend (the dense transformers and RWKV6); the paged backend takes the
-dense transformers only. The simulated multi-replica cluster
-(``build_simulated_cluster`` in the JAX package) is not ported yet."""
+"""One place to assemble serving stacks: ``build_simulated_cluster`` for the
+simulated multi-replica clock (per replica a private PrefixCache, a scheduler
+wired to it, and a SimulatedExecutor sharing the same cache; no model and no
+torch device) and ``build_real_engine``, which pairs the paper's scheduler
+(or a baseline) with a PyTorch executor on either KV backend (dense slots or
+the block-paged pool). Every ported family serves on the dense backend (the
+dense transformers and RWKV6); the paged backend takes the dense
+transformers only."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.core.latency_model import BatchLatencyModel
+from repro_torch.core.latency_model import BatchLatencyModel, a100_opt13b
 from repro_torch.core.policies import SCHEDULERS
 from repro_torch.core.priority import BatchLimits, DPUConfig
 from repro_torch.engine.prefix_cache import PrefixCache
+from repro_torch.engine.simulator import SimulatedExecutor
+from repro_torch.serving.cluster import Cluster
+from repro_torch.serving.router import Router
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,6 +33,51 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def build_simulated_cluster(num_replicas: int, scheduler: str = "relserve",
+                            router_policy: str = "affinity_spill",
+                            latency_model: Optional[BatchLatencyModel] = None,
+                            limits: Optional[BatchLimits] = None,
+                            dpu_config: Optional[DPUConfig] = None,
+                            seed: int = 0, block_size: int = 16,
+                            router: Optional[Router] = None,
+                            kv_admission: str = "conservative",
+                            prefix_sharing: bool = False,
+                            engine_loop: str = "serial",
+                            kv_tiering: bool = False, host_kv_cap: int = 0,
+                            swap_bandwidth_gbps: float = 32.0,
+                            proactive_offload: bool = False,
+                            idle_horizon_s: Optional[float] = None,
+                            swap_prefetch: bool = False,
+                            debug_invariants: bool = False,
+                            snapshot_every: int = 0) -> Cluster:
+    lm = latency_model or a100_opt13b()
+    caches = {}
+
+    def make_scheduler(i: int):
+        caches[i] = PrefixCache(block_size=block_size)
+        kw = dict(limits=limits or BatchLimits(), latency_model=lm,
+                  prefix_cache=caches[i], kv_admission=kv_admission,
+                  prefix_sharing=prefix_sharing)
+        if kv_tiering:
+            kw.update(kv_tiering=True, host_kv_cap=host_kv_cap,
+                      swap_bandwidth_gbps=swap_bandwidth_gbps,
+                      proactive_offload=proactive_offload,
+                      idle_horizon_s=idle_horizon_s,
+                      swap_prefetch=swap_prefetch)
+        if scheduler.startswith("relserve"):
+            kw["dpu_config"] = dpu_config or DPUConfig()
+        return SCHEDULERS[scheduler](**kw)
+
+    def make_executor(i: int):
+        return SimulatedExecutor(lm, prefix_cache=caches[i], seed=seed + i,
+                                 swap_bandwidth_gbps=swap_bandwidth_gbps)
+
+    return Cluster(make_scheduler, make_executor, num_replicas,
+                   router=router or Router(num_replicas, policy=router_policy),
+                   engine_loop=engine_loop, debug_invariants=debug_invariants,
+                   snapshot_every=snapshot_every)
 
 
 def build_real_engine(arch: str = "qwen3-1.7b", scheduler: str = "relserve",

@@ -14,10 +14,27 @@ and the port's own equivalence pins.
 - The one place the port departs from the reference executor: a request
   prefilled in a batch that also decodes keeps its post-prefill state in the
   port, and not in the JAX ``RealExecutor``.
+- The simulator, router, cluster, autoscaler, snapshot codec and planner:
+  each scenario built in both packages from the seed gives reports equal
+  field for field (host-timed fields aside) and the same streams; snapshot
+  JSON is byte-equal and a JAX snapshot runs on in a port scheduler.
+- The planned, prefix-shared, KV-tiered paged serve of ``chip_smoke.py``
+  phase 7 at the smoke config in f32: the port's streams equal the JAX
+  engine's planned streams and its own unplanned ones.
+- ``launch/serve.py``: the port refuses what the reference refuses, with the
+  same message, and ``--simulate`` prints the reference's lines.
 """
 import copy
+import dataclasses
+import enum
 import functools
+import importlib
+import itertools
+import json
+import math
+import re
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -53,7 +70,7 @@ from repro_torch.engine.executor import (RealExecutor,  # noqa: E402
                                          make_real_executor)
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.serving import build_real_engine  # noqa: E402
+from repro_torch.serving import ROUTER_POLICIES, build_real_engine  # noqa: E402
 
 ARCHS = ["qwen3-1.7b", "qwen2-0.5b"]
 RWKV = "rwkv6-7b"
@@ -364,3 +381,640 @@ def test_rwkv6_off_batch_row_keeps_its_state_unlike_the_reference():
     assert np.abs(jstate[:, slot] - want).max() > 1e-2 * np.abs(want).max()
     got_a = port.cache["state"][:, 0].numpy()
     assert np.abs(got_a - jstate[:, 0]).max() < 1e-4 * np.abs(jstate[:, 0]).max()
+
+
+# ----------------------------------------------------------------------------
+# the simulator, the serving layer, the snapshot codec and the planner against
+# the JAX package: the same scenario built in each package from the seed by its
+# own modules; reports equal field for field except the host-timed ones
+# ----------------------------------------------------------------------------
+PACKAGES = ("repro", "repro_torch")
+HOST_TIMED = {"dpu_time", "aba_time", "schedule_time", "schedule_retry_time",
+              "overlap_hidden_time", "plan_time"}
+
+
+def _pkg(root: str) -> types.SimpleNamespace:
+    """The modules of one package that the scenarios below use."""
+    mod = lambda name: importlib.import_module(f"{root}.{name}")  # noqa: E731
+    return types.SimpleNamespace(
+        latency=mod("core.latency_model"), policies=mod("core.policies"),
+        priority=mod("core.priority"), relquery=mod("core.relquery"),
+        datasets=mod("data.datasets"), trace=mod("data.trace"),
+        templates=mod("data.templates"), engine=mod("engine.engine"),
+        prefix_cache=mod("engine.prefix_cache"),
+        simulator=mod("engine.simulator"),
+        ft=mod("distributed.fault_tolerance"), serving=mod("serving"),
+        planner=mod("planner"), serve=mod("launch.serve"))
+
+
+def _plain(x):
+    """A report as plain data: dataclasses field by field (host-timed fields
+    left out), enums by value, containers element by element."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                {f.name: _plain(getattr(x, f.name))
+                 for f in dataclasses.fields(x) if f.name not in HOST_TIMED})
+    if isinstance(x, enum.Enum):
+        return x.value
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_plain(v) for v in x)
+    return x
+
+
+def _sim_streams(trace):
+    """Each row's state and stream in trace order (request ids come from a
+    process-wide counter, so they differ between two traces of one run)."""
+    return [(rq.rel_id, r.state.value, tuple(r.output_tokens))
+            for rq in trace for r in rq.requests]
+
+
+def _both(scenario, *args, **kw):
+    """Run ``scenario(P, ...)`` in each package; returns the two results.
+    Request ids come from a process-wide counter in each package: both start
+    from 0 here, so ids (and the snapshots that carry them) line up."""
+    out = []
+    for root in PACKAGES:
+        P = _pkg(root)
+        saved = P.relquery._req_counter
+        P.relquery._req_counter = itertools.count()
+        try:
+            out.append(scenario(P, *args, **kw))
+        finally:
+            P.relquery._req_counter = saved
+    return out
+
+
+def _sim_trace(P, seed=11, num_relqueries=20, rate=2.0, max_requests=12,
+               **kw):
+    ds = P.datasets.make_dataset("rotten", num_rows=2000, seed=seed)
+    return P.trace.build_trace(ds, P.trace.TraceConfig(
+        num_relqueries=num_relqueries, rate=rate, seed=seed,
+        max_requests=max_requests, **kw))
+
+
+def _sim_engine(P, scheduler, *, cap=16384, engine_loop="serial", **kw):
+    lm = P.latency.a100_opt13b()
+    pc = P.prefix_cache.PrefixCache(block_size=16)
+    skw = dict(limits=P.priority.BatchLimits(cap=cap), latency_model=lm,
+               prefix_cache=pc, **kw)
+    if scheduler.startswith("relserve"):
+        skw["dpu_config"] = P.priority.DPUConfig()
+    sched = P.policies.SCHEDULERS[scheduler](**skw)
+    ex = P.simulator.SimulatedExecutor(
+        lm, prefix_cache=pc, seed=3,
+        swap_bandwidth_gbps=kw.get("swap_bandwidth_gbps", 32.0))
+    return P.engine.ServingEngine(sched, ex, engine_loop=engine_loop,
+                                  debug_invariants=True)
+
+
+def _engine_scenario(P, scheduler, engine_loop="serial"):
+    trace = _sim_trace(P)
+    report = _sim_engine(P, scheduler, engine_loop=engine_loop).run_trace(trace)
+    return _plain(report), _sim_streams(trace)
+
+
+@pytest.mark.parametrize("scheduler", list(SCHEDULERS))
+def test_simulated_engine_report_equals_the_reference(scheduler):
+    ref, port = _both(_engine_scenario, scheduler)
+    assert port == ref
+    assert len(port[0][1]["latencies"]) == 20
+
+
+def test_simulated_pipelined_report_equals_the_reference_and_serial():
+    ref, port = _both(_engine_scenario, "relserve", "pipelined")
+    assert port == ref
+    serial = _engine_scenario(_pkg("repro_torch"), "relserve")
+    assert port == serial
+
+
+def _tiered_scenario(P, engine_loop):
+    """Tight cap, optimistic admission, host tier with proactive offload and
+    swap-in prefetch on a modeled slow link, so both reclaim paths run."""
+    trace = _sim_trace(P, num_relqueries=12, rate=3.0, max_requests=10)
+    engine = _sim_engine(P, "relserve", cap=500, engine_loop=engine_loop,
+                         kv_admission="optimistic", kv_tiering=True,
+                         host_kv_cap=2000, swap_bandwidth_gbps=6.0,
+                         proactive_offload=True, idle_horizon_s=1.0,
+                         swap_prefetch=True)
+    return _plain(engine.run_trace(trace)), _sim_streams(trace)
+
+
+@pytest.mark.parametrize("engine_loop", ["serial", "pipelined"])
+def test_simulated_tiering_report_equals_the_reference(engine_loop):
+    ref, port = _both(_tiered_scenario, engine_loop)
+    assert port == ref
+    fields = port[0][1]
+    assert fields["preemptions"] > 0 and fields["swap_outs"] > 0
+    assert fields["swap_ins"] == fields["swap_outs"]
+    assert fields["proactive_offloads"] > 0 and fields["swap_prefetches"] > 0
+
+
+def _cluster_scenario(P, replicas, policy, **kw):
+    trace = _sim_trace(P, num_relqueries=16, rate=3.0, max_requests=10,
+                       **kw.pop("trace_kw", {}))
+    cluster = P.serving.build_simulated_cluster(
+        replicas, router_policy=policy, seed=7, debug_invariants=True, **kw)
+    report = cluster.run_trace(trace)
+    return _plain(report), _sim_streams(trace), dict(cluster.router.stats)
+
+
+@pytest.mark.parametrize("policy", ROUTER_POLICIES)
+@pytest.mark.parametrize("replicas", [1, 4])
+def test_simulated_cluster_report_equals_the_reference(replicas, policy):
+    ref, port = _both(_cluster_scenario, replicas, policy)
+    assert port == ref
+    assert len(port[0][1]["per_replica"]) == replicas
+
+
+def test_router_policies_and_hash_routing_are_the_reference_ones():
+    from repro.serving import ROUTER_POLICIES as ref_policies
+    from repro.serving import route_relquery as ref_route
+    from repro_torch.serving import route_relquery
+    assert ROUTER_POLICIES == ref_policies
+    assert [route_relquery(f"q{i}", 5) for i in range(50)] == \
+        [ref_route(f"q{i}", 5) for i in range(50)]
+
+
+@pytest.mark.parametrize("engine_loop", ["serial", "pipelined"])
+def test_simulated_prefix_sharing_cluster_equals_the_reference(engine_loop):
+    ref, port = _both(_cluster_scenario, 2, "prefix_affinity",
+                      prefix_sharing=True, engine_loop=engine_loop,
+                      kv_admission="optimistic",
+                      trace_kw=dict(num_templates=1))
+    assert port == ref
+    assert port[0][1]["merged"][1]["shared_kv_tokens"] > 0
+
+
+def _crash_scenario(P, snapshot_every, engine_loop):
+    """A 2-replica Frontend replay; the busiest replica crashes once the
+    clock passes 1.2x the last arrival and its relQueries fail over (from
+    its last snapshot when ``snapshot_every`` takes them). Also returns every
+    token the clients were handed, per request."""
+    trace = _sim_trace(P, num_relqueries=10, rate=3.0, max_requests=12)
+    cluster = P.serving.build_simulated_cluster(
+        2, seed=7, engine_loop=engine_loop, snapshot_every=snapshot_every,
+        debug_invariants=True)
+    fe = P.serving.Frontend(cluster)
+    delivered = {}
+    pending = sorted(trace, key=lambda r: r.arrival_time)
+    crash_at = 1.2 * pending[-1].arrival_time
+    idx, crashed = 0, False
+    while True:
+        nxt = fe.next_step_time()
+        ns = math.inf if nxt is None else nxt
+        na = pending[idx].arrival_time if idx < len(pending) else math.inf
+        if not crashed and min(ns, na) >= crash_at:
+            victim = max(cluster.admitting_replicas(),
+                         key=lambda i: (cluster.cores[i].load(), -i))
+            cluster.crash_replica(victim, crash_at)
+            crashed = True
+            continue
+        if math.isinf(ns) and math.isinf(na):
+            break
+        if na <= ns:
+            fe.submit(pending[idx], now=na, on_token=lambda rid, tok:
+                      delivered.setdefault(rid, []).append(tok))
+            idx += 1
+            continue
+        fe.step()
+    return _plain(cluster.report()), _sim_streams(trace), delivered
+
+
+@pytest.mark.parametrize("engine_loop", ["serial", "pipelined"])
+@pytest.mark.parametrize("snapshot_every", [0, 4])
+def test_simulated_crash_failover_equals_the_reference(snapshot_every,
+                                                       engine_loop):
+    ref, port = _both(_crash_scenario, snapshot_every, engine_loop)
+    assert port == ref
+    (name, report), _, _ = port
+    (event,) = report["crash_events"]
+    assert event["victims"] > 0
+    assert (event["from_snapshot"] > 0) == (snapshot_every > 0)
+    assert report["replica_states"].count("dead") == 1
+
+
+def _drain_scenario(P):
+    trace = P.trace.quick_trace("beer", num_relqueries=16, rate=6.0, seed=5,
+                                max_requests=10)
+    cluster = P.serving.build_simulated_cluster(3, seed=7,
+                                                debug_invariants=True)
+    fe = P.serving.Frontend(cluster)
+    pending = sorted(trace, key=lambda r: r.arrival_time)
+    for rq in pending[:12]:
+        fe.submit(rq, now=rq.arrival_time)
+    for _ in range(8):
+        fe.step()
+    event = cluster.drain_replica(1, fe.clock)
+    for rq in pending[12:]:
+        fe.submit(rq, now=max(rq.arrival_time, fe.clock))
+    fe.drain()
+    return _plain(cluster.report()), _sim_streams(trace), _plain(event)
+
+
+def test_simulated_drain_equals_the_reference():
+    ref, port = _both(_drain_scenario)
+    assert port == ref
+    assert port[0][1]["replica_states"][1] == "dead"
+    assert port[2]["action"] == "drain"
+
+
+def _autoscale_scenario(P):
+    trace = _sim_trace(P, num_relqueries=20, rate=8.0, max_requests=10)
+    cluster = P.serving.build_simulated_cluster(1, seed=7,
+                                                debug_invariants=True)
+    auto = P.serving.Autoscaler(cluster, P.serving.AutoscaleConfig(
+        min_replicas=1, max_replicas=3, scale_up_queue=4.0,
+        scale_down_queue=0.5, eval_interval_s=0.25, cooldown_s=1.0))
+    cluster.attach_autoscaler(auto)
+    P.serving.Frontend(cluster).replay(trace)
+    return (_plain(cluster.report()), _sim_streams(trace),
+            _plain(auto.decisions), cluster.metrics_snapshot())
+
+
+def test_simulated_autoscaler_equals_the_reference():
+    ref, port = _both(_autoscale_scenario)
+    assert port == ref
+    assert any(d["action"] == "scale_up" for d in port[2])
+
+
+def _open_loop_scenario(P, capsys):
+    """The CLI's scripted open-loop session (streaming, a cancellation, a
+    late submission, a live snapshot) on a 2-replica cluster."""
+    trace = _sim_trace(P, num_relqueries=12, rate=3.0, max_requests=10)
+    cluster = P.serving.build_simulated_cluster(2, seed=7,
+                                                debug_invariants=True)
+    capsys.readouterr()
+    report = P.serve.run_open_loop(P.serving.Frontend(cluster), trace)
+    return _plain(report), _sim_streams(trace), capsys.readouterr().out
+
+
+def test_open_loop_session_on_a_cluster_equals_the_reference(capsys):
+    ref, port = _both(_open_loop_scenario, capsys)
+    assert port == ref
+    assert "OPEN-LOOP SMOKE OK" in port[2] and "late-submitted" in port[2]
+    assert len(port[0][1]["cancelled_rel_ids"]) == 1
+
+
+def _stress(P, scheduler, trace):
+    """A scheduler under every kind of KV pressure at once, as
+    tests/test_fault_tolerance.py stresses the codec: a tight cap under
+    optimistic admission, small prefill chunks, an undersized host tier."""
+    lm = P.latency.a100_opt13b()
+    max_fp = max(r.num_prompt_tokens + r.max_output_tokens
+                 for rq in trace for r in rq.requests)
+    cap = int(max_fp * 1.3)
+    pc = P.prefix_cache.PrefixCache(block_size=16)
+    sched = P.policies.SCHEDULERS[scheduler](
+        limits=P.priority.BatchLimits(cap=cap, max_num_batched_tokens=96),
+        latency_model=lm, prefix_cache=pc, kv_admission="optimistic",
+        kv_tiering=True, host_kv_cap=int(0.5 * cap))
+    return sched, P.simulator.SimulatedExecutor(lm, prefix_cache=pc)
+
+
+def _drive_batches(sched, ex, pending, iterations, cancel_at=None):
+    """Admit arrivals and run ``iterations`` batches by hand; returns the
+    index of the first relQuery not yet admitted."""
+    now, idx = 0.0, 0
+    for it in range(iterations):
+        while idx < len(pending) and pending[idx].arrival_time <= now:
+            sched.add_relquery(pending[idx], now)
+            idx += 1
+        if it == cancel_at:
+            live = [rq for rq in sched.relqueries.values()
+                    if rq.finish_time is None and rq.cancel_time is None]
+            sched.cancel_relquery(live[0].rel_id, now)
+        batch = sched.schedule(now)
+        if batch is None:
+            if idx < len(pending):
+                now = pending[idx].arrival_time
+                continue
+            break
+        dur, result = ex.execute(batch, now)
+        sched.complete_batch(batch, result, now, now + dur)
+        now += dur
+    return idx
+
+
+def _codec_trace(P):
+    return P.trace.quick_trace("beer", num_relqueries=8, rate=4.0, seed=3,
+                               max_requests=10)
+
+
+def _snapshot_scenario(P, scheduler, stop_after, cancel_at):
+    trace = _codec_trace(P)
+    sched, ex = _stress(P, scheduler, trace)
+    pending = sorted(trace, key=lambda r: r.arrival_time)
+    _drive_batches(sched, ex, pending, stop_after, cancel_at)
+    return json.dumps(P.ft.snapshot_scheduler(sched), sort_keys=True)
+
+
+@pytest.mark.parametrize("cancel_at", [None, 10])
+@pytest.mark.parametrize("stop_after", [30, 400])
+@pytest.mark.parametrize("scheduler", ["relserve", "vllm"])
+def test_snapshot_json_is_byte_identical_to_the_reference(scheduler,
+                                                          stop_after,
+                                                          cancel_at):
+    ref, port = _both(_snapshot_scenario, scheduler, stop_after, cancel_at)
+    assert port == ref
+    snap = json.loads(port)
+    assert snap["version"] == 2 and snap["relqueries"]
+
+
+def _restored_run(P, scheduler, snap_json, kv_lost):
+    """Restore ``snap_json`` into a fresh scheduler of package ``P`` and
+    finish the trace; the report and every row's stream."""
+    trace = _codec_trace(P)
+    pending = sorted(trace, key=lambda r: r.arrival_time)
+    sched, ex = _stress(P, scheduler, trace)
+    snap = json.loads(snap_json)
+    P.ft.restore_scheduler(sched, snap, kv_lost=kv_lost)
+    sched.audit_ledgers(repair=False)
+    admitted = {rq["rel_id"] for rq in snap["relqueries"]}
+    report = P.engine.ServingEngine(sched, ex, debug_invariants=True).run_trace(
+        [rq for rq in pending if rq.rel_id not in admitted])
+    streams = [(rel_id, r.req_id, r.state.value, tuple(r.output_tokens))
+               for rel_id, rq in sorted(sched.relqueries.items())
+               for r in rq.requests]
+    return _plain(report), streams
+
+
+@pytest.mark.parametrize("kv_lost", [True, False])
+@pytest.mark.parametrize("scheduler", ["relserve", "vllm"])
+def test_reference_snapshot_restores_into_the_port(scheduler, kv_lost):
+    """A snapshot the JAX package took mid-flight, restored into a port
+    scheduler, runs on to the report the JAX package reaches from it."""
+    snap_json = _both(_snapshot_scenario, scheduler, 30, None)[0]
+    ref, port = _both(_restored_run, scheduler, snap_json, kv_lost)
+    assert port == ref
+    assert all(state == "finished" for *_, state, _ in port[1])
+
+
+# ----------------------------------------------------------------------------
+# the planner in real mode: the planned, prefix-shared, KV-tiered paged serve
+# of chip_smoke.py phase 7, at the smoke config in float32 on the CPU
+# ----------------------------------------------------------------------------
+PLANNED_TRACE = dict(num_relqueries=16, rate=1e9, seed=0, max_requests=8,
+                     output_token_cap=32, dup_row_fraction=0.5)
+
+
+def _planned_trace(trace_mod, datasets_mod, tok):
+    return trace_mod.build_trace(
+        datasets_mod.make_dataset("rotten", num_rows=1000, seed=0),
+        trace_mod.TraceConfig(**PLANNED_TRACE), tokenizer=tok)
+
+
+def _tiered_kw(trace):
+    """Blocks of 8 (the templates share 13-token prefixes), a cap of three
+    times the largest request footprint, a host tier of four caps and a
+    modeled 8 GB/s link, so the serve shares blocks, swaps and recomputes."""
+    cap = 3 * max(r.num_prompt_tokens + r.max_output_tokens
+                  for rq in trace for r in rq.requests)
+    return cap, dict(max_len=512, block_size=8, prefix_sharing=True,
+                     kv_admission="optimistic", kv_tiering=True,
+                     host_kv_cap=4 * cap, proactive_offload=True,
+                     swap_prefetch=True, swap_bandwidth_gbps=8.0)
+
+
+def _planned_replay(P, engine, trace, tok):
+    planner = P.planner.Planner("full", tokenizer=tok)
+    planned = planner.plan_trace(trace)
+    report = P.planner.PlanExecutor(P.serving.Frontend(engine),
+                                    planner).replay(planned)
+    return report, [tuple(r.output_tokens) for p in planned
+                    for r in p.logical_requests]
+
+
+def test_planned_tiered_serve_matches_jax_and_the_unplanned_serve():
+    jm, jp, tm, tp = _models("qwen3-1.7b")
+    P, J = _pkg("repro_torch"), _pkg("repro")
+    cfg = get_smoke_config("qwen3-1.7b")
+    tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
+    trace = _planned_trace(P.trace, P.datasets, tok)
+    cap, kw = _tiered_kw(trace)
+
+    engine = build_real_engine("qwen3-1.7b", "relserve", "paged", model=tm,
+                               params=tp, limits=BatchLimits(cap=cap),
+                               device="cpu", **kw)
+    report, planned = _planned_replay(P, engine, copy.deepcopy(trace), tok)
+    ex = engine.executor
+    assert report.deduped_requests > 0 and report.shared_kv_tokens > 0
+    assert ex.shared_block_hits > 0
+    assert report.preemptions > 0 and report.swap_outs > 0
+    assert report.swap_ins == report.swap_outs
+    ex.bm.check_invariants()
+    assert ex.bm.free_blocks == ex.bm.num_blocks
+    assert ex.bm.host_free_blocks == ex.bm.num_host_blocks
+
+    unplanned_trace = copy.deepcopy(trace)
+    build_real_engine("qwen3-1.7b", "relserve", "paged", model=tm, params=tp,
+                      limits=BatchLimits(cap=cap), device="cpu",
+                      **kw).run_trace(unplanned_trace)
+    assert planned == [tuple(r.output_tokens) for rq in unplanned_trace
+                       for r in rq.requests]
+
+    jtok = JaxHashTokenizer(vocab_size=cfg.vocab_size - 2)
+    jengine = jax_build_real_engine("qwen3-1.7b", "relserve", "paged",
+                                    model=jm, params=jp,
+                                    limits=JaxBatchLimits(cap=cap), **kw)
+    jreport, jplanned = _planned_replay(
+        J, jengine, _planned_trace(J.trace, J.datasets, jtok), jtok)
+    assert planned == jplanned
+    # every relQuery arrives at once, so the batches do not depend on the
+    # measured clock: the same batches and counters, whatever the times
+    assert _schedule(report) == _schedule(jreport)
+
+
+def _schedule(report):
+    counters = ("deduped_requests", "shared_kv_tokens", "preemptions",
+                "preempted_tokens", "swap_outs", "swap_ins",
+                "swapped_out_tokens", "reclaim_swap_decisions",
+                "reclaim_recompute_decisions", "proactive_offloads",
+                "swap_prefetches", "prefix_lookup_tokens")
+    return ({c: getattr(report, c) for c in counters},
+            [(e.kind, e.num_requests, e.uncached_tokens, e.rel_ids)
+             for e in report.events])
+
+
+def _dup_trace(P):
+    ds = P.datasets.make_dataset("rotten", num_rows=2000, seed=11)
+    return P.trace.build_trace(ds, P.trace.TraceConfig(
+        num_relqueries=6, rate=3.0, seed=11, max_requests=12,
+        num_templates=2, dup_row_fraction=0.5))
+
+
+def _plans(P, mode):
+    planned = P.planner.Planner(mode).plan_trace(_dup_trace(P))
+    return [(p.rel_id, p.num_logical, p.num_physical, p.deduped_requests,
+             p.physical is p.logical,
+             [(r.req_id, tuple(r.tokens)) for r in p.logical_requests],
+             [r.req_id for r in p.physical.requests],
+             {k: [f.req_id for f in v] for k, v in p.fanout.items()})
+            for p in planned]
+
+
+@pytest.mark.parametrize("mode", ["off", "dedup", "reorder", "full"])
+def test_plan_trace_equals_the_reference(mode):
+    from repro.planner import PLAN_MODES as ref_modes
+    from repro_torch.planner import PLAN_MODES
+    assert PLAN_MODES == ref_modes
+    ref, port = _both(_plans, mode)
+    assert port == ref
+    assert any(deduped for _, _, _, deduped, *_ in port) == \
+        (mode in ("dedup", "full"))
+
+
+def _planned_sim_scenario(P, scheduler, mode):
+    trace = _dup_trace(P)
+    engine = _sim_engine(P, scheduler, kv_admission="optimistic",
+                         prefix_sharing=True)
+    planner = P.planner.Planner(mode)
+    planned = planner.plan_trace(trace)
+    report = P.planner.PlanExecutor(P.serving.Frontend(engine),
+                                    planner).replay(planned)
+    return _plain(report), [(r.state.value, tuple(r.output_tokens))
+                            for p in planned for r in p.logical_requests]
+
+
+@pytest.mark.parametrize("mode", ["dedup", "full"])
+@pytest.mark.parametrize("scheduler", ["relserve", "vllm"])
+def test_simulated_planned_replay_equals_the_reference(scheduler, mode):
+    ref, port = _both(_planned_sim_scenario, scheduler, mode)
+    assert port == ref
+    assert port[0][1]["deduped_requests"] > 0
+
+
+def _dag_scenario(P):
+    """A two-stage plan: the second stage's rows bind the first stage's
+    decoded answers, and enter the engine when the first stage finishes."""
+    classify = P.templates.RelQueryTemplate(
+        "t/classify", "classify",
+        "Categorize the sentiment of the review {review} as Negative , "
+        "Positive , or Neutral .")
+    followup = P.templates.RelQueryTemplate(
+        "t/summarize", "summarize",
+        "Given the sentiment {answer} summarize the review {review} "
+        "within 20 words .")
+    rows = [{"review": f"review body number {i % 3}",
+             "extra": f"unused column {i}"} for i in range(8)]
+    engine = _sim_engine(P, "relserve", kv_admission="optimistic",
+                         prefix_sharing=True)
+    executor = P.planner.PlanExecutor(P.serving.Frontend(engine),
+                                      P.planner.Planner("full"))
+    s1 = P.planner.scan("s1", rows, classify)
+    plan = P.planner.QueryPlan([s1, P.planner.derive("s2", s1, followup)],
+                               plan_id="dag")
+    handle = executor.submit_plan(plan)
+    out = {}
+    for node in ("s1", "s2"):
+        rq = handle.result(node)
+        out[node] = (rq.arrival_time, rq.finish_time,
+                     [(tuple(r.tokens), tuple(r.output_tokens))
+                      for r in handle.stage(node).logical_requests])
+    return out, _plain(executor.snapshot())
+
+
+def test_dag_plan_equals_the_reference():
+    ref, port = _both(_dag_scenario)
+    assert port == ref
+    stages = port[0]
+    assert stages["s2"][0] >= stages["s1"][1]
+
+
+# ----------------------------------------------------------------------------
+# launch/serve.py: the port's CLI against the reference's
+# ----------------------------------------------------------------------------
+# the argument checks of tests/test_serve_cli.py::test_cli_validation, then
+# those of the elastic and planner flags
+CLI_REFUSALS = [
+    ["--simulate", "--rate", "0"],
+    ["--simulate", "--rate", "-1.5"],
+    ["--simulate", "--num-relqueries", "0"],
+    ["--simulate", "--max-requests", "0"],
+    ["--simulate", "--num-replicas", "0"],
+    ["--simulate", "--kv-tiering", "on"],
+    ["--simulate", "--host-kv-cap", "4096"],
+    ["--simulate", "--swap-bandwidth", "16"],
+    ["--simulate", "--kv-tiering", "on", "--kv-admission", "optimistic",
+     "--host-kv-cap", "0"],
+    ["--simulate", "--kv-tiering", "on", "--kv-admission", "optimistic",
+     "--swap-bandwidth", "0"],
+    ["--simulate", "--plan", "full", "--open-loop"],
+    ["--crash-at", "2.0", "--num-replicas", "2"],
+    ["--simulate", "--autoscale", "--open-loop"],
+    ["--simulate", "--crash-at", "2.0"],
+    ["--simulate", "--crash-at", "0", "--num-replicas", "2"],
+    ["--simulate", "--max-replicas", "3"],
+    ["--simulate", "--snapshot-every", "-1"],
+    ["--snapshot-every", "4"],
+    ["--simulate", "--metrics-interval", "0"],
+    ["--simulate", "--autoscale", "--num-replicas", "5", "--max-replicas",
+     "4"],
+    ["--simulate", "--dup-row-fraction", "1.5"],
+]
+
+
+def _cli(P, argv, monkeypatch, capsys):
+    """``launch.serve.main`` of package ``P`` on ``argv``: (exit message or
+    None, stdout)."""
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    capsys.readouterr()
+    try:
+        P.serve.main()
+        code = None
+    except SystemExit as e:
+        code = e.code
+    return code, capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", CLI_REFUSALS)
+def test_serve_cli_refuses_as_the_reference_does(argv, monkeypatch, capsys):
+    ref, port = _both(_cli, argv, monkeypatch, capsys)
+    assert isinstance(port[0], str) and port[0]
+    assert port == ref
+
+
+HOST_TIMED_LINE = re.compile(r"^overheads:|^overlap:|plan [0-9.]+ms")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--num-relqueries", "8", "--max-requests", "8", "--rate", "4.0"],
+    ["--num-relqueries", "12", "--max-requests", "12", "--rate", "3.0",
+     "--num-replicas", "4", "--crash-at", "2.0", "--debug-invariants"],
+    ["--num-relqueries", "10", "--plan", "full", "--dup-row-fraction", "0.5",
+     "--prefix-sharing", "on"],
+])
+def test_simulated_serve_cli_prints_what_the_reference_prints(
+        argv, monkeypatch, capsys):
+    ref, port = _both(_cli, ["--simulate", *argv], monkeypatch, capsys)
+    assert ref[0] is None and port[0] is None
+    lines = [[line for line in out.splitlines()
+              if not HOST_TIMED_LINE.search(line)] for _, out in (ref, port)]
+    assert lines[1] == lines[0]
+    assert any(line.startswith(("[merged] relqueries=", "[planned] relqueries="))
+               for line in lines[1])
+
+
+def test_serve_cli_simulate_refuses_a_device(monkeypatch, capsys):
+    code, _ = _cli(_pkg("repro_torch"), ["--simulate", "--device", "cpu"],
+                   monkeypatch, capsys)
+    assert "--simulate" in code and "--device" in code
+
+
+def test_serve_cli_real_mode_runs_one_replica(monkeypatch, capsys):
+    code, _ = _cli(_pkg("repro_torch"),
+                   ["--device", "cpu", "--num-replicas", "2"],
+                   monkeypatch, capsys)
+    assert "use --simulate for --num-replicas > 1" in code
+
+
+def test_serve_cli_plans_a_real_serve_on_cpu(monkeypatch, capsys):
+    code, out = _cli(_pkg("repro_torch"),
+                     ["--device", "cpu", "--kv-backend", "paged", "--plan",
+                      "full", "--dup-row-fraction", "0.5",
+                      "--num-relqueries", "4", "--max-requests", "4"],
+                     monkeypatch, capsys)
+    assert code is None
+    assert "device=cpu" in out and "[planned] relqueries=4" in out
+    assert "rows answered by dedup fan-out" in out

@@ -445,3 +445,74 @@ def test_rwkv6_dense_engine_on_the_card_launches_its_kernel(card):
     plain = streams["plain", "serial"]
     same = sum(a == b for a, b in zip(streams["kernel", "serial"], plain))
     assert same >= len(plain) - 1
+
+
+def test_planned_tiered_paged_engine_on_the_card(card):
+    """The planned serve of chip_smoke.py phase 7 at smoke size, in float32:
+    dedup fan-out and prefix-maximizing reorder in front of the paged engine
+    with shared prefix blocks, a tight KV cap, preemption and swaps to the
+    host tier. Both loops launch both attention kernels, give the same
+    streams, and drain both pools; the planned streams match the unplanned
+    serve's."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.priority import BatchLimits
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.trace import TraceConfig, build_trace
+    from repro_torch.engine.tokenizer import HashTokenizer
+    from repro_torch.models.registry import build_model
+    from repro_torch.planner import PlanExecutor, Planner
+    from repro_torch.serving import Frontend, build_real_engine
+
+    cfg = get_smoke_config("qwen3-1.7b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
+    trace = build_trace(make_dataset("rotten", num_rows=1000, seed=0),
+                        TraceConfig(num_relqueries=16, rate=1e9, seed=0,
+                                    max_requests=8, output_token_cap=32,
+                                    dup_row_fraction=0.5), tokenizer=tok)
+    cap = 3 * max(r.num_prompt_tokens + r.max_output_tokens
+                  for rq in trace for r in rq.requests)
+
+    def engine(loop):
+        return build_real_engine(
+            "qwen3-1.7b", "relserve", "paged", model=model, params=params,
+            max_slots=64, max_len=1024, block_size=8, engine_loop=loop,
+            prefix_sharing=True, kv_admission="optimistic", kv_tiering=True,
+            proactive_offload=True, swap_prefetch=True,
+            limits=BatchLimits(cap=cap), host_kv_cap=4 * cap,
+            swap_bandwidth_gbps=8.0, device=card)
+
+    streams = {}
+    for loop in ("serial", "pipelined"):
+        ops.reset_launch_counts()
+        eng = engine(loop)
+        planner = Planner("full", tokenizer=tok)
+        planned = planner.plan_trace(copy.deepcopy(trace))
+        report = PlanExecutor(Frontend(eng), planner).replay(planned)
+        counts = ops.launch_counts()
+        assert counts["paged_attention"] > 0 and counts["flash_prefill"] > 0
+        assert len(report.latencies) == len(trace)
+        assert report.deduped_requests > 0 and report.shared_kv_tokens > 0
+        assert eng.executor.shared_block_hits > 0
+        assert report.preemptions > 0
+        assert report.swap_outs > 0 and report.swap_ins > 0
+        for p in planned:
+            leaders = {r.req_id: r for r in p.physical.requests}
+            for lid, followers in p.fanout.items():
+                for f in followers:
+                    assert f.output_tokens == leaders[lid].output_tokens
+        bm = eng.executor.bm
+        bm.check_invariants()
+        assert bm.free_blocks == bm.num_blocks
+        assert bm.host_free_blocks == bm.num_host_blocks
+        streams[loop] = [tuple(r.output_tokens) for p in planned
+                         for r in p.logical_requests]
+    assert streams["serial"] == streams["pipelined"]
+    tr = copy.deepcopy(trace)
+    engine("serial").run_trace(tr)
+    unplanned = [tuple(r.output_tokens) for rq in tr for r in rq.requests]
+    same = sum(a == b for a, b in zip(streams["serial"], unplanned))
+    assert same >= len(unplanned) - 1

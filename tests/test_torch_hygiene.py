@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the JAX package ``repro``, a real serve runs with
-jax blocked, and the entry points never fall back to the CPU on their own."""
+neither jax nor anything of the JAX package ``repro``; a real serve, a
+simulated multi-replica replay with a crash and a planned real serve run with
+jax blocked; and the entry points never fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -55,6 +56,15 @@ trace = build_trace(make_dataset("rotten", num_rows=64, seed=0),
 engine = build_real_engine("qwen3-1.7b", "relserve", "paged", device="cpu")
 report = engine.run_trace(trace)
 assert len(report.latencies) == 2
+from repro_torch.launch import serve
+# a 2-replica simulated replay with a replica crash, then a planned CPU serve
+sys.argv = ["serve", "--simulate", "--num-relqueries", "8", "--rate", "3.0",
+            "--max-requests", "8", "--num-replicas", "2", "--crash-at", "1.5"]
+serve.main()
+sys.argv = ["serve", "--device", "cpu", "--kv-backend", "paged", "--plan",
+            "full", "--dup-row-fraction", "0.5", "--num-relqueries", "2",
+            "--max-requests", "4"]
+serve.main()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SERVED", sum(len(r.output_tokens) for rq in trace for r in rq.requests))
@@ -68,6 +78,8 @@ def test_serves_with_jax_blocked():
                          cwd=str(REPO))
     assert out.returncode == 0, out.stderr
     assert "SERVED" in out.stdout
+    assert "[fault] crashed replica" in out.stdout
+    assert "[planned] relqueries=2" in out.stdout
 
 
 def test_no_device_and_no_card_raises(monkeypatch):
@@ -76,3 +88,41 @@ def test_no_device_and_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_real_engine()
+
+
+# Framework-free modules the port keeps as copies of the reference, with only
+# the imports rewritten from repro to repro_torch.
+VERBATIM = [
+    "configs/base.py", "configs/qwen2_0p5b.py", "configs/qwen3_1p7b.py",
+    "configs/rwkv6_7b.py", "core/__init__.py", "core/arranger.py",
+    "core/batch.py", "core/latency_model.py", "core/policies.py",
+    "core/predictor.py", "core/priority.py", "core/relquery.py",
+    "core/scheduler.py", "data/datasets.py", "data/tables.py",
+    "data/templates.py", "data/trace.py", "engine/engine.py",
+    "engine/kv_cache.py", "engine/prefix_cache.py", "engine/simulator.py",
+    "engine/tokenizer.py", "planner/__init__.py", "planner/executor.py",
+    "planner/passes.py", "planner/plan.py", "planner/planner.py",
+    "serving/autoscaler.py", "serving/cluster.py", "serving/frontend.py",
+    "serving/router.py",
+]
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_framework_free_module_is_a_copy_of_the_reference(path):
+    port = (PORT / path).read_text(encoding="utf-8")
+    ref = (REPO / "src" / "repro" / path).read_text(encoding="utf-8")
+    assert port.replace("repro_torch", "repro") == ref
+
+
+def test_snapshot_codec_is_the_serving_half_of_the_reference():
+    """The port's codec is the reference's serving-engine half, from its
+    section header to the end of the file; the training checkpoints are not
+    in it."""
+    header = "# serving-engine state snapshots"
+    port = (PORT / "distributed" / "fault_tolerance.py").read_text(
+        encoding="utf-8").replace("repro_torch", "repro")
+    ref = (REPO / "src" / "repro" / "distributed" / "fault_tolerance.py"
+           ).read_text(encoding="utf-8")
+    assert port[port.index(header):] == ref[ref.index(header):]
+    for name in ("save_checkpoint", "load_checkpoint", "latest_step"):
+        assert f"def {name}" in ref and f"def {name}" not in port
