@@ -23,9 +23,15 @@ Phases (each raises on failure; none catches its own):
                [1, 4096] at c = 32, a padded row, views cut from wider
                projections, f32) against the chained plain version and
                against chained one-chunk launches; 4 chunks, chained and
-               in one launch, against the sequential oracle
-  Two paths follow, each driven with the launch counters set to 0 just before
-  and read just after; each must launch the kernels of its own model:
+               in one launch, against the sequential oracle. Both attention
+               kernels also at the MoE models' shapes (granite-moe: 3 q rows
+               per kv slot, head_dim 64; qwen3-moe: 8 rows, head_dim 128),
+               and rwkv6-7b's WKV call through the model at S 1000 and
+               12288, whose reference chunk lengths (8, 96) the kernel does
+               not take (the model pads to, or picks, one it takes)
+  The paths follow, each serve driven with the launch counters set to 0 just
+  before and read just after; each must launch the kernels of its own model,
+  one launch per layer per prefill call or decode step:
   4. qwen3   — full-width qwen3-1.7b (28 layers, bf16, random weights from a
      model     seed): one prefill batch and one paged decode step, kernels vs
                the plain attention path
@@ -54,11 +60,33 @@ Phases (each raises on failure; none catches its own):
                runs' streams must be identical
  10. rwkv6   — one more serial serve under torch.profiler
      profile
- 11. times   — each kernel, its plain version and (flash_prefill only) torch's
+ 11. granite — full-width, full-depth granite-moe-3b-a800m (40 experts, top 8):
+     model     one prefill batch and one paged decode step, kernels vs plain
+               attention: in float32 (full rows, beside the PERTURB witness)
+               and in bf16 at 4 layers (full rows); in bf16 at 4 and 32
+               layers (ragged rows) against the float32 model on the same
+               weights, routes replayed, beside the plain path as control,
+               and kernels vs plain with the plain path's routes replayed
+ 12. granite — the paged engine serving the rotten trace, serial then
+     serve     pipelined; the share of rows whose streams agree is reported
+ 13. granite — one more serial serve, a window of its batches traced on the
+     profile   device only
+ 14. qwen3   — qwen3-moe-30b-a3b at full width cut to 4 layers (128 experts):
+     moe       prefill and paged decode, kernels vs plain in float32; in
+               bf16 against the float32 model and with routes replayed, as
+               granite-moe
+ 15. gemma3  — gemma3-12b (5 window layers : 1 global, window 1024): a prefill
+               past the window and 4 decode steps against one pass over the
+               extended sequence, in float32 at one 6-layer group and bf16
+               at 48 layers (reported); then a short serial serve on the
+               dense engine, which launches no kernel of this repo (its
+               attention is plain, as in the reference)
+ 16. times   — each kernel, its plain version and (flash_prefill only) torch's
                SDPA timed on the device with CUDA events (calls queued behind
                a device-side sleep), beside the least time the card could
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
-               67 TFLOP/s in f32 without tensor cores); rwkv6_chunk at one
+               67 TFLOP/s in f32 without tensor cores); the attention
+               kernels also at the MoE models' shapes; rwkv6_chunk at one
                layer's call, beside the same work as one-chunk launches, its
                host issue time, and one chunk alone
 The last three lines are the card's name and power limit, the kernels' JSON
@@ -66,6 +94,7 @@ record and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -85,8 +114,10 @@ from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.data.trace import TraceConfig, build_trace  # noqa: E402
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import layernorm  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.models.rwkv6 import _chunk_size, kernel_chunking  # noqa: E402
 from repro_torch.planner import PlanExecutor, Planner  # noqa: E402
 from repro_torch.serving import Frontend, build_real_engine  # noqa: E402
 
@@ -136,6 +167,52 @@ PERTURB = 1e-6
 # same layer: it is held to WITNESS_FACTOR times the witness's difference, and
 # never below one bf16 rounding (BF16_HALF_ULP) of its largest value.
 WITNESS_FACTOR = 10.0
+# The MoE models route every token to its top-k experts, so a difference
+# that reorders two router probabilities changes which experts a token reads,
+# and through the capacity ranks which slots of other tokens drop. At random
+# init in bf16 that dominates a comparison in which each run routes on its
+# own: on qwen3-moe-30b-a3b at 4 layers kernel vs plain measured 5.4e-2
+# (prefill) and 5.6e-2 (decode) of the largest logit (this script on an
+# H100, 700 W, with full rows), and either path, kernel or plain, lands a
+# routing flip at random. So the MoE models are held three ways:
+# - in float32, kernel vs plain, at MOE_F32_REL_TOL: granite-moe at full
+#   depth measured 7.5e-7 (prefill) and 4.8e-7 (decode), and the PERTURB
+#   witness moves the same logits by 2.2e-6 and 1.3e-6 (this script on an
+#   H100, 700 W): a factor of ten over kernel vs plain, four over the witness;
+# - in bf16, each path against the truth, the float32 model on the same
+#   weights with plain attention, its routes replayed (Routes): the kernel
+#   path at MOE_TRUTH_REL_TOL, beside the control, the bf16 plain path on the
+#   same routes (reported), on ragged rows (their pad rows are routed too,
+#   and replayed). The limit is a little over twice the largest reading of
+#   either path in this phase: 1.35e-2, granite-moe's kernel decode at 32
+#   layers; the kernel measured 0.90-1.17 times the control (this script
+#   on an H100, 700 W);
+# - in bf16, the kernel path replaying the plain path's routes against it,
+#   at MODEL_REL_TOL, as the dense models are held.
+# Each path's own routing is reported beside them. granite-moe is also held
+# in bf16 at MOE_BF16_LAYERS layers with its own routing (MODEL_REL_TOL),
+# as before.
+MOE_F32_REL_TOL = 1e-5
+MOE_TRUTH_REL_TOL = 3e-2
+MOE_BF16_LAYERS = 4
+QWEN3_MOE_LAYERS = 4
+# gemma3-12b: a prefill past the 1024-token window, then decode steps, against
+# one pass over the extended sequence, held in float32 at one 6-layer
+# local:global group and reported in bf16 at full depth. GEMMA_PREFILL (the
+# extended length) is 9 blocks of 128 for the plain blockwise attention.
+GEMMA_PREFILL = 1152
+GEMMA_DECODE_STEPS = 4
+GEMMA_F32_LAYERS = 6
+# The decode steps and the one pass differ only in the order of float32 sums:
+# measured 3.1e-7 of the largest logit (this script on an H100, 700 W), so the
+# limit leaves a factor of thirty. bf16 at full depth measured 1.5e-2.
+GEMMA_F32_REL_TOL = 1e-5
+# gemma3's short serial serve (phase 15): half of the serve trace's relQueries
+GEMMA_TRACE = dict(num_relqueries=4)
+# the granite serve's profile (phase 13) traces this window of batches
+# (first, count) on the device only: summing a whole serve's trace is most
+# of a profile phase's time
+PROFILE_WINDOW = (4, 16)
 
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "flash_prefill": "src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -420,8 +497,64 @@ def phase_kernels() -> dict:
         out = ops.flash_prefill(qs, ks, vs, causal=True)
         want = ref.flash_prefill_ref(q, k, v, causal=True)
         assert_close("flash_prefill", out, want, dtype, "strided views")
+    moe_kernel_checks()
     errs["rwkv6_chunk"] = rwkv_kernel_checks()
+    rwkv_chunking_checks()
     return errs
+
+
+# the MoE models' attention shapes: (label, kv slots, q rows per slot, head_dim)
+MOE_SHAPES = [("granite-moe KV 8 Qp 3 hd 64", 8, 3, 64),
+              ("qwen3-moe KV 4 Qp 8 hd 128", 4, 8, 128)]
+
+
+def moe_kernel_checks() -> None:
+    """Both attention kernels at the MoE models' shapes, which no earlier
+    path runs: granite-moe's 3 q rows per kv slot at head_dim 64 (the paged
+    kernel's 4-row path with a pad row; prefill tiles that end inside a
+    position) and qwen3-moe's 8 rows at head_dim 128; decode over the serve's
+    pool of 16-token pages, prefill [4, G, 512, R, hd] causal."""
+    log("[kernels] paged_attention and flash_prefill at the MoE models' shapes")
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, KV, R, hd in MOE_SHAPES:
+            args = paged_inputs(dtype, KV=KV, Qp=R, hd=hd)
+            out = ops.paged_attention(*args)
+            want = ref.paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            assert_close("paged_attention", out, want, dtype, label)
+            if dtype == torch.bfloat16:
+                assert_rounded_once("paged_attention", out,
+                                    ref.paged_attention_ref(*upcast(args)), label)
+            q, k, v = prefill_inputs(dtype, G=KV, R=R, hd=hd)
+            out = ops.flash_prefill(q, k, v, causal=True)
+            want = ref.flash_prefill_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            assert_close("flash_prefill", out, want, dtype, label)
+            if dtype == torch.bfloat16:
+                assert_rounded_once("flash_prefill", out, ref.flash_prefill_ref(
+                    *upcast((q, k, v)), causal=True), label)
+
+
+def rwkv_chunking_checks() -> None:
+    """ROADMAP fault 3: sequence lengths whose reference chunk length the
+    kernel does not take (S 1000: 8; S 12288: 96). One rwkv6-7b layer's WKV
+    call through the model's own path (``RWKV6Model._wkv``: one launch at a
+    chunk length the kernel takes, S 1000 padded to 1008) against the plain
+    version at the reference's chunk length, at RWKV_CHAIN_TOL."""
+    model = build_model(get_config("rwkv6-7b")).with_wkv_impl("kernel")
+    for S in (1000, 12288):
+        args = rwkv_layer_inputs(torch.bfloat16, S=S)
+        c = _chunk_size(S)
+        before = ops.launch_counts()["rwkv6_chunk"]
+        o, s = model._wkv(*args, chunk=c)
+        check(ops.launch_counts()["rwkv6_chunk"] == before + 1,
+              f"S={S}: the model's WKV call is not one launch")
+        want_o, want_s = ref.rwkv6_chunk_plain(*args, out_dtype=torch.float32,
+                                               chunk=c)
+        label = (f"model path S={S} (reference chunk {c}; kernel chunk, "
+                 f"padded length {kernel_chunking(S)})")
+        assert_chain_close(f"o {label}", o, want_o)
+        assert_chain_close(f"state {label}", s, want_s)
 
 
 def assert_chain_close(label: str, got, want) -> float:
@@ -509,60 +642,288 @@ def rwkv_kernel_checks() -> float:
     return err
 
 
-def full_model(arch: str, dtype: str = "", device="cuda"):
-    """Full-width config (in ``dtype`` if given), model and random weights
-    from SEED."""
+def full_model(arch: str, dtype: str = "", device="cuda", layers: int = 0):
+    """Full-width config (in ``dtype``, at ``layers`` layers if given), model
+    and random weights from SEED."""
     cfg = get_config(arch)
     if dtype:
         cfg = cfg.replace(dtype=dtype)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=device).manual_seed(SEED))
     return cfg, model, params
 
 
-def phase_model_qwen(cfg, model, params, device="cuda") -> None:
-    """One prefill batch and one paged decode step of the full-width model,
-    kernel attention vs the plain attention path, on the same inputs."""
-    B, L, bs = 4, 128, 16
+def first_layers(model, params, n: int):
+    """The model and parameter tree cut to its first ``n`` layers (views)."""
+    groups = n // model.group
+    return (model.with_layers(n),
+            dict(params, blocks={k: v[:groups]
+                                 for k, v in params["blocks"].items()}))
+
+
+def perturbed_attention(model, device="cuda"):
+    """The plain-attention model with every attention output, prefill and
+    decode, multiplied by (1 + PERTURB * randn) in float32 before the output
+    projection: the model's own sensitivity to last-bit noise (float32 models
+    only: a bf16 output rounds the perturbation away)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    m = model.with_prefill_attn("block")
+    inner = m._attn_out
+
+    def attn_out(o, wo):
+        noise = torch.randn(o.shape, generator=g, device=o.device)
+        return inner((o.float() * (1 + PERTURB * noise)).to(o.dtype), wo)
+
+    m._attn_out = attn_out
+    return m
+
+
+def log_rel(tag: str, what: str, got, want, tol, witness=None) -> float:
+    """Log kernel-vs-plain logits relative to the largest |logit| (and the
+    witness's, if given); hold them to ``tol`` unless it is None. Returns
+    the relative error."""
+    scale = float(want.float().abs().max())
+    rel = max_err(got, want) / scale
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    wit = "" if witness is None else (
+        f"; plain with its attention outputs perturbed by {PERTURB:g}: rel "
+        f"{max_err(witness, want) / scale:.3e}")
+    log(f"[{tag}] {what}: logits max_abs_err {max_err(got, want):.3e} (max "
+        f"|logit| {scale:.3e}, rel {rel:.3e}, tol "
+        f"{'reported only' if tol is None else f'{tol:g}'}){wit}; argmax "
+        f"agreement {same:.2f}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite logits")
+    if tol is not None:
+        check(rel <= tol, f"{what}: kernel vs plain disagree")
+    return rel
+
+
+# The MoE models' comparisons in which each path routes on its own take full
+# rows: a pad row is routed like any other token and takes expert capacity,
+# and the flash path leaves pad rows unmasked (a dense model never reads
+# them) where the blockwise path masks them, so with ragged rows the two
+# paths drop different slots, as they do in the reference (granite-moe, f32,
+# 32 layers, ragged rows: kernel vs plain 7.4e-2 of the largest logit, the
+# PERTURB witness 1.8e-6; this script on an H100, 700 W). With routes
+# replayed (phase_model_truth) the pad rows' slots are the recorded ones, so
+# those comparisons take ragged rows.
+FULL_ROWS = (128, 128, 128, 128)
+
+
+def paged_pools(model, caches, lens, L, bs=16, device="cuda"):
+    """Paged pools holding a prefill's ``caches`` (rows of ``lens`` tokens,
+    padded to ``L``) and the rows' block tables, with room for one decode
+    step: it writes position seq_len, so a full row needs one more block."""
+    B, nblk = len(lens), L // bs
+    width = nblk + (int(max(lens)) == L)
+    pools = model.init_paged_pools(B * width + 1, bs, device)
+    tables = torch.arange(B * width, dtype=torch.int32,
+                          device=device).reshape(B, width)
+    model.scatter_prefill_pools(pools, caches, tables[:, :nblk])
+    return pools, tables
+
+
+def phase_model_paged(cfg, model, params, tol=MODEL_REL_TOL, witness=False,
+                      lens=(120, 97, 64, 33), device="cuda") -> None:
+    """One prefill batch of rows of ``lens`` tokens (padded to 128) and one
+    paged decode step of the full-width model, kernel attention vs the plain
+    attention path, on the same inputs, held to ``tol`` of the largest
+    |logit| (None: reported only). ``witness``: beside them the plain path
+    with its attention outputs perturbed by PERTURB."""
+    B, L, bs = len(lens), 128, 16
+    what = f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}"
     rng = np.random.RandomState(SEED)
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, L)),
                            dtype=torch.int32, device=device)
-    # the decode step writes position seq_len, which must stay inside the
-    # L // bs blocks of each table
-    seq_lens = torch.as_tensor([120, 97, 64, 33], dtype=torch.int32, device=device)
+    seq_lens = torch.as_tensor(lens, dtype=torch.int32, device=device)
     lg_plain, caches = model.with_prefill_attn("block").prefill(
         params, toks, seq_lens=seq_lens, max_len=L)
     lg_kern, _ = model.with_prefill_attn("flash").prefill(
         params, toks, seq_lens=seq_lens, max_len=L)
-    scale = float(lg_plain.float().abs().max())
-    err = max_err(lg_kern, lg_plain)
-    same = float((lg_kern.argmax(-1) == lg_plain.argmax(-1)).float().mean())
-    log(f"[model] prefill B={B} L={L}: logits max_abs_err {err:.3e} "
-        f"(max |logit| {scale:.3e}, rel {err / scale:.3e}, tol {MODEL_REL_TOL:g}); "
-        f"argmax agreement {same:.2f}")
-    check(bool(torch.isfinite(lg_kern.float()).all()), "non-finite prefill logits")
-    check(err <= MODEL_REL_TOL * scale, "prefill logits: flash vs block disagree")
+    pert = perturbed_attention(model, device) if witness else None
+    lg_wit = None
+    if witness:
+        lg_wit, _ = pert.prefill(params, toks, seq_lens=seq_lens, max_len=L)
+    log_rel("model", f"{what} prefill B={B} L={L}", lg_kern, lg_plain, tol,
+            lg_wit)
 
-    nblk = L // bs
-    pools = model.init_paged_pools(B * nblk + 1, bs, device)
-    tables = torch.arange(B * nblk, dtype=torch.int32, device=device).reshape(B, nblk)
-    model.scatter_prefill_pools(pools, caches, tables)
-    pools_ref = {k: v.clone() for k, v in pools.items()}
+    pools, tables = paged_pools(model, caches, lens, L, bs, device)
+    copies = [{k: v.clone() for k, v in pools.items()} for _ in range(2)]
     tokens = lg_plain.argmax(-1).to(torch.int32)
     positions = seq_lens.clone()
     ctx = positions + 1
     d_kern, _ = model.decode_step_paged(params, pools, tokens, positions, tables,
                                         ctx, attn_impl="kernel")
-    d_plain, _ = model.decode_step_paged(params, pools_ref, tokens, positions,
+    d_plain, _ = model.decode_step_paged(params, copies[0], tokens, positions,
                                          tables, ctx, attn_impl="ref")
-    scale = float(d_plain.float().abs().max())
-    err = max_err(d_kern, d_plain)
-    same = float((d_kern.argmax(-1) == d_plain.argmax(-1)).float().mean())
-    log(f"[model] paged decode B={B}: logits max_abs_err {err:.3e} "
-        f"(max |logit| {scale:.3e}, rel {err / scale:.3e}, tol {MODEL_REL_TOL:g}); "
-        f"argmax agreement {same:.2f}")
-    check(bool(torch.isfinite(d_kern.float()).all()), "non-finite decode logits")
-    check(err <= MODEL_REL_TOL * scale, "decode logits: kernel vs ref disagree")
+    d_wit = None
+    if witness:
+        d_wit, _ = pert.decode_step_paged(params, copies[1], tokens, positions,
+                                          tables, ctx, attn_impl="ref")
+    log_rel("model", f"{what} paged decode B={B}", d_kern, d_plain, tol, d_wit)
+
+
+class Routes:
+    """The MoE layers' expert choices, recorded in one run (``record``) and
+    replayed in another (``replay``). A replaying run sends each token to the
+    recorded experts and drops the recorded slots, weighted by its own router
+    probabilities at those experts, renormalised as ``moe_route`` does. Its
+    difference to the recorded run then stays continuous, as in a dense
+    model: no rounding difference flips a token's experts."""
+
+    def __init__(self):
+        self.routes = []
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patched(fn):
+        inner = moe.moe_route
+        moe.moe_route = fn
+        try:
+            yield
+        finally:
+            moe.moe_route = inner
+
+    def record(self):
+        inner = moe.moe_route
+
+        def rec(*args, **kw):
+            rt = inner(*args, **kw)
+            self.routes.append(rt)
+            return rt
+        return self._patched(rec)
+
+    @contextlib.contextmanager
+    def replay(self):
+        it = iter(self.routes)
+
+        def rep(x, router_w, num_padded, **kw):
+            rt = next(it)
+            check(rt.top_i.shape[0] == x.shape[0], "replayed a route of "
+                  "another batch")
+            w = torch.softmax((x @ router_w).float(), dim=-1).gather(1, rt.top_i)
+            return rt._replace(
+                top_w=w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9))
+        with self._patched(rep):
+            yield
+        check(next(it, None) is None, "a replay used fewer routes than the "
+              "recorded run")
+
+
+def paged_pass(model, params, toks, seq_lens, kernels: bool, tokens=None,
+               route=contextlib.nullcontext):
+    """The served path of one batch: a prefill (flash_prefill if
+    ``kernels``, else the blockwise plain attention), then one paged decode
+    step (paged_attention, else its plain version) from its own caches, of
+    ``tokens`` (default: the prefill's greedy tokens); both inside
+    ``route()``. Returns (prefill logits, decode logits, decode tokens)."""
+    L = toks.shape[1]
+    m = model.with_prefill_attn("flash" if kernels else "block")
+    with route():
+        lg, caches = m.prefill(params, toks, seq_lens=seq_lens, max_len=L)
+        if tokens is None:
+            tokens = lg.argmax(-1).to(torch.int32)
+        pools, tables = paged_pools(m, caches, seq_lens, L,
+                                    device=toks.device)
+        d, _ = m.decode_step_paged(params, pools, tokens, seq_lens, tables,
+                                   seq_lens + 1,
+                                   attn_impl="kernel" if kernels else "ref")
+    return lg, d, tokens
+
+
+def tree_float(tree):
+    """A float32 copy of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: tree_float(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def phase_model_truth(cfg, model, params, truth_tol, replay_tol,
+                      lens=(120, 97, 64, 33), device="cuda") -> None:
+    """A bf16 MoE model's served path (paged_pass) against the truth: the
+    float32 model on the same weights (the bf16 values upcast) with plain
+    attention. Beside the kernel path, the control: the bf16 plain path
+    against the same truth. Each bf16 path runs with its own routing and
+    replaying the truth's expert choices (Routes). Held, to a share of the
+    largest |logit| (None: reported only): the kernel path replaying the
+    truth's routes, to ``truth_tol``; the kernel path replaying the bf16
+    plain path's routes against that path, to ``replay_tol``. Reported: the
+    rest, kernel vs plain with their own routing among them."""
+    what = f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}"
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(len(lens), 128)),
+                           dtype=torch.int32, device=device)
+    seq_lens = torch.as_tensor(lens, dtype=torch.int32, device=device)
+    truth_routes, plain_routes = Routes(), Routes()
+    with torch.no_grad():
+        m32 = build_model(cfg.replace(dtype="float32"))
+        p32 = tree_float(params)
+        truth = paged_pass(m32, p32, toks, seq_lens, False,
+                           route=truth_routes.record)
+        del m32, p32
+        free()
+        tokens = truth[2]
+        plain = paged_pass(model, params, toks, seq_lens, False, tokens,
+                           plain_routes.record)
+        kern = paged_pass(model, params, toks, seq_lens, True, tokens)
+        kern_rp = paged_pass(model, params, toks, seq_lens, True, tokens,
+                             plain_routes.replay)
+        kern_rt = paged_pass(model, params, toks, seq_lens, True, tokens,
+                             truth_routes.replay)
+        plain_rt = paged_pass(model, params, toks, seq_lens, False, tokens,
+                              truth_routes.replay)
+    for i, step in enumerate(("prefill", "paged decode")):
+        log_rel("moe", f"{what} {step}: kernel vs plain, own routes",
+                kern[i], plain[i], None)
+        log_rel("moe", f"{what} {step}: kernel replaying plain's routes vs "
+                f"plain", kern_rp[i], plain[i], replay_tol)
+        log_rel("moe", f"{what} {step}: kernel vs f32 truth, own routes",
+                kern[i], truth[i], None)
+        log_rel("moe", f"{what} {step}: control, plain vs f32 truth, own "
+                f"routes", plain[i], truth[i], None)
+        log_rel("moe", f"{what} {step}: kernel replaying truth's routes vs "
+                f"f32 truth", kern_rt[i], truth[i], truth_tol)
+        log_rel("moe", f"{what} {step}: control, plain replaying truth's "
+                f"routes vs f32 truth", plain_rt[i], truth[i], None)
+
+
+def phase_model_gemma(cfg, model, params, tol, device="cuda") -> None:
+    """A ragged prefill past the 1024-token window (rows of 1148 and 1090
+    tokens: every window ring wraps), then GEMMA_DECODE_STEPS decode steps
+    from its caches, teacher-forced, each against the same row and position
+    of one causal pass over the whole extended sequence; held to ``tol`` of
+    the largest |logit| (None: reported only). No kernel is on this path, as
+    in the reference: it holds the ring-buffer caches."""
+    B, steps = 2, GEMMA_DECODE_STEPS
+    n = GEMMA_PREFILL - steps
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, n + steps)),
+                           dtype=torch.int32, device=device)
+    lens = torch.as_tensor([n, n - 58], dtype=torch.int32, device=device)
+    check(int(lens.min()) > cfg.sliding_window, "rows do not pass the window")
+    rows = torch.arange(B, device=device)
+    with torch.no_grad():
+        _, cache = model.prefill(params, toks[:, :n], seq_lens=lens,
+                                 max_len=n + steps)
+        got = []
+        for j in range(steps):
+            d, cache = model.decode_step(params, cache, toks[rows, lens + j],
+                                         lens + j)
+            got.append(d)
+        S = n + steps
+        hidden, _, _ = model.forward_hidden(
+            params, model.embed_tokens(params, toks),
+            torch.arange(S, dtype=torch.int32, device=device).expand(B, S))
+        want = [model.logits(params, hidden[rows, (lens + j).long()])
+                for j in range(steps)]
+    what = (f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}: prefill of "
+            f"[{n}, {n - 58}] tokens (window {cfg.sliding_window}), decode "
+            f"steps vs one pass over the extended sequence")
+    worst = max(log_rel("gemma model", f"{what}, step {j}", got[j], want[j],
+                        tol) for j in range(steps))
+    log(f"[gemma model] {what}: worst rel {worst:.3e}")
 
 
 def rwkv_outputs(m, params, toks, seq_lens):
@@ -689,31 +1050,40 @@ def serve_trace(vocab_size: int = 151934, **kw):
     return build_trace(ds, TraceConfig(**dict(cfg, **kw)), tokenizer=tok)
 
 
-# (kv backend, max_slots) of each path's serve; rwkv6-7b runs with as many
-# slots as layers on purpose (a slot axis found by its size would be wrong)
-SERVE = {"qwen3-1.7b": ("paged", 64), "rwkv6-7b": ("dense", 32)}
+# (kv backend, max_slots, kernels its serve must launch) of each path's serve;
+# rwkv6-7b runs with as many slots as layers on purpose (a slot axis found by
+# its size would be wrong); gemma3's window layers take the dense backend only,
+# whose attention is plain, as in the reference
+SERVE = {"qwen3-1.7b": ("paged", 64, ("paged_attention", "flash_prefill")),
+         "rwkv6-7b": ("dense", 32, ("rwkv6_chunk",)),
+         "granite-moe-3b-a800m": ("paged", 64, ("paged_attention",
+                                                "flash_prefill")),
+         "gemma3-12b": ("dense", 32, ())}
 
 
-def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
-    """Serve ``trace``; returns (token streams, number of prefill calls). The
-    calls are counted on the dense backend, whose executor calls the model it
-    is given (the paged one builds a sibling): None on the paged backend."""
+def run_serve(model, params, trace, loop: str, device="cuda", card: str = "",
+              on_engine=None):
+    """Serve ``trace``; returns (token streams, prefill calls, decode steps),
+    counted on the model the executor runs (a copy of ``model``, or the
+    paged executor's sibling of it). ``on_engine`` gets the engine before the
+    serve starts."""
     arch = model.cfg.name
-    backend, max_slots = SERVE[arch]
+    backend, max_slots, _ = SERVE[arch]
     trace = copy.deepcopy(trace)
-    prefills = [0] if backend == "dense" else [None]
-    counted = copy.copy(model)
-
-    def prefill(*args, **kw):
-        prefills[0] += 1
-        return model.prefill(*args, **kw)
-
-    if backend == "dense":
-        counted.prefill = prefill
-    engine = build_real_engine(arch, "relserve", backend, model=counted,
+    engine = build_real_engine(arch, "relserve", backend, model=copy.copy(model),
                                params=params, max_slots=max_slots, max_len=1024,
                                engine_loop=loop, device=device)
     ex = engine.executor
+    prefills = [0]
+    inner = ex.model.prefill
+
+    def prefill(*args, **kw):
+        prefills[0] += 1
+        return inner(*args, **kw)
+
+    ex.model.prefill = prefill
+    if on_engine is not None:
+        on_engine(engine)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -738,54 +1108,64 @@ def run_serve(model, params, trace, loop: str, device="cuda", card: str = ""):
               f"{loop}: a dense slot was not freed")
         where = f"{max_slots} dense slots"
     fitted = ex.fitted_model()
+    steps = len(ex.decode_samples)
     log(f"[serve] {arch} {backend} {loop}: {len(report.latencies)} relQueries, "
         f"{sum(len(rq.requests) for rq in trace)} requests, {n_tok} tokens; "
         f"latency avg {report.avg_latency:.4f}s p50 {report.percentile(50):.4f}s "
         f"p99 {report.percentile(99):.4f}s; wall {wall:.3f}s, "
-        f"{n_tok / wall:.1f} tokens/s; {len(report.events)} batches; "
+        f"{n_tok / wall:.1f} tokens/s; {len(report.events)} batches, "
+        f"{prefills[0]} prefill calls, {steps} decode steps; "
         f"{where}; fitted alpha_p {fitted.alpha_p:.3e} "
         f"beta_p {fitted.beta_p:.3e} alpha_d {fitted.alpha_d:.3e} "
-        f"beta_d {fitted.beta_d:.3e}; "
-        f"{'' if prefills[0] is None else f'{prefills[0]} prefill calls; '}{card}")
+        f"beta_d {fitted.beta_d:.3e}; {card}")
     streams = [tuple(r.output_tokens) for rq in trace for r in rq.requests]
     del engine, ex
     if device == "cuda":
         torch.cuda.empty_cache()
-    return streams, prefills[0]
+    return streams, prefills[0], steps
 
 
-def phase_serve(model, params, *, exact: bool = False) -> dict:
-    """Serial then pipelined serve; each must launch the kernels of this
-    model's own path. ``exact``: the two runs' streams must be identical.
-    Returns this path's launch counts."""
-    card = nvidia_smi_line()
-    trace = serve_trace(model.cfg.vocab_size - 2)
+def phase_serve(model, params, *, exact: bool = False, loops=("serial",
+                                                               "pipelined"),
+                trace_kw=None, device="cuda") -> dict:
+    """The serve of this path in each of ``loops``; each must launch the
+    kernels of this path's own serve (SERVE), one launch per layer per
+    prefill call or decode step, and a path without kernels must launch
+    none. ``exact``: the loops' streams must be identical (else the share
+    that is is reported). Returns this path's launch counts."""
+    card = nvidia_smi_line() if device == "cuda" else "cpu"
+    cfg = model.cfg
+    _, _, kernels = SERVE[cfg.name]
+    trace = serve_trace(cfg.vocab_size - 2, **(trace_kw or {}))
     ops.reset_launch_counts()
-    serial, n_serial = run_serve(model, params, trace, "serial", card=card)
-    after_serial = ops.launch_counts()
-    pipelined, n_pipe = run_serve(model, params, trace, "pipelined", card=card)
+    runs = []
+    for loop in loops:
+        before = ops.launch_counts()
+        streams, n_prefill, n_decode = run_serve(model, params, trace, loop,
+                                                 device, card)
+        after = ops.launch_counts()
+        got = {name: after[name] - before[name] for name in after}
+        per = {"paged_attention": n_decode, "flash_prefill": n_prefill,
+               "rwkv6_chunk": n_prefill}
+        log(f"[serve] {cfg.name} {loop} launches: {got}; per layer and "
+            f"call: " + ", ".join(
+                f"{name} {got[name] / max(per[name] * cfg.num_layers, 1):g} "
+                f"({per[name]} calls x {cfg.num_layers} layers)"
+                for name in kernels))
+        for name in got:
+            want = per[name] * cfg.num_layers if name in kernels else 0
+            check(got[name] == want and (want > 0 or name not in kernels),
+                  f"{loop} serve launched {name} {got[name]} times, not "
+                  f"{want} (one per layer per call of this path)")
+        runs.append(streams)
     counts = ops.launch_counts()
-    log(f"[serve] {model.cfg.name} launches: serial {after_serial}, "
-        f"serial + pipelined {counts}")
-    for name in model.KERNELS:
-        check(after_serial[name] > 0, f"serial serve never launched {name}")
-        check(counts[name] > after_serial[name],
-              f"pipelined serve never launched {name}")
-    if "rwkv6_chunk" in model.KERNELS:   # one launch per layer per prefill
-        L = model.cfg.num_layers
-        log(f"[serve] {model.cfg.name} rwkv6_chunk launches per prefill call: "
-            f"serial {after_serial['rwkv6_chunk'] / n_serial:g}, pipelined "
-            f"{(counts['rwkv6_chunk'] - after_serial['rwkv6_chunk']) / n_pipe:g} "
-            f"({n_serial} and {n_pipe} prefill calls; {L} layers)")
-        check(after_serial["rwkv6_chunk"] == L * n_serial
-              and counts["rwkv6_chunk"] == L * (n_serial + n_pipe),
-              "rwkv6_chunk is not one launch per layer per prefill")
-    same = sum(a == b for a, b in zip(serial, pipelined)) / len(serial)
-    log(f"[serve] {model.cfg.name} identical streams serial vs pipelined: "
-        f"{same:.3f} ({card})")
-    if exact:
-        check(serial == pipelined, "serial and pipelined streams differ")
-    return {name: counts[name] for name in model.KERNELS}
+    if len(runs) == 2:
+        same = sum(a == b for a, b in zip(*runs)) / len(runs[0])
+        log(f"[serve] {cfg.name} identical streams serial vs pipelined: "
+            f"{same:.3f} ({card})")
+        if exact:
+            check(runs[0] == runs[1], "serial and pipelined streams differ")
+    return {name: counts[name] for name in kernels}
 
 
 # The planned serve (phase 7): the serve trace with half of each relQuery's
@@ -947,13 +1327,12 @@ def phase_planned(model, params, device="cuda") -> dict:
     return {name: counts[name] for name in model.KERNELS}
 
 
-def phase_times(errs: dict, counts: dict) -> list:
-    dt = torch.bfloat16
-    esize = 2
-    out = []
-
-    # paged_attention at the decode inputs of phase 3
-    args = paged_inputs(dt)
+def time_paged(dt, label: str, **shape) -> dict:
+    """paged_attention at the phase-3 decode inputs of ``shape``: kernel,
+    plain and bound (bytes: q read and out written once, K and V of every
+    context token, the table entries read, the lengths)."""
+    esize = torch.finfo(dt).bits // 8
+    args = paged_inputs(dt, **shape)
     q, kp, vp, bt, cl = args
     B, KV, rows, hd = q.shape
     page = kp.shape[1]
@@ -964,22 +1343,24 @@ def phase_times(errs: dict, counts: dict) -> list:
               + 2 * tokens * KV * hd * esize   # K and V of every context token
               + pages_read * 4 + B * 4)        # block-table entries, lengths
     flops = 4 * rows * hd * tokens * KV
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
     ms = cuda_time_ms(lambda: ops.paged_attention(*args))
     plain = cuda_time_ms(lambda: ref.paged_attention_ref(*args))
-    log(f"[times] paged_attention B={B} tokens={tokens}: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bound:.4f} ms (bytes {nbytes}), "
-        f"library null")
-    out.append({"name": "paged_attention", "route": "cuda",
-                "source": SOURCES["paged_attention"],
-                "replaces": REPLACES["paged_attention"],
-                "launches": counts["paged_attention"],
-                "max_abs_err": errs["paged_attention"], "ms": ms,
-                "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-                "library_ms": None})
+    log(f"[times] paged_attention {label} q={list(q.shape)} B={B} "
+        f"tokens={tokens}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms (bytes {nbytes}, flops {flops}), library null")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
 
-    # flash_prefill at the causal main-path inputs of phase 3
-    q, k, v = prefill_inputs(dt)
+
+def time_prefill(dt, label: str, **shape) -> dict:
+    """flash_prefill at the phase-3 causal prefill inputs of ``shape``:
+    kernel, plain, torch's SDPA and bound (the unmasked (row, key) pairs'
+    products; q, k, v read and out written once)."""
+    esize = torch.finfo(dt).bits // 8
+    q, k, v = prefill_inputs(dt, **shape)
     B, G, S, R, hd = q.shape
     T = k.shape[2]
     pairs = sum(min(T, s + 1) for s in range(S)) * R * B * G   # unmasked (row, key)
@@ -992,17 +1373,38 @@ def phase_times(errs: dict, counts: dict) -> list:
     qh = q.permute(0, 1, 3, 2, 4).reshape(B, G * R, S, hd)   # head g*R + r
     lib = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, k, v, is_causal=True, enable_gqa=True))
-    log(f"[times] flash_prefill q={list(q.shape)} causal: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms "
-        f"(flops {flops}, bytes {nbytes})")
-    out.append({"name": "flash_prefill", "route": "cuda",
-                "source": SOURCES["flash_prefill"],
-                "replaces": REPLACES["flash_prefill"],
-                "launches": counts["flash_prefill"],
-                "max_abs_err": errs["flash_prefill"], "ms": ms,
-                "plain_ms": plain, "bound_ms": bound,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": lib})
+    log(f"[times] flash_prefill {label} q={list(q.shape)} causal: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{bound:.4f} ms (flops {flops}, bytes {nbytes})")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib}
+
+
+def phase_times(errs: dict, paths: dict) -> list:
+    """The kernels' record at the main-path (qwen3-1.7b) inputs of phase 3;
+    the attention kernels are also timed at the MoE models' shapes.
+    ``paths``: each serve's own launch counts (counters set to 0 before it
+    and read after it); a record's ``launches`` is their sum and
+    ``launches_by_path`` splits it."""
+    def launches(name):
+        by_path = {path: got[name] for path, got in paths.items()
+                   if name in got}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
+    out = []
+    dt = torch.bfloat16
+    for name, timer in (("paged_attention", time_paged),
+                        ("flash_prefill", time_prefill)):
+        rec = timer(dt, "qwen3-1.7b")
+        out.append(dict({"name": name, "route": "cuda", "source": SOURCES[name],
+                         "replaces": REPLACES[name], **launches(name),
+                         "max_abs_err": errs[name]}, **rec))
+        for label, KV, R, hd in MOE_SHAPES:
+            timer(dt, label, **({"KV": KV, "Qp": R, "hd": hd}
+                                if name == "paged_attention"
+                                else {"G": KV, "R": R, "hd": hd}))
 
     # rwkv6_chunk at one layer's call of the serve: r/k/v bf16 [1, 256, 64,
     # 64] in chunks of 16, logw / u / state f32, o f32
@@ -1045,7 +1447,7 @@ def phase_times(errs: dict, counts: dict) -> list:
     out.append({"name": "rwkv6_chunk", "route": "cuda",
                 "source": SOURCES["rwkv6_chunk"],
                 "replaces": REPLACES["rwkv6_chunk"],
-                "launches": counts["rwkv6_chunk"],
+                **launches("rwkv6_chunk"),
                 "max_abs_err": errs["rwkv6_chunk"], "ms": ms,
                 "plain_ms": plain, "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1053,18 +1455,21 @@ def phase_times(errs: dict, counts: dict) -> list:
     return out
 
 
-def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
+def phase_profile(model, params, device="cuda", planned: bool = False,
+                  window=None) -> None:
     """Where a serve phase's time goes: one more serial serve of the same
     trace under torch.profiler (after the launch counters were read), the
     planned serve of phase 7 with ``planned``. Prints the device's busy and
     idle share of the wall time and the kernels that take the device time.
     The planned serve launches ~700k kernels: it is traced on the device
     only, since the host's operator events would multiply the trace and the
-    time to sum it."""
+    time to sum it. ``window`` (first batch, batches): trace only those
+    batches of the serve, on the device only; the wall is theirs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [] if planned and device == "cuda" else [ProfilerActivity.CPU]
+    host = not planned and window is None
+    acts = [ProfilerActivity.CPU] if host or device != "cuda" else []
     if device == "cuda":
         acts.append(ProfilerActivity.CUDA)
     if planned:
@@ -1072,14 +1477,47 @@ def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
         cap = planned_cap(trace)
     else:
         trace = serve_trace(model.cfg.vocab_size - 2)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        if planned:
-            run_planned(model, params, trace, "serial", cap, device)
-            n_prefill = None
-        else:
-            _, n_prefill = run_serve(model, params, trace, "serial", device)
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof = profile(activities=acts)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    span = {}
+
+    def start():
+        sync()
+        prof.start()
+        span["t0"] = time.perf_counter()
+
+    def stop():
+        sync()
+        span["t1"] = time.perf_counter()
+        prof.stop()
+
+    def on_engine(engine):   # start and stop the trace at batch boundaries
+        ex = engine.executor
+        inner, seen = ex.dispatch, [0]
+        first, n = window
+
+        def dispatch(batch, now):
+            if seen[0] == first:
+                start()
+            elif seen[0] == first + n:
+                stop()
+            seen[0] += 1
+            return inner(batch, now)
+
+        ex.dispatch = dispatch
+
+    n_prefill = None
+    if window is None:
+        start()
+    if planned:
+        run_planned(model, params, trace, "serial", cap, device)
+    else:
+        _, n_prefill, _ = run_serve(model, params, trace, "serial", device,
+                                    on_engine=on_engine if window else None)
+    if "t1" not in span:   # a whole serve, or one with fewer batches
+        check("t0" in span, f"the serve has fewer than {window} batches")
+        stop()
+    wall_us = (span["t1"] - span["t0"]) * 1e6
     t1 = time.perf_counter()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -1089,12 +1527,14 @@ def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
         log("[profile] the profiler recorded no device time: not measured")
         return
     launches = sum(e.count for e in kernels)
+    what = ("serve" if window is None
+            else f"serve, batches {window[0]}..{window[0] + window[1] - 1}")
     log(f"[profile] {model.cfg.name} {'planned ' if planned else ''}serial "
-        f"serve under the profiler: wall "
+        f"{what} under the profiler: wall "
         f"{wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall, "
         f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches"
-        f"{'' if n_prefill is None else f', {n_prefill} prefill calls'}")
+        f"{'' if window or n_prefill is None else f', {n_prefill} prefill calls'}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<6d} "
@@ -1107,8 +1547,8 @@ def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
                 f"{e.self_device_time_total / max(e.count, 1):.2f} us each")
 
 
-def load_model(arch: str, dtype: str = ""):
-    cfg, model, params = full_model(arch, dtype)
+def load_model(arch: str, dtype: str = "", layers: int = 0):
+    cfg, model, params = full_model(arch, dtype, layers=layers)
     log(f"[model] {cfg.name}: {model.param_count() / 1e9:.3f}B params, "
         f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}")
     return cfg, model, params
@@ -1121,6 +1561,72 @@ def lap(label: str, t0: float) -> float:
     return now
 
 
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def path_granite(t: float) -> tuple:
+    """granite-moe-3b-a800m at full width and depth (phases 11-13). Returns
+    (the serve's launch counts, the time of the last lap)."""
+    cfg, model, params = load_model("granite-moe-3b-a800m", dtype="float32")
+    phase_model_paged(cfg, model, params, MOE_F32_REL_TOL, witness=True,
+                      lens=FULL_ROWS)
+    t = lap("granite model f32", t)
+    del cfg, model, params
+    free()
+    cfg, model, params = load_model("granite-moe-3b-a800m")
+    short = (cfg.replace(num_layers=MOE_BF16_LAYERS),
+             *first_layers(model, params, MOE_BF16_LAYERS))
+    phase_model_paged(*short, lens=FULL_ROWS)
+    phase_model_truth(*short, MOE_TRUTH_REL_TOL, MODEL_REL_TOL)
+    phase_model_truth(cfg, model, params, MOE_TRUTH_REL_TOL, MODEL_REL_TOL)
+    t = lap("granite model bf16", t)
+    counts = phase_serve(model, params)
+    t = lap("granite serve", t)
+    phase_profile(model, params, window=PROFILE_WINDOW)
+    t = lap("granite profile", t)
+    del cfg, model, params
+    free()
+    return counts, t
+
+
+def path_qwen3_moe(t: float) -> float:
+    """qwen3-moe-30b-a3b at full width, cut to QWEN3_MOE_LAYERS layers
+    (phase 14): kernel vs plain in float32; in bf16 against the float32
+    model on the same weights, and kernel vs plain with routes replayed."""
+    cfg, model, params = load_model("qwen3-moe-30b-a3b", dtype="float32",
+                                    layers=QWEN3_MOE_LAYERS)
+    phase_model_paged(cfg, model, params, MOE_F32_REL_TOL, witness=True,
+                      lens=FULL_ROWS)
+    del cfg, model, params
+    free()
+    cfg, model, params = load_model("qwen3-moe-30b-a3b",
+                                    layers=QWEN3_MOE_LAYERS)
+    phase_model_truth(cfg, model, params, MOE_TRUTH_REL_TOL, MODEL_REL_TOL)
+    del cfg, model, params
+    free()
+    return lap("qwen3-moe model", t)
+
+
+def path_gemma(t: float) -> float:
+    """gemma3-12b at full width and depth on the dense engine (phase 15)."""
+    cfg, model, params = load_model("gemma3-12b", dtype="float32",
+                                    layers=GEMMA_F32_LAYERS)
+    phase_model_gemma(cfg, model, params, GEMMA_F32_REL_TOL)
+    del cfg, model, params
+    free()
+    t = lap("gemma3 model f32", t)
+    cfg, model, params = load_model("gemma3-12b")
+    phase_model_gemma(cfg, model, params, None)
+    t = lap("gemma3 model bf16", t)
+    phase_serve(model, params, loops=("serial",), trace_kw=GEMMA_TRACE)
+    t = lap("gemma3 serve", t)
+    del cfg, model, params
+    free()
+    return t
+
+
 def main() -> None:
     t_start = t = time.perf_counter()
     phase_device()
@@ -1130,46 +1636,44 @@ def main() -> None:
     t = lap("kernels", t)
 
     cfg, model, params = load_model("qwen3-1.7b")
-    phase_model_qwen(cfg, model, params)
+    phase_model_paged(cfg, model, params)
     t = lap("qwen3 model", t)
-    counts = phase_serve(model, params)
+    paths = {"qwen3 serve": phase_serve(model, params)}
     t = lap("qwen3 serve", t)
     phase_profile(model, params)
     t = lap("qwen3 profile", t)
-    planned = phase_planned(model, params)
-    counts = {name: counts[name] + planned[name] for name in counts}
+    paths["qwen3 planned serve"] = phase_planned(model, params)
     t = lap("qwen3 planned serve", t)
     phase_profile(model, params, planned=True)
     t = lap("qwen3 planned profile", t)
     del cfg, model, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
 
     cfg, model, params = load_model("rwkv6-7b", dtype="float32")
     phase_model_rwkv(cfg, model, params, RWKV_F32_REL_TOL)
     t = lap("rwkv6 model f32", t)
     del cfg, model, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
 
     cfg, model, params = load_model("rwkv6-7b")
     n = RWKV_BF16_LAYERS
-    phase_model_rwkv(cfg.replace(num_layers=n), model.with_layers(n),
-                     dict(params, blocks={k: v[:n] for k, v
-                                          in params["blocks"].items()}),
+    phase_model_rwkv(cfg.replace(num_layers=n), *first_layers(model, params, n),
                      MODEL_REL_TOL)
     phase_layers_rwkv(cfg, model, params)
     phase_model_rwkv(cfg, model, params, None)
     t = lap("rwkv6 model bf16", t)
-    counts.update(phase_serve(model, params, exact=True))
+    paths["rwkv6 serve"] = phase_serve(model, params, exact=True)
     t = lap("rwkv6 serve", t)
     phase_profile(model, params)
     t = lap("rwkv6 profile", t)
     del cfg, model, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
 
-    kernels = phase_times(errs, counts)
+    paths["granite serve"], t = path_granite(t)
+    t = path_qwen3_moe(t)
+    t = path_gemma(t)
+
+    kernels = phase_times(errs, paths)
     lap("times", t)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())

@@ -2,8 +2,10 @@
 ``get_smoke_config(arch_id)`` for the archs the port serves so far.
 
 Listed are the archs whose family the port's models cover: the dense
-full-attention archs (``DenseTransformer``) and rwkv6-7b (``RWKV6Model``).
-Any other arch id of the JAX package raises ``KeyError`` saying it is not
+family and the VLM backbone (``DenseTransformer``: full attention, qkv bias,
+gemma3's local:global layers, ``extra_embeds``), the MoE family
+(``MoETransformer``) and rwkv6-7b (``RWKV6Model``). Any other arch id of the
+JAX package (hymba-1.5b, whisper-base) raises ``KeyError`` saying it is not
 ported.
 """
 from __future__ import annotations
@@ -11,12 +13,26 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs import qwen2_0p5b, qwen3_1p7b, rwkv6_7b
+from repro_torch.configs import (
+    gemma3_12b,
+    granite_moe_3b,
+    internvl2_26b,
+    qwen2_0p5b,
+    qwen2p5_32b,
+    qwen3_1p7b,
+    qwen3_moe_30b,
+    rwkv6_7b,
+)
 
 _MODULES = {
     "qwen3-1.7b": qwen3_1p7b,
     "qwen2-0.5b": qwen2_0p5b,
+    "gemma3-12b": gemma3_12b,
+    "qwen2.5-32b": qwen2p5_32b,
     "rwkv6-7b": rwkv6_7b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b,
+    "granite-moe-3b-a800m": granite_moe_3b,
+    "internvl2-26b": internvl2_26b,
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

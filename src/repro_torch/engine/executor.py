@@ -166,9 +166,10 @@ class Slot:
 class RealExecutor(_ExecutorBase):
     """Dense per-slot cache backend (the bit-identical baseline), for any
     model family. The cache is the model's ``init_cache(max_slots, max_len)``
-    (``k_full``/``v_full [G, 1, slots, max_len, KVs, hd]`` for attention,
-    ``state``/``tm_shift``/``cm_shift`` with slots on axis 1 for RWKV6); the
-    model's ``cache_slot_axes()`` names each entry's slot axis. The slot axis
+    (``k_full``/``v_full [G, n_full, slots, max_len, KVs, hd]`` for global
+    attention layers, the window rings ``k_win``/``v_win`` for gemma3's
+    local ones, ``state``/``tm_shift``/``cm_shift`` with slots on axis 1 for
+    RWKV6); the model's ``cache_slot_axes()`` names each entry's slot axis. The slot axis
     is never guessed from the shapes, as the reference's ``_slot_axis`` does
     (``repro/engine/executor.py:218-225``): with ``max_slots`` equal to the
     layer count that search takes the layer axis of a recurrent state."""

@@ -11,10 +11,13 @@ Two execution modes, as in ``repro/launch/serve.py``:
                   touches no torch device, so it refuses --device.
   (default)       a real PyTorch engine on a smoke-scale model of ``--arch``
                   with random weights from ``--seed``, one replica, on CUDA
-                  unless ``--device cpu`` is given. The dense archs
-                  (qwen3-1.7b, qwen2-0.5b) take either KV backend, rwkv6-7b
-                  the dense backend only (``--kv-backend paged`` exits, as
-                  the reference refuses it).
+                  unless ``--device cpu`` is given. The full-attention
+                  archs (qwen3-1.7b, qwen2-0.5b, qwen2.5-32b, the
+                  internvl2-26b backbone, granite-moe-3b-a800m,
+                  qwen3-moe-30b-a3b) take either KV backend; gemma3-12b
+                  (window layers) and rwkv6-7b the dense backend only
+                  (``--kv-backend paged`` exits, as the reference refuses
+                  it).
 
 and two drive modes:
   (default)       closed-loop trace replay through the Frontend shim
@@ -36,6 +39,8 @@ bit-identical to the unplanned replay.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --plan full \
       --kv-backend paged --dup-row-fraction 0.5 --num-relqueries 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+      --kv-backend paged --device cpu
 """
 from __future__ import annotations
 

@@ -238,3 +238,27 @@ def causal_positions(seq_len: int, batch: int,
                      device: Optional[torch.device] = None) -> torch.Tensor:
     pos = torch.arange(seq_len, dtype=torch.int32, device=device)
     return pos.expand(batch, seq_len)
+
+
+def ring_from_sequence(k: torch.Tensor, window: int,
+                       seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Arrange the last ``window`` *valid* positions of ``k`` [B, S, ...] into
+    ring-buffer slot order (slot i holds the latest valid position p with
+    p % window == i), so a prefill of any (possibly padded) length hands decode
+    a consistent ring cache. Slots no valid position reaches are zero."""
+    B, S = k.shape[:2]
+    if seq_lens is None:
+        if S < window:
+            return F.pad(k, (0, 0) * (k.ndim - 2) + (0, window - S))
+        slots = torch.arange(window, device=k.device)
+        pos = (S - 1) - ((S - 1 - slots) % window)
+        return k.index_select(1, pos)
+    slots = torch.arange(window, device=k.device)
+    last = (seq_lens.long() - 1)[:, None]                 # [B, 1]
+    pos = last - torch.remainder(last - slots[None, :], window)   # [B, W]
+    valid = pos >= 0
+    pos = pos.clamp(0, S - 1)
+    shape = (B, window) + (1,) * (k.ndim - 2)
+    gathered = torch.gather(k, 1, pos.reshape(shape).expand(
+        (B, window) + tuple(k.shape[2:])))
+    return torch.where(valid.reshape(shape), gathered, gathered.new_zeros(()))

@@ -5,9 +5,12 @@ Prefill runs the chunked form of the WKV recurrence over chunks of
 ``_chunk_size(S)`` tokens, carrying a ``[B, H, K, V]`` float32 state: one
 call of ``ops.rwkv6_chunk`` per layer (the hand-written CUDA kernel, one
 launch that walks every chunk, for CUDA tensors; its plain version, a loop
-over the chunks, on the CPU). Decode is the one-token
-recurrence ``wkv6_decode`` in plain PyTorch, as the reference has no kernel
-for it.
+over the chunks, on the CPU). The kernel takes the chunk lengths of
+``CHUNKS`` only; for any other ``_chunk_size(S)`` the CUDA path walks the
+sequence at ``kernel_chunking(S)`` instead (see ``wkv_padded``). The chunked
+form is exact for any chunk length, so only the float32 rounding differs.
+Decode is the one-token recurrence ``wkv6_decode`` in plain PyTorch, as the
+reference has no kernel for it.
 
 Parameters are an explicit tree of tensors with the reference's keys and
 layouts (per-layer params stacked ``[L, ...]``), so weights carry across from
@@ -20,7 +23,7 @@ dtype before the gate.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.rwkv6_chunk import CHUNKS
 from repro_torch.models import layers as L
 from repro_torch.models.param_utils import count_params, init_params, t
 
@@ -42,6 +46,35 @@ def _chunk_size(seq: int) -> int:
     while seq % c:
         c //= 2
     return max(c, 1)
+
+
+def kernel_chunking(seq: int) -> Tuple[int, int]:
+    """(chunk, padded length) of a sequence of ``seq`` tokens on the kernel,
+    which takes the chunk lengths of ``CHUNKS`` only: ``_chunk_size(seq)``
+    where that is one of them; else the longest of ``CHUNKS`` that divides
+    ``seq``; else ``seq`` padded up to a multiple of the shortest."""
+    c = _chunk_size(seq)
+    if c in CHUNKS:
+        return c, seq
+    for c in sorted(CHUNKS, reverse=True):
+        if seq % c == 0:
+            return c, seq
+    c = min(CHUNKS)
+    return c, -(-seq // c) * c
+
+
+def wkv_padded(fn, r, k, v, logw, u, state):
+    """``fn`` (``ops.rwkv6_chunk`` or its plain version) over the sequence at
+    ``kernel_chunking(S)``. Pad tokens are masked as the model masks pad rows
+    (k := 0, logw := 0), so they leave the state exactly as it was; their rows
+    of ``o`` are cut off. Returns (o [B, S, H, V] float32, state)."""
+    S = r.shape[1]
+    c, padded = kernel_chunking(S)
+    if padded > S:
+        r, k, v, logw = (F.pad(x, (0, 0, 0, 0, 0, padded - S))
+                         for x in (r, k, v, logw))
+    o, state = fn(r, k, v, logw, u, state, out_dtype=torch.float32, chunk=c)
+    return o[:, :S], state
 
 
 def wkv6_decode(r, k, v, logw, u, state):
@@ -182,9 +215,16 @@ class RWKV6Model(nn.Module):
     def _wkv(self, r, k, v, logw, u, state, *, chunk):
         """The recurrence over the whole sequence in chunks of ``chunk``
         tokens, with ``o`` kept in float32 as the model's ``wkv6_chunk``
-        keeps it (the Pallas kernel writes r's dtype)."""
-        fn = ref.rwkv6_chunk_plain if self.wkv_impl == "plain" else ops.rwkv6_chunk
-        return fn(r, k, v, logw, u, state, out_dtype=torch.float32, chunk=chunk)
+        keeps it (the Pallas kernel writes r's dtype). On CUDA the kernel
+        runs at ``kernel_chunking(S)``, which is ``chunk`` wherever it takes
+        it; on the CPU ``ops`` runs the plain version at ``chunk``."""
+        if self.wkv_impl == "plain":
+            return ref.rwkv6_chunk_plain(r, k, v, logw, u, state,
+                                         out_dtype=torch.float32, chunk=chunk)
+        if r.device.type != "cpu":
+            return wkv_padded(ops.rwkv6_chunk, r, k, v, logw, u, state)
+        return ops.rwkv6_chunk(r, k, v, logw, u, state,
+                               out_dtype=torch.float32, chunk=chunk)
 
     def _time_mix_seq(self, pp, x, boundary, valid=None):
         """x: [B, S, D] post-ln1; boundary: [B, D] last token of the previous

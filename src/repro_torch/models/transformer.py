@@ -1,16 +1,23 @@
-"""Dense decoder-only transformer (GQA, optional qk-norm / QKV-bias), the
-PyTorch counterpart of ``repro/models/transformer.py::DenseTransformer``.
+"""Dense decoder-only transformer (GQA, optional qk-norm / QKV-bias /
+local:global sliding-window pattern), the PyTorch counterpart of
+``repro/models/transformer.py::DenseTransformer``. Also serves the VLM
+backbone (patch embeddings prepended through ``prefill(extra_embeds=...)``)
+and is the base of ``MoETransformer``.
 
-Parameters are an explicit tree of tensors (nested dicts, the same keys and
-layouts as the reference's pytree, stacked per layer as ``[G, Pg, ...]``), so
-weights carry across from the JAX package unchanged (``repro_torch.bridge``).
-The methods are functions of those parameters, run under ``torch.no_grad``.
+Layers come in *groups* of ``group`` layers, the local:global repeat pattern
+(1 for uniform archs, 6 for gemma3: five sliding-window layers, then one
+global). Parameters are an explicit tree of tensors (nested dicts, the same
+keys and layouts as the reference's pytree, stacked per layer as
+``[G, Pg, ...]``), so weights carry across from the JAX package unchanged
+(``repro_torch.bridge``). The methods are functions of those parameters, run
+under ``torch.no_grad``.
 
-Where the reference returns updated KV caches or pools from a jit wrapper that
-donates them, the methods here write them in place and return the same dicts.
-
-Covered: uniform full-attention archs (``attn_kind='full'``). The
-local_global / sliding-window layers and ``extra_embeds`` are not ported yet.
+Caches keep the reference's layouts: global layers ``k_full``/``v_full``
+``[G, n_full, B, max_len, KVs, hd]``, window layers ring buffers
+``k_win``/``v_win`` ``[G, n_win, B, W, KVs, hd]`` with W = min(window,
+max_len). Where the reference returns updated KV caches or pools from a jit
+wrapper that donates them, the methods here write them in place and return
+the same dicts.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.param_utils import count_params, init_params, t
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+LOCAL_ROPE_THETA = 10_000.0  # gemma3 uses short-rope on sliding-window layers
 
 
 class DenseTransformer(nn.Module):
@@ -43,14 +51,29 @@ class DenseTransformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.attn_kind != "full":
-            raise NotImplementedError(
-                f"{cfg.name}: attn_kind {cfg.attn_kind!r} is not ported to "
-                f"repro_torch yet (full attention only)")
         self.cfg = cfg
         self.layout: GQALayout = gqa_layout(cfg.num_heads, cfg.num_kv_heads, 1)
-        self.group = 1
-        self.n_groups = cfg.num_layers
+        if cfg.attn_kind == "local_global":
+            self.group = cfg.local_global_pattern + 1
+            if cfg.num_layers % self.group:
+                raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                                 f"a multiple of the {self.group}-layer group")
+            self.kinds = ["local"] * cfg.local_global_pattern + ["global"]
+        elif cfg.attn_kind == "swa":
+            self.group, self.kinds = 1, ["local"]
+        elif cfg.attn_kind == "full":
+            self.group, self.kinds = 1, ["global"]
+        else:
+            raise ValueError(f"{cfg.name}: attn_kind {cfg.attn_kind!r} is not "
+                             f"a transformer's")
+        self.n_groups = cfg.num_layers // self.group
+        self.full_idx = {p: i for i, p in enumerate(
+            [p for p in range(self.group) if self.kinds[p] == "global"])}
+        self.win_idx = {p: i for i, p in enumerate(
+            [p for p in range(self.group) if self.kinds[p] == "local"])}
+        self.n_full = len(self.full_idx)
+        self.n_win = len(self.win_idx)
+        self.embed_scale = math.sqrt(cfg.d_model) if "gemma" in cfg.name else 1.0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -59,7 +82,7 @@ class DenseTransformer(nn.Module):
     # ---------------------------------------------------------------- params
     def templates(self):
         cfg, lay = self.cfg, self.layout
-        G, Pg, D, F = self.n_groups, self.group, cfg.d_model, cfg.d_ff
+        G, Pg, D = self.n_groups, self.group, cfg.d_model
         KVs, Qp, hd = lay.kv_slots, lay.q_per_slot, cfg.head_dim
         KV = lay.num_kv_heads
         qmask_np = lay.q_array() >= 0                    # [KVs, Qp] pad-slot mask
@@ -100,9 +123,7 @@ class DenseTransformer(nn.Module):
         if cfg.qk_norm:
             blocks["q_norm"] = t((G, Pg, hd), "zeros")
             blocks["k_norm"] = t((G, Pg, hd), "zeros")
-        blocks["w_gate"] = t((G, Pg, D, F), fan_in=D)
-        blocks["w_up"] = t((G, Pg, D, F), fan_in=D)
-        blocks["w_down"] = t((G, Pg, F, D), fan_in=F)
+        blocks.update(self._mlp_templates())
         tree = {
             "embed": t((cfg.vocab_size, D), fan_in=D),
             "blocks": blocks,
@@ -112,6 +133,15 @@ class DenseTransformer(nn.Module):
             tree["lm_head"] = t((D, cfg.vocab_size), fan_in=D)
         return tree
 
+    def _mlp_templates(self):
+        cfg = self.cfg
+        G, Pg, D, F = self.n_groups, self.group, cfg.d_model, cfg.d_ff
+        return {
+            "w_gate": t((G, Pg, D, F), fan_in=D),
+            "w_up": t((G, Pg, D, F), fan_in=D),
+            "w_down": t((G, Pg, F, D), fan_in=F),
+        }
+
     def init_params(self, generator: torch.Generator):
         """Random parameters on ``generator.device`` in the config's dtype."""
         return init_params(self.templates(), generator, self.dtype)
@@ -120,39 +150,58 @@ class DenseTransformer(nn.Module):
         return count_params(self.templates())
 
     # ---------------------------------------------------------------- cache
-    def init_cache(self, batch: int, max_len: int, device=None):
-        """Dense KV cache ``{"k_full", "v_full"}``, each
-        ``[G, 1, batch, max_len, KVs, hd]``."""
-        shp = (self.n_groups, 1, batch, max_len, self.layout.kv_slots,
-               self.cfg.head_dim)
-        return {"k_full": torch.zeros(shp, dtype=self.dtype, device=device),
-                "v_full": torch.zeros(shp, dtype=self.dtype, device=device)}
+    def _window(self, max_len: int) -> int:
+        return min(self.cfg.sliding_window or max_len, max_len)
 
-    @staticmethod
-    def cache_slot_axes() -> Dict[str, int]:
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Dense KV cache: ``k_full``/``v_full [G, n_full, batch, max_len,
+        KVs, hd]`` for global layers, ring buffers ``k_win``/``v_win
+        [G, n_win, batch, W, KVs, hd]`` for window layers."""
+        tail = (batch, max_len, self.layout.kv_slots, self.cfg.head_dim)
+        out = {}
+        if self.n_full:
+            shp = (self.n_groups, self.n_full) + tail
+            out["k_full"] = torch.zeros(shp, dtype=self.dtype, device=device)
+            out["v_full"] = torch.zeros(shp, dtype=self.dtype, device=device)
+        if self.n_win:
+            shp = (self.n_groups, self.n_win, batch, self._window(max_len)) + tail[2:]
+            out["k_win"] = torch.zeros(shp, dtype=self.dtype, device=device)
+            out["v_win"] = torch.zeros(shp, dtype=self.dtype, device=device)
+        return out
+
+    def cache_slot_axes(self) -> Dict[str, int]:
         """Axis of each dense-cache entry that indexes the sequence (slot)."""
-        return {"k_full": 2, "v_full": 2}
+        names = (("k_full", "v_full") if self.n_full else ()) + (
+            ("k_win", "v_win") if self.n_win else ())
+        return {name: 2 for name in names}
 
     # ---------------------------------------------------------------- paged cache
     def supports_paged(self) -> bool:
-        """Every layer of the ported archs is full attention."""
-        return True
+        """Whether the block-paged KV path covers this arch: every layer must
+        be full (global) attention; ring-buffer window layers have no paged
+        layout, as in the reference."""
+        return self.n_win == 0
 
     def init_paged_pools(self, num_blocks: int, block_size: int, device=None):
         """Block-paged KV pools: one ``[num_blocks, block_size, KVs, hd]`` K
-        and V pool per layer, stacked as ``[G, 1, num_blocks, ...]``. Block id
-        ``num_blocks - 1`` is conventionally the executor's scratch block."""
-        shp = (self.n_groups, 1, num_blocks, block_size,
+        and V pool per layer, stacked as ``[G, n_full, num_blocks, ...]``.
+        Block id ``num_blocks - 1`` is conventionally the executor's scratch
+        block."""
+        if not self.supports_paged():
+            raise NotImplementedError(
+                f"{self.cfg.name}: paged KV supports full-attention archs only "
+                f"(this arch has {self.n_win} window layer(s) per group)")
+        shp = (self.n_groups, self.n_full, num_blocks, block_size,
                self.layout.kv_slots, self.cfg.head_dim)
         return {"k": torch.zeros(shp, dtype=self.dtype, device=device),
                 "v": torch.zeros(shp, dtype=self.dtype, device=device)}
 
     def scatter_prefill_pools(self, pools, caches, block_tables):
         """Write a padded, batched prefill's dense caches (k/v_full
-        ``[G, 1, B, L, KVs, hd]``, L a multiple of block_size) into the pools
-        in place, block ``j`` of row ``b`` to ``block_tables[b, j]``. Pad rows
-        and pad blocks point at the scratch block: duplicate indices land only
-        there, whose contents never matter."""
+        ``[G, n_full, B, L, KVs, hd]``, L a multiple of block_size) into the
+        pools in place, block ``j`` of row ``b`` to ``block_tables[b, j]``. Pad
+        rows and pad blocks point at the scratch block: duplicate indices land
+        only there, whose contents never matter."""
         bs = pools["k"].shape[3]
         idx = block_tables.long()
         for name in ("k", "v"):
@@ -187,52 +236,60 @@ class DenseTransformer(nn.Module):
         pos = positions.long()
         bids = block_tables[rows, pos // bs].long()
         offs = pos % bs
+        tables = block_tables.long()
         blocks = params["blocks"]
         for g in range(self.n_groups):
             pp = {k: v[g] for k, v in blocks.items()}
-            h = L.rmsnorm(x, pp["ln1"][0], cfg.norm_eps)
-            q, k, v = self._qkv(pp, h, positions)
-            pk, pv = pools["k"][g, 0], pools["v"][g, 0]
-            pk[bids, offs] = k.to(pk.dtype)
-            pv[bids, offs] = v.to(pv.dtype)
-            if attn_impl == "ref":
-                kg = pk[block_tables.long()]             # [B, NB, bs, KVs, hd]
-                vg = pv[block_tables.long()]
-                Bq, NB, bsz, KVs, hd = kg.shape
-                o = L.decode_attention(q, kg.reshape(Bq, NB * bsz, KVs, hd),
-                                       vg.reshape(Bq, NB * bsz, KVs, hd),
-                                       positions)
-            else:
-                o = ops.paged_attention(q.contiguous(), pk, pv, block_tables,
-                                        context_lens)
-            x = x + self._attn_out(o, pp["wo"][0])
-            h = L.rmsnorm(x, pp["ln2"][0], cfg.norm_eps)
-            x = x + self._mlp(pp, h)
+            for p in range(self.group):
+                h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
+                q, k, v = self._qkv(pp, p, h, positions, "global")
+                i = self.full_idx[p]
+                pk, pv = pools["k"][g, i], pools["v"][g, i]
+                pk[bids, offs] = k.to(pk.dtype)
+                pv[bids, offs] = v.to(pv.dtype)
+                if attn_impl == "ref":
+                    kg = pk[tables]                      # [B, NB, bs, KVs, hd]
+                    vg = pv[tables]
+                    Bq, NB, bsz, KVs, hd = kg.shape
+                    o = L.decode_attention(q, kg.reshape(Bq, NB * bsz, KVs, hd),
+                                           vg.reshape(Bq, NB * bsz, KVs, hd),
+                                           positions)
+                else:
+                    o = ops.paged_attention(q.contiguous(), pk, pv, block_tables,
+                                            context_lens)
+                x = x + self._attn_out(o, pp["wo"][p])
+                h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
+                mlp, _ = self._mlp(pp, p, h)
+                x = x + mlp
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self.logits(params, x), pools
 
     # ------------------------------------------------------------- building blocks
-    def _qkv(self, pp, x, positions):
-        """x: [B, (S,) D] -> q [..., G, Qp, hd], k/v [..., G, hd], rope applied."""
+    def _qkv(self, pp, p: int, x, positions, kind: str):
+        """x: [B, (S,) D] -> q [..., G, Qp, hd], k/v [..., G, hd], rope applied
+        (``LOCAL_ROPE_THETA`` on the window layers of a local:global arch)."""
         cfg = self.cfg
-        wq, wk, wv = pp["wq"][0], pp["wk"][0], pp["wv"][0]
+        wq, wk, wv = pp["wq"][p], pp["wk"][p], pp["wv"][p]
         D = x.shape[-1]
         q = (x @ wq.reshape(D, -1)).reshape(*x.shape[:-1], *wq.shape[1:])
         k = (x @ wk.reshape(D, -1)).reshape(*x.shape[:-1], *wk.shape[1:])
         v = (x @ wv.reshape(D, -1)).reshape(*x.shape[:-1], *wv.shape[1:])
         if cfg.qkv_bias:
-            q = q + pp["bq"][0]
-            k = k + pp["bk"][0]
-            v = v + pp["bv"][0]
+            q = q + pp["bq"][p]
+            k = k + pp["bk"][p]
+            v = v + pp["bv"][p]
         if cfg.qk_norm:
-            q = L.rmsnorm(q, pp["q_norm"][0], cfg.norm_eps)
-            k = L.rmsnorm(k, pp["k_norm"][0], cfg.norm_eps)
+            q = L.rmsnorm(q, pp["q_norm"][p], cfg.norm_eps)
+            k = L.rmsnorm(k, pp["k_norm"][p], cfg.norm_eps)
+        theta = LOCAL_ROPE_THETA if (kind == "local"
+                                     and cfg.attn_kind == "local_global") \
+            else cfg.rope_theta
         if x.ndim == 3:  # [B, S, D]
-            q = L.apply_rope(q, positions[:, :, None, None], cfg.rope_theta)
-            k = L.apply_rope(k, positions[:, :, None], cfg.rope_theta)
+            q = L.apply_rope(q, positions[:, :, None, None], theta)
+            k = L.apply_rope(k, positions[:, :, None], theta)
         else:            # [B, D] decode
-            q = L.apply_rope(q, positions[:, None, None], cfg.rope_theta)
-            k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
+            q = L.apply_rope(q, positions[:, None, None], theta)
+            k = L.apply_rope(k, positions[:, None], theta)
         return q, k, v
 
     @staticmethod
@@ -241,24 +298,28 @@ class DenseTransformer(nn.Module):
         lead = o.shape[:-3]
         return o.reshape(*lead, -1) @ wo.reshape(-1, wo.shape[-1])
 
-    def _mlp(self, pp, x):
-        return L.swiglu_mlp(x, pp["w_gate"][0], pp["w_up"][0], pp["w_down"][0],
-                            self.cfg.act)
+    def _mlp(self, pp, p: int, x):
+        """Layer ``p`` of the group's MLP -> (out, aux loss)."""
+        out = L.swiglu_mlp(x, pp["w_gate"][p], pp["w_up"][p], pp["w_down"][p],
+                           self.cfg.act)
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _attn_seq(self, pp, x, positions, seq_lens):
-        """Sequence-mode attention. Returns (out, (k, v))."""
-        q, k, v = self._qkv(pp, x, positions)
+    def _mixer_seq(self, pp, p: int, x, positions, seq_lens, kind: str):
+        """Sequence-mode attention of layer ``p``. Returns (out, (k, v))."""
+        q, k, v = self._qkv(pp, p, x, positions, kind)
+        window = self.cfg.sliding_window if kind == "local" else 0
         if self.prefill_attn_impl == "flash":
             # causal masking alone suffices for ragged batches: rows past a
             # sequence's length attend only pad keys in their own causal past
             # and are never read (the last-token gather uses seq_lens).
             # Layout swap [B,S,G,Qp,hd] <-> [B,G,S,R,hd] as strided views.
             o = ops.flash_prefill(q.movedim(1, 2), k.movedim(1, 2),
-                                  v.movedim(1, 2), causal=True)
+                                  v.movedim(1, 2), causal=True, window=window)
             o = o.movedim(2, 1)
         else:
-            o = L.block_attention(q, k, v, causal=True, seq_lens=seq_lens)
-        return self._attn_out(o, pp["wo"][0]), (k, v)
+            o = L.block_attention(q, k, v, causal=True, window=window,
+                                  seq_lens=seq_lens)
+        return self._attn_out(o, pp["wo"][p]), (k, v)
 
     def with_prefill_attn(self, impl: str) -> "DenseTransformer":
         """A sibling model instance (same config, same parameter tree) whose
@@ -269,39 +330,77 @@ class DenseTransformer(nn.Module):
         m.prefill_attn_impl = impl
         return m
 
+    def _attn_decode_inplace(self, pp, p: int, x, positions, kind: str,
+                             cache, g: int):
+        """Decode attention of layer ``(g, p)`` with in-place KV writes into
+        the stacked cache (a ring buffer on window layers)."""
+        q, k, v = self._qkv(pp, p, x, positions, kind)
+        window = self.cfg.sliding_window if kind == "local" else 0
+        if kind == "global":
+            i, kk, vk = self.full_idx[p], "k_full", "v_full"
+        else:
+            i, kk, vk = self.win_idx[p], "k_win", "v_win"
+        L.cache_write_full(cache[kk], g, i, k, positions, window)
+        L.cache_write_full(cache[vk], g, i, v, positions, window)
+        o = L.decode_attention(q, cache[kk][g, i], cache[vk][g, i], positions,
+                               window=window)
+        return self._attn_out(o, pp["wo"][p])
+
     # ------------------------------------------------------------- forward (seq mode)
     def forward_hidden(self, params, embeds, positions, seq_lens=None, *,
                        collect_cache=False, max_len: int = 0):
-        """embeds: [B, S, D] -> (hidden [B, S, D], cache | {})."""
+        """embeds: [B, S, D] -> (hidden [B, S, D], aux, cache | {})."""
         cfg = self.cfg
         x = embeds
         S = embeds.shape[1]
         max_len = max_len or S
-        kf, vf = [], []
+        W = self._window(max_len)
+        aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
+        kf, vf, kw, vw = [], [], [], []
         blocks = params["blocks"]
         for g in range(self.n_groups):
             pp = {k: v[g] for k, v in blocks.items()}
-            h = L.rmsnorm(x, pp["ln1"][0], cfg.norm_eps)
-            attn, (k, v) = self._attn_seq(pp, h, positions, seq_lens)
-            x = x + attn
-            h = L.rmsnorm(x, pp["ln2"][0], cfg.norm_eps)
-            x = x + self._mlp(pp, h)
-            if collect_cache:
-                pad = max_len - S
-                if pad:
-                    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-                    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-                kf.append(k)
-                vf.append(v)
+            gk, gv, wk, wv = [], [], [], []
+            for p in range(self.group):
+                kind = self.kinds[p]
+                h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
+                attn, (k, v) = self._mixer_seq(pp, p, h, positions, seq_lens, kind)
+                x = x + attn
+                h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
+                mlp, a = self._mlp(pp, p, h)
+                x = x + mlp
+                aux = aux + a
+                if not collect_cache:
+                    continue
+                if kind == "global":
+                    pad = max_len - S
+                    if pad:
+                        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+                        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+                    gk.append(k)
+                    gv.append(v)
+                else:
+                    wk.append(L.ring_from_sequence(k, W, seq_lens))
+                    wv.append(L.ring_from_sequence(v, W, seq_lens))
+            if gk:
+                kf.append(torch.stack(gk))
+                vf.append(torch.stack(gv))
+            if wk:
+                kw.append(torch.stack(wk))
+                vw.append(torch.stack(wv))
         caches = {}
-        if collect_cache:
-            caches["k_full"] = torch.stack(kf)[:, None]
-            caches["v_full"] = torch.stack(vf)[:, None]
+        if kf:
+            caches["k_full"], caches["v_full"] = torch.stack(kf), torch.stack(vf)
+        if kw:
+            caches["k_win"], caches["v_win"] = torch.stack(kw), torch.stack(vw)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return x, caches
+        return x, aux, caches
 
     def embed_tokens(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.dtype)
+        e = params["embed"][tokens.long()]
+        if self.embed_scale != 1.0:
+            e = e * self.embed_scale
+        return e.to(self.dtype)
 
     def logits(self, params, hidden):
         if self.cfg.tie_embeddings:
@@ -310,13 +409,18 @@ class DenseTransformer(nn.Module):
 
     # ------------------------------------------------------------- public steps
     @torch.no_grad()
-    def prefill(self, params, tokens, *, seq_lens=None, max_len: int = 0):
-        """tokens [B, S] -> (last-token logits [B, V], cache with k/v_full
-        ``[G, 1, B, max_len, KVs, hd]``)."""
-        B, S = tokens.shape
+    def prefill(self, params, tokens, *, seq_lens=None, max_len: int = 0,
+                extra_embeds=None):
+        """tokens [B, S] -> (last-token logits [B, V], cache). ``extra_embeds``
+        [B, P, D] are patch embeddings prepended to the tokens' (the VLM stub
+        frontend); ``seq_lens`` and ``max_len`` then count them too."""
+        B = tokens.shape[0]
         embeds = self.embed_tokens(params, tokens)
+        if extra_embeds is not None:
+            embeds = torch.cat([extra_embeds.to(self.dtype), embeds], dim=1)
+        S = embeds.shape[1]
         positions = L.causal_positions(S, B, tokens.device)
-        hidden, caches = self.forward_hidden(
+        hidden, _, caches = self.forward_hidden(
             params, embeds, positions, seq_lens, collect_cache=True,
             max_len=max_len or S)
         if seq_lens is not None:
@@ -335,14 +439,19 @@ class DenseTransformer(nn.Module):
         blocks = params["blocks"]
         for g in range(self.n_groups):
             pp = {k: v[g] for k, v in blocks.items()}
-            h = L.rmsnorm(x, pp["ln1"][0], cfg.norm_eps)
-            q, k, v = self._qkv(pp, h, positions)
-            L.cache_write_full(cache["k_full"], g, 0, k, positions)
-            L.cache_write_full(cache["v_full"], g, 0, v, positions)
-            o = L.decode_attention(q, cache["k_full"][g, 0],
-                                   cache["v_full"][g, 0], positions)
-            x = x + self._attn_out(o, pp["wo"][0])
-            h = L.rmsnorm(x, pp["ln2"][0], cfg.norm_eps)
-            x = x + self._mlp(pp, h)
+            for p in range(self.group):
+                h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
+                x = x + self._attn_decode_inplace(pp, p, h, positions,
+                                                  self.kinds[p], cache, g)
+                h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
+                mlp, _ = self._mlp(pp, p, h)
+                x = x + mlp
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self.logits(params, x), cache
+
+    def with_layers(self, num_layers: int) -> "DenseTransformer":
+        """Same arch with a different layer count (a multiple of the group);
+        the prefill attention impl carries over."""
+        m = type(self)(self.cfg.replace(num_layers=num_layers))
+        m.prefill_attn_impl = self.prefill_attn_impl
+        return m

@@ -4,8 +4,8 @@ wired to it, and a SimulatedExecutor sharing the same cache; no model and no
 torch device) and ``build_real_engine``, which pairs the paper's scheduler
 (or a baseline) with a PyTorch executor on either KV backend (dense slots or
 the block-paged pool). Every ported family serves on the dense backend (the
-dense transformers and RWKV6); the paged backend takes the dense
-transformers only."""
+dense and MoE transformers and RWKV6); the paged backend takes the
+transformers whose layers are all full attention (not gemma3, not RWKV6)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -104,7 +104,8 @@ def build_real_engine(arch: str = "qwen3-1.7b", scheduler: str = "relserve",
     ``'paged'`` runs the block-paged executor (BlockManager pools +
     paged-attention decode), with physically shared prefix blocks whenever
     the scheduler runs with ``prefix_sharing=True``, and raises
-    ``NotImplementedError`` for a model without paged KV (RWKV6). Without ``model``/``params`` the arch's smoke
+    ``NotImplementedError`` for a model without paged KV (gemma3's window
+    layers, RWKV6). Without ``model``/``params`` the arch's smoke
     config is built with random weights from ``seed`` on ``device``; passed
     ``params`` must already live on ``device``. ``device=None`` means CUDA
     (see ``resolve_device``).

@@ -7,6 +7,11 @@ and the port's own equivalence pins.
 - Inside the port: dense == paged, serial == pipelined, preemption and the
   host swap tier keep the streams, the paged pool drains, the fitted cost
   model has non-negative betas, and an over-long request is refused.
+- The MoE family and gemma3: the port's greedy streams equal the JAX
+  engine's (granite-moe and qwen3-moe on the paged engine, gemma3 on the
+  dense one, which is the only one it takes, as in the reference); the MoE
+  smoke configs keep dense == paged == pipelined (their capacity factor
+  equals the expert count, so nothing drops); the CLI serves each new arch.
 - rwkv6-7b on the dense engine: streams equal a one-request-at-a-time
   greedy oracle of the JAX model; serial == pipelined; a swap round trip
   with ``max_slots == num_layers``; the paged backend is refused; the CLI
@@ -73,6 +78,8 @@ from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving import ROUTER_POLICIES, build_real_engine  # noqa: E402
 
 ARCHS = ["qwen3-1.7b", "qwen2-0.5b"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b"]
+GEMMA = "gemma3-12b"
 RWKV = "rwkv6-7b"
 TRACE = dict(num_relqueries=3, rate=100.0, seed=4, max_requests=4,
              output_token_cap=8)
@@ -134,7 +141,28 @@ def test_port_streams_match_jax_paged_engine(arch):
     assert port == _streams(jtrace)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,backend", [(a, "paged") for a in MOE_ARCHS]
+                         + [(GEMMA, "dense")])
+def test_port_streams_match_jax_engine_moe_and_gemma3(arch, backend):
+    """Greedy streams of the smoke configs in float32: the MoE archs on the
+    paged engine, gemma3 (prompts past its 8-token window) on the dense
+    engine, against the JAX engine on the same backend."""
+    jm, jp, _, _ = _models(arch)
+    cfg = jax_smoke_config(arch)
+    jtrace = jax_build_trace(
+        jax_make_dataset("beer", num_rows=64, seed=1), JaxTraceConfig(**TRACE),
+        tokenizer=JaxHashTokenizer(vocab_size=cfg.vocab_size - 2))
+    jengine = jax_build_real_engine(arch, "relserve", backend, model=jm,
+                                    params=jp, max_len=512,
+                                    limits=JaxBatchLimits(cap=100_000))
+    jengine.run_trace(jtrace)
+    port, _ = _run(arch, backend, _trace(get_smoke_config(arch)))
+    assert port == _streams(jtrace)
+    assert max(r.num_prompt_tokens for rq in jtrace for r in rq.requests) \
+        > cfg.sliding_window
+
+
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_dense_paged_serial_pipelined_identical(arch):
     trace = _trace(get_smoke_config(arch))
     runs = {}
@@ -186,7 +214,21 @@ def test_preemption_keeps_streams(prefix_sharing):
 def test_swap_roundtrip_preserves_stream(backend):
     """A forced device -> host -> device round trip continues the exact
     greedy stream of an undisturbed run."""
-    _, _, tm, tp = _models("qwen3-1.7b")
+    _swap_roundtrip("qwen3-1.7b", backend)
+
+
+@pytest.mark.parametrize("arch,backend", [(MOE_ARCHS[0], "dense"),
+                                          (MOE_ARCHS[0], "paged"),
+                                          (GEMMA, "dense")])
+def test_swap_roundtrip_preserves_stream_moe_and_gemma3(arch, backend):
+    """The same round trip on granite-moe and on gemma3, whose window rings
+    (``k_win``/``v_win``) go to the host and back with the full caches and
+    wrap while the request decodes past its 8-token window."""
+    _swap_roundtrip(arch, backend)
+
+
+def _swap_roundtrip(arch, backend):
+    _, _, tm, tp = _models(arch)
     tok = HashTokenizer(vocab_size=tm.cfg.vocab_size - 2)
     prompts = [tok.encode(f"row {i} of the relational table") for i in range(2)]
 
@@ -323,6 +365,54 @@ def test_rwkv6_paged_backend_is_refused(monkeypatch):
                                       "--kv-backend", "paged"])
     with pytest.raises(SystemExit, match="--kv-backend paged"):
         serve.main()
+
+
+def test_gemma3_paged_backend_is_refused_and_dense_serial_equals_pipelined(
+        monkeypatch):
+    """gemma3's window layers have no paged KV, as in the reference: the
+    paged engine and the CLI refuse it. Its dense serial and pipelined
+    serves give the same streams."""
+    _, _, tm, tp = _models(GEMMA)
+    with pytest.raises(NotImplementedError, match="kv_backend='dense'"):
+        build_real_engine(GEMMA, "relserve", "paged", model=tm, params=tp,
+                          device="cpu")
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", GEMMA, "--device",
+                                      "cpu", "--kv-backend", "paged"])
+    with pytest.raises(SystemExit, match="--kv-backend paged"):
+        serve.main()
+    trace = _trace(get_smoke_config(GEMMA))
+    serial, ex = _run(GEMMA, "dense", trace)
+    pipelined, _ = _run(GEMMA, "dense", trace, engine_loop="pipelined")
+    assert serial == pipelined
+    assert set(ex.executor.cache) == {"k_full", "v_full", "k_win", "v_win"}
+    assert all(s is None for s in ex.executor.slots)
+
+
+@pytest.mark.parametrize("arch,argv", [
+    ("granite-moe-3b-a800m", ["--kv-backend", "paged"]),
+    ("granite-moe-3b-a800m", ["--kv-backend", "paged", "--engine-loop",
+                              "pipelined", "--open-loop",
+                              "--num-relqueries", "4"]),
+    ("granite-moe-3b-a800m", ["--kv-backend", "paged", "--plan", "full",
+                              "--dup-row-fraction", "0.5"]),
+    ("qwen3-moe-30b-a3b", ["--kv-backend", "paged"]),
+    ("gemma3-12b", []),
+    ("qwen2.5-32b", ["--kv-backend", "paged"]),
+    ("internvl2-26b", []),
+])
+def test_serve_cli_serves_the_new_archs_on_cpu(arch, argv, monkeypatch, capsys):
+    """``--arch`` takes every new arch in real mode on the CPU: closed loop,
+    open loop (pipelined) and planned."""
+    code, out = _cli(_pkg("repro_torch"),
+                     ["--arch", arch, "--device", "cpu", "--num-relqueries",
+                      "2", "--max-requests", "2", *argv], monkeypatch, capsys)
+    assert code is None
+    assert "device=cpu" in out
+    backend = "paged" if "paged" in argv else "dense"
+    assert f"kv-backend={backend}" in out
+    assert re.search(r"^\[(merged|planned|open-loop)\] ", out, re.M)
 
 
 def test_serve_cli_runs_rwkv6_on_cpu(monkeypatch, capsys):

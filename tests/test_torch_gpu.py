@@ -75,6 +75,9 @@ def _paged_inputs(card, B, KV, rows, hd, page, maxp, dtype, ctx, qt=1, seed=0):
     (2, 2, 3, 32, 8, 40, 1, [320, 257]),             # page 8: 32-page spans
     (3, 2, 2, 128, 16, 64, 4, [1024, 300, 257]),     # Qt 4, rows 8
     (2, 1, 4, 64, 16, 64, 8, [700, 8]),              # rows 32
+    (32, 8, 3, 64, 16, 64, 1, None),   # granite-moe decode: Qp 3, pad row
+    (32, 4, 8, 128, 16, 64, 1, None),  # qwen3-moe decode: Qp 8
+    (3, 4, 8, 128, 16, 64, 4, [1024, 300, 257]),     # qwen3-moe, rows 32
 ])
 def test_paged_attention_kernel(card, B, KV, Qp, hd, page, maxp, qt, ctx, dtype):
     q, kp, vp, bt, cl = _paged_inputs(card, B, KV, qt * Qp, hd, page, maxp,
@@ -108,6 +111,9 @@ def test_paged_attention_kernel_zero_context(card):
     (1, 2, 100, 2, 16, 130, True, 0, 30),   # head_dim 16, S*R = 200, offset
     (2, 1, 77, 2, 128, 77, True, 32, 0),    # S*R = 154, window
     (2, 8, 256, 2, 128, 256, True, 0, 0),   # qwen3-1.7b prefill widths
+    (2, 8, 256, 3, 64, 256, True, 0, 0),    # granite-moe: R 3, hd 64
+    (2, 8, 77, 3, 64, 77, True, 0, 0),      # R 3, tiles end mid-position
+    (2, 4, 256, 8, 128, 256, True, 0, 0),   # qwen3-moe: R 8
 ])
 def test_flash_prefill_kernel(card, B, G, S, R, hd, T, causal, window, qoff,
                               dtype):
@@ -516,3 +522,117 @@ def test_planned_tiered_paged_engine_on_the_card(card):
     unplanned = [tuple(r.output_tokens) for rq in tr for r in rq.requests]
     same = sum(a == b for a, b in zip(streams["serial"], unplanned))
     assert same >= len(unplanned) - 1
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b"])
+def test_moe_models_kernels_against_plain_on_the_card(card, arch):
+    """The MoE smoke configs in float32 on CUDA: a ragged prefill through
+    flash_prefill against the blockwise path, one paged decode step through
+    paged_attention against the gathered-page recipe, and moe_dispatch twice
+    on one batch gives the same bits (no scatter-add)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import moe_dispatch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    B, L, bs = 3, 32, 8
+    toks = torch.randint(0, cfg.vocab_size, (B, L), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    lens = torch.tensor([32, 21, 5], dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    lk, caches = model.with_prefill_attn("flash").prefill(
+        params, toks, seq_lens=lens, max_len=L)
+    lp, _ = model.with_prefill_attn("block").prefill(params, toks,
+                                                     seq_lens=lens, max_len=L)
+    assert ops.launch_counts()["flash_prefill"] == cfg.num_layers
+    _close(lk, lp, 1e-4)
+    tables = torch.arange(B * L // bs, dtype=torch.int32,
+                          device=card).reshape(B, L // bs)
+    pools = model.init_paged_pools(B * L // bs + 1, bs, card)
+    model.scatter_prefill_pools(pools, caches, tables)
+    pools_ref = {k: v.clone() for k, v in pools.items()}
+    nxt = lk.argmax(-1).to(torch.int32)
+    pos = torch.tensor([31, 21, 5], dtype=torch.int32, device=card)
+    dk, _ = model.decode_step_paged(params, pools, nxt, pos, tables, pos + 1,
+                                    attn_impl="kernel")
+    dp, _ = model.decode_step_paged(params, pools_ref, nxt, pos, tables,
+                                    pos + 1, attn_impl="ref")
+    assert ops.launch_counts()["paged_attention"] == cfg.num_layers
+    _close(dk, dp, 1e-4)
+    pp = {k: v[0] for k, v in params["blocks"].items()}
+    x = torch.randn((64, cfg.d_model), device=card,
+                    generator=torch.Generator(device=card).manual_seed(2))
+    args = (x, pp["router"][0], pp["w_gate"][0], pp["w_up"][0], pp["w_down"][0])
+    kw = dict(top_k=cfg.num_experts_per_tok, capacity_factor=1.25, act=cfg.act)
+    a, aux_a = moe_dispatch(*args, **kw)
+    b, aux_b = moe_dispatch(*args, **kw)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_moe_paged_engine_on_the_card_matches_dense(card):
+    """A granite-moe smoke serve on CUDA goes through both attention kernels
+    in both loops, and its streams match the dense engine's (float32; the
+    smoke config's capacity factor drops nothing)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.trace import TraceConfig, build_trace
+    from repro_torch.engine.tokenizer import HashTokenizer
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import build_real_engine
+
+    arch = "granite-moe-3b-a800m"
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    trace = build_trace(make_dataset("beer", num_rows=64, seed=1),
+                        TraceConfig(num_relqueries=3, rate=100.0, seed=4,
+                                    max_requests=4, output_token_cap=8),
+                        tokenizer=HashTokenizer(vocab_size=cfg.vocab_size - 2))
+    streams = {}
+    for backend, loop in (("dense", "serial"), ("paged", "serial"),
+                          ("paged", "pipelined")):
+        tr = copy.deepcopy(trace)
+        ops.reset_launch_counts()
+        engine = build_real_engine(arch, "relserve", backend, model=model,
+                                   params=params, engine_loop=loop,
+                                   device=card)
+        engine.run_trace(tr)
+        streams[backend, loop] = [tuple(r.output_tokens) for rq in tr
+                                  for r in rq.requests]
+        counts = ops.launch_counts()
+        if backend == "paged":
+            assert counts["paged_attention"] > 0 and counts["flash_prefill"] > 0
+    dense = streams["dense", "serial"]
+    for key in (("paged", "serial"), ("paged", "pipelined")):
+        same = sum(a == b for a, b in zip(dense, streams[key]))
+        assert same >= len(dense) - 1, key
+
+
+@pytest.mark.parametrize("S", [1000, 12288])
+def test_rwkv6_prefill_takes_chunk_lengths_the_kernel_does_not(card, S):
+    """Where the reference's chunk length is not one the kernel takes (S
+    1000: 8; S 12288: 96), the model runs the kernel at one it takes (padded
+    for S 1000), one launch per layer, and holds the plain WKV at the
+    reference's own chunking within 1e-3 of the largest value (float32,
+    rwkv6 smoke config: logits and the state cache)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_smoke_config("rwkv6-7b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, S), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    lens = torch.tensor([S, S - 123], dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    lk, ck = model.with_wkv_impl("kernel").prefill(params, toks, seq_lens=lens)
+    assert ops.launch_counts()["rwkv6_chunk"] == cfg.num_layers
+    lp, cp = model.with_wkv_impl("plain").prefill(params, toks, seq_lens=lens)
+    torch.cuda.synchronize()
+    for got, want in ((lk, lp), (ck["state"], cp["state"])):
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-3, err

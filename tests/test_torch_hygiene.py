@@ -1,7 +1,7 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the JAX package ``repro``; a real serve, a
-simulated multi-replica replay with a crash and a planned real serve run with
-jax blocked; and the entry points never fall back to the CPU on their own."""
+neither jax nor anything of the JAX package ``repro``; a real serve (a dense
+and an MoE smoke model), a simulated multi-replica replay with a crash and a
+planned real serve run with jax blocked; and the entry points never fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -29,6 +29,7 @@ def _imported_modules(path: Path):
 def test_no_jax_or_repro_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
+    assert PORT / "models" / "moe.py" in files
     bad = []
     for f in files:
         for mod in _imported_modules(f):
@@ -55,6 +56,15 @@ trace = build_trace(make_dataset("rotten", num_rows=64, seed=0),
                     tokenizer=tok)
 engine = build_real_engine("qwen3-1.7b", "relserve", "paged", device="cpu")
 report = engine.run_trace(trace)
+assert len(report.latencies) == 2
+# the MoE family on the paged engine
+moe = get_smoke_config("granite-moe-3b-a800m")
+moe_trace = build_trace(make_dataset("rotten", num_rows=64, seed=0),
+                        TraceConfig(num_relqueries=2, rate=10.0, seed=0,
+                                    max_requests=2, output_token_cap=3),
+                        tokenizer=HashTokenizer(vocab_size=moe.vocab_size - 2))
+report = build_real_engine("granite-moe-3b-a800m", "relserve", "paged",
+                           device="cpu").run_trace(moe_trace)
 assert len(report.latencies) == 2
 from repro_torch.launch import serve
 # a 2-replica simulated replay with a replica crash, then a planned CPU serve
@@ -93,8 +103,10 @@ def test_no_device_and_no_card_raises(monkeypatch):
 # Framework-free modules the port keeps as copies of the reference, with only
 # the imports rewritten from repro to repro_torch.
 VERBATIM = [
-    "configs/base.py", "configs/qwen2_0p5b.py", "configs/qwen3_1p7b.py",
-    "configs/rwkv6_7b.py", "core/__init__.py", "core/arranger.py",
+    "configs/base.py", "configs/gemma3_12b.py", "configs/granite_moe_3b.py",
+    "configs/internvl2_26b.py", "configs/qwen2_0p5b.py",
+    "configs/qwen2p5_32b.py", "configs/qwen3_1p7b.py",
+    "configs/qwen3_moe_30b.py", "configs/rwkv6_7b.py", "core/__init__.py", "core/arranger.py",
     "core/batch.py", "core/latency_model.py", "core/policies.py",
     "core/predictor.py", "core/priority.py", "core/relquery.py",
     "core/scheduler.py", "data/datasets.py", "data/tables.py",

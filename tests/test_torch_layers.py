@@ -153,3 +153,36 @@ def test_layernorm_and_groupnorm_heads():
     assert TL.layernorm(xb, ts, tb).dtype == torch.bfloat16
     assert TL.groupnorm_heads(xb.reshape(3, 5, 4, 16), torch.ones(())).dtype \
         == torch.bfloat16
+
+
+@pytest.mark.parametrize("S,W,lens", [
+    (5, 8, None),              # shorter than the ring: zero-padded
+    (19, 8, None),             # wraps twice
+    (16, 8, [16, 11, 3, 8]),   # ragged rows: wrapped, short, exactly W
+    (32, 8, [32, 9, 1, 17]),
+])
+def test_ring_from_sequence(S, W, lens):
+    """A prefill's window cache in ring-slot order, as the reference builds
+    it, then decode writes that wrap the ring and a windowed decode over it:
+    all exact but the attention (float32, 1e-5)."""
+    B = 4
+    k = _rand(B, S, 2, 4, seed=10)
+    sl = None if lens is None else np.asarray(lens, np.int32)
+    ring_t = TL.ring_from_sequence(torch.from_numpy(k), W,
+                                   None if sl is None else torch.from_numpy(sl))
+    ring_j = JL.ring_from_sequence(jnp.asarray(k), W,
+                                   None if sl is None else jnp.asarray(sl))
+    np.testing.assert_array_equal(ring_t.numpy(), np.asarray(ring_j))
+    pos = np.full((B,), S, np.int32) if sl is None else sl.copy()
+    q = _rand(B, 2, 3, 4, seed=11)
+    for step in range(W + 3):
+        new = _rand(B, 2, 4, seed=12 + step)
+        TL.cache_write(ring_t, torch.from_numpy(new), torch.from_numpy(pos),
+                       window=W)
+        ring_j = JL.cache_write(ring_j, jnp.asarray(new), jnp.asarray(pos), W)
+        np.testing.assert_array_equal(ring_t.numpy(), np.asarray(ring_j))
+        out = TL.decode_attention(torch.from_numpy(q), ring_t, ring_t,
+                                  torch.from_numpy(pos), window=W)
+        _close(out, JL.decode_attention(jnp.asarray(q), ring_j, ring_j,
+                                        jnp.asarray(pos), window=W), 1e-5)
+        pos = pos + 1
