@@ -37,8 +37,9 @@ Phases (each raises on failure; none catches its own):
                the plain attention path
   5. qwen3   — the paged engine with the paper's scheduler serving a rotten
      serve     trace, serial then pipelined loop (paged_attention, flash_prefill)
-  6. qwen3   — one more serial serve under torch.profiler: the device's busy
-     profile   share of the wall time and the kernels that take it
+  6. qwen3   — one more serial serve, a window of its batches traced on the
+     profile   device only: the device's busy share of the window's wall
+               time, launches per batch and the kernels that take the time
   7. qwen3   — the workload planner (dedup fan-out, prefix-maximizing
      planned   reorder) in front of the paged engine with physically shared
                prefix blocks, optimistic admission at a tight KV cap,
@@ -47,7 +48,7 @@ Phases (each raises on failure; none catches its own):
                the dedup fan-out, shared blocks, preemptions, swaps, both
                pools drained; reports the share of rows whose streams equal
                an unplanned serve of the same engine; then one more planned
-               serial serve under torch.profiler
+               serial serve, a window of its batches profiled as in phase 6
   8. rwkv6   — full-width rwkv6-7b (random weights from the seed), in float32
      model     at full depth (32 layers) and in bf16 at 4 layers (reported at
                32): one prefill at B=2 L=128 and one decode step from each
@@ -58,8 +59,8 @@ Phases (each raises on failure; none catches its own):
   9. rwkv6   — the dense engine serving the same trace, serial then pipelined
      serve     (rwkv6_chunk, one launch per layer per prefill call); the two
                runs' streams must be identical
- 10. rwkv6   — one more serial serve under torch.profiler
-     profile
+ 10. rwkv6   — one more serial serve, a window of its batches profiled as
+     profile   in phase 6
  11. granite — full-width, full-depth granite-moe-3b-a800m (40 experts, top 8):
      model     one prefill batch and one paged decode step, kernels vs plain
                attention: in float32 (full rows, beside the PERTURB witness)
@@ -81,7 +82,29 @@ Phases (each raises on failure; none catches its own):
                at 48 layers (reported); then a short serial serve on the
                dense engine, which launches no kernel of this repo (its
                attention is plain, as in the reference)
- 16. times   — each kernel, its plain version and (flash_prefill only) torch's
+ 16. hymba   — hymba-1.5b at full width (32 layers, d_model 1600, 25 q / 5 kv
+     model     heads of 64, Mamba d_inner 3200, ssm_state 16, window 1024):
+               gemma3's window check (prefill [1148, 1090] + 4 decode steps
+               vs one pass) in float32 at 4 layers (held, 1e-5) and in bf16
+               at 4 layers (held, MODEL_REL_TOL) and 32 (reported)
+ 17. hymba   — the dense engine serving the rotten trace, serial then
+     serve     pipelined; streams identical; no kernel of this repo launches
+ 18. hymba   — one more serial serve, a window of its batches traced on the
+     profile   device only (launches per batch, idle share)
+ 19. whisper — whisper-base at full width and depth (6 + 6 layers, d_model
+               512, 1500 encoder frames, max_target_len 448): ragged frame
+               lengths, a prefill of 64 tokens and 4 decode steps vs one
+               decoder pass, float32 held (1e-5), bf16 reported
+ 20. train   — qwen3-1.7b at full width and depth through make_train_step
+               (bf16 params, float32 masters, batch 8 x 128, lr 1e-3, remat):
+               25 steps on one batch, the last loss below 0.8 x the first;
+               step time and peak memory; a checkpoint written, read back
+               bit for bit, and a resumed step bit-identical to the unbroken
+               one (deterministic algorithms)
+ 21. train   — one train step of each family (dense, MoE, rwkv6, hymba,
+     families  whisper) at full width cut to 2 layers: finite loss and grads
+               Phases 19-21 launch no kernel of this repo (checked).
+ 22. times   — each kernel, its plain version and (flash_prefill only) torch's
                SDPA timed on the device with CUDA events (calls queued behind
                a device-side sleep), beside the least time the card could
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
@@ -98,12 +121,18 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+# cuBLAS reads this when CUDA starts; deterministic algorithms (the training
+# phase's resume check) need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -112,14 +141,20 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.priority import BatchLimits  # noqa: E402
 from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.data.trace import TraceConfig, build_trace  # noqa: E402
+from repro_torch.distributed.fault_tolerance import (  # noqa: E402
+    load_checkpoint, save_checkpoint)
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch.train import token_stream  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import layernorm  # noqa: E402
+from repro_torch.models.param_utils import tree_flatten, tree_map  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.rwkv6 import _chunk_size, kernel_chunking  # noqa: E402
 from repro_torch.planner import PlanExecutor, Planner  # noqa: E402
 from repro_torch.serving import Frontend, build_real_engine  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.training.train_step import TrainConfig, make_train_step  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
@@ -209,9 +244,50 @@ GEMMA_F32_LAYERS = 6
 GEMMA_F32_REL_TOL = 1e-5
 # gemma3's short serial serve (phase 15): half of the serve trace's relQueries
 GEMMA_TRACE = dict(num_relqueries=4)
-# the granite serve's profile (phase 13) traces this window of batches
-# (first, count) on the device only: summing a whole serve's trace is most
-# of a profile phase's time
+# hymba-1.5b (phases 16-18): the same window check as gemma3's, in float32 at
+# HYMBA_F32_LAYERS layers, where the decode steps and the one pass differ in
+# the order of float32 sums and in the scan's chunks (4 tokens over the
+# 1148-token prefill, 64 over the 1152-token pass): measured 6.8e-6 of the
+# largest logit (this script on an H100, 700 W). In bf16 the two paths round
+# differently by the reference's own dtype flow (the prefill sums the causal
+# conv in bf16, decode in float32; the reference's own decode departs from
+# its one pass as far: tests/test_torch_transformer.py::
+# test_hymba_bf16_decode_departs_from_one_pass_as_the_reference_does), and
+# random init amplifies that layer by layer: 7.6e-2 at 32 layers (this
+# script on an H100, 700 W). So bf16 is held to MODEL_REL_TOL at
+# HYMBA_BF16_LAYERS layers and reported at 32, as rwkv6-7b is.
+HYMBA_F32_LAYERS = 4
+HYMBA_F32_REL_TOL = 1e-5
+HYMBA_BF16_LAYERS = 4
+# whisper-base (phase 19): Whisper's 30 s window is 1500 encoder frames; rows
+# of 1500 and 1104 valid frames, a decoder prompt of 64 tokens and 4 decode
+# steps against one pass of the decoder over all 68, float32 at full depth
+# held to WHISPER_F32_REL_TOL, bf16 reported
+WHISPER_FRAME_LENS = (1500, 1104)
+WHISPER_PROMPT = 64
+WHISPER_DECODE_STEPS = 4
+WHISPER_F32_REL_TOL = 1e-5
+# training (phases 20-21): qwen3-1.7b at full width and depth, bf16 params with
+# float32 masters, the reference CLI's batch 8 x 128 and lr, 25 steps on one
+# batch; the loss must fall below TRAIN_LOSS_DROP of the first step's, the
+# reference's own criterion (tests/test_training.py). Then one step of each
+# family at full width cut to TRAIN_FAMILY_LAYERS layers.
+TRAIN_STEPS = 25
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_LR = 1e-3
+TRAIN_LOSS_DROP = 0.8
+TRAIN_FAMILIES = ("qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-7b",
+                  "hymba-1.5b", "whisper-base")
+TRAIN_FAMILY_LAYERS = 2
+# the steps of the 25 traced on the device (first, count)
+TRAIN_PROFILE = (20, 2)
+# the checkpoint of the training phase (params and optimizer state, ~28 GB)
+# lives under the checkout's git-ignored build directory, and is removed
+CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
+# each profile phase traces this window of a serve's batches (first, count)
+# on the device only: summing a whole serve's trace took most of a profile
+# phase's time (the four whole-serve profiles ~510 s of a 807 s run on an
+# H100, 700 W, before they were windowed)
 PROFILE_WINDOW = (4, 16)
 
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -889,13 +965,14 @@ def phase_model_truth(cfg, model, params, truth_tol, replay_tol,
                 f"routes vs f32 truth", plain_rt[i], truth[i], None)
 
 
-def phase_model_gemma(cfg, model, params, tol, device="cuda") -> None:
+def phase_model_window(cfg, model, params, tol, device="cuda") -> None:
     """A ragged prefill past the 1024-token window (rows of 1148 and 1090
     tokens: every window ring wraps), then GEMMA_DECODE_STEPS decode steps
     from its caches, teacher-forced, each against the same row and position
     of one causal pass over the whole extended sequence; held to ``tol`` of
     the largest |logit| (None: reported only). No kernel is on this path, as
-    in the reference: it holds the ring-buffer caches."""
+    in the reference: it holds the ring-buffer caches (gemma3) and, for
+    hymba, the conv tail and SSM state after a padded row."""
     B, steps = 2, GEMMA_DECODE_STEPS
     n = GEMMA_PREFILL - steps
     rng = np.random.RandomState(SEED)
@@ -921,9 +998,10 @@ def phase_model_gemma(cfg, model, params, tol, device="cuda") -> None:
     what = (f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}: prefill of "
             f"[{n}, {n - 58}] tokens (window {cfg.sliding_window}), decode "
             f"steps vs one pass over the extended sequence")
-    worst = max(log_rel("gemma model", f"{what}, step {j}", got[j], want[j],
-                        tol) for j in range(steps))
-    log(f"[gemma model] {what}: worst rel {worst:.3e}")
+    tag = f"{cfg.name.split('-')[0]} model"
+    worst = max(log_rel(tag, f"{what}, step {j}", got[j], want[j], tol)
+                for j in range(steps))
+    log(f"[{tag}] {what}: worst rel {worst:.3e}")
 
 
 def rwkv_outputs(m, params, toks, seq_lens):
@@ -1052,13 +1130,14 @@ def serve_trace(vocab_size: int = 151934, **kw):
 
 # (kv backend, max_slots, kernels its serve must launch) of each path's serve;
 # rwkv6-7b runs with as many slots as layers on purpose (a slot axis found by
-# its size would be wrong); gemma3's window layers take the dense backend only,
-# whose attention is plain, as in the reference
+# its size would be wrong); gemma3's window layers and hymba's take the dense
+# backend only, whose attention is plain, as in the reference
 SERVE = {"qwen3-1.7b": ("paged", 64, ("paged_attention", "flash_prefill")),
          "rwkv6-7b": ("dense", 32, ("rwkv6_chunk",)),
          "granite-moe-3b-a800m": ("paged", 64, ("paged_attention",
                                                 "flash_prefill")),
-         "gemma3-12b": ("dense", 32, ())}
+         "gemma3-12b": ("dense", 32, ()),
+         "hymba-1.5b": ("dense", 32, ())}
 
 
 def run_serve(model, params, trace, loop: str, device="cuda", card: str = "",
@@ -1165,7 +1244,7 @@ def phase_serve(model, params, *, exact: bool = False, loops=("serial",
             f"{same:.3f} ({card})")
         if exact:
             check(runs[0] == runs[1], "serial and pipelined streams differ")
-    return {name: counts[name] for name in kernels}
+    return {name: counts[name] for name in build.KERNELS}
 
 
 # The planned serve (phase 7): the serve trace with half of each relQuery's
@@ -1225,12 +1304,15 @@ def planned_engine(model, params, loop: str, cap: int, device="cuda"):
 
 
 def run_planned(model, params, trace, loop: str, cap: int, device="cuda",
-                card: str = "") -> list:
+                card: str = "", on_engine=None) -> list:
     """Replay ``trace`` through the planner (dedup + prefix-maximizing
     reorder) on the tight-cap, prefix-shared, KV-tiered paged engine and
-    check it. Returns every logical row's stream, in trace order."""
+    check it. Returns every logical row's stream, in trace order.
+    ``on_engine`` gets the engine before the replay starts."""
     trace = copy.deepcopy(trace)
     engine = planned_engine(model, params, loop, cap, device)
+    if on_engine is not None:
+        on_engine(engine)
     ex = engine.executor
     bad_cow: list = []
     watch_cow(ex, bad_cow)
@@ -1455,23 +1537,16 @@ def phase_times(errs: dict, paths: dict) -> list:
     return out
 
 
-def phase_profile(model, params, device="cuda", planned: bool = False,
-                  window=None) -> None:
+def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
     """Where a serve phase's time goes: one more serial serve of the same
-    trace under torch.profiler (after the launch counters were read), the
-    planned serve of phase 7 with ``planned``. Prints the device's busy and
-    idle share of the wall time and the kernels that take the device time.
-    The planned serve launches ~700k kernels: it is traced on the device
-    only, since the host's operator events would multiply the trace and the
-    time to sum it. ``window`` (first batch, batches): trace only those
-    batches of the serve, on the device only; the wall is theirs."""
-    from torch.autograd import DeviceType
+    trace (after the launch counters were read), the planned serve of phase 7
+    with ``planned``, with the batches of PROFILE_WINDOW traced under
+    torch.profiler on the device only. Prints the device's busy and idle
+    share of the window's wall time, its launches per batch, and the kernels
+    that take the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    host = not planned and window is None
-    acts = [ProfilerActivity.CPU] if host or device != "cuda" else []
-    if device == "cuda":
-        acts.append(ProfilerActivity.CUDA)
+    acts = [ProfilerActivity.CUDA] if device == "cuda" else [ProfilerActivity.CPU]
     if planned:
         trace = serve_trace(model.cfg.vocab_size - 2, **PLANNED_TRACE)
         cap = planned_cap(trace)
@@ -1479,45 +1554,45 @@ def phase_profile(model, params, device="cuda", planned: bool = False,
         trace = serve_trace(model.cfg.vocab_size - 2)
     prof = profile(activities=acts)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    first, n = PROFILE_WINDOW
     span = {}
-
-    def start():
-        sync()
-        prof.start()
-        span["t0"] = time.perf_counter()
-
-    def stop():
-        sync()
-        span["t1"] = time.perf_counter()
-        prof.stop()
 
     def on_engine(engine):   # start and stop the trace at batch boundaries
         ex = engine.executor
         inner, seen = ex.dispatch, [0]
-        first, n = window
 
         def dispatch(batch, now):
-            if seen[0] == first:
-                start()
-            elif seen[0] == first + n:
-                stop()
+            if seen[0] in (first, first + n):
+                sync()
+                if seen[0] == first:
+                    prof.start()
+                    span["t0"] = time.perf_counter()
+                else:
+                    span["t1"] = time.perf_counter()
+                    prof.stop()
             seen[0] += 1
             return inner(batch, now)
 
         ex.dispatch = dispatch
 
-    n_prefill = None
-    if window is None:
-        start()
     if planned:
-        run_planned(model, params, trace, "serial", cap, device)
+        run_planned(model, params, trace, "serial", cap, device,
+                    on_engine=on_engine)
     else:
-        _, n_prefill, _ = run_serve(model, params, trace, "serial", device,
-                                    on_engine=on_engine if window else None)
-    if "t1" not in span:   # a whole serve, or one with fewer batches
-        check("t0" in span, f"the serve has fewer than {window} batches")
-        stop()
-    wall_us = (span["t1"] - span["t0"]) * 1e6
+        run_serve(model, params, trace, "serial", device, on_engine=on_engine)
+    check("t1" in span, f"the serve has fewer than {first + n + 1} batches")
+    log_device_profile(prof, span["t1"] - span["t0"],
+                       f"{model.cfg.name} {'planned ' if planned else ''}"
+                       f"serial serve, batches {first}..{first + n - 1}",
+                       n, "batch")
+
+
+def log_device_profile(prof, wall_s: float, what: str, n: int,
+                       unit: str) -> None:
+    """The device's busy and idle share of ``wall_s``, launches per ``unit``
+    (``n`` of them in the window) and the kernels that take the time."""
+    from torch.autograd import DeviceType
+
     t1 = time.perf_counter()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -1526,15 +1601,12 @@ def phase_profile(model, params, device="cuda", planned: bool = False,
     if not busy_us:
         log("[profile] the profiler recorded no device time: not measured")
         return
+    wall_us = wall_s * 1e6
     launches = sum(e.count for e in kernels)
-    what = ("serve" if window is None
-            else f"serve, batches {window[0]}..{window[0] + window[1] - 1}")
-    log(f"[profile] {model.cfg.name} {'planned ' if planned else ''}serial "
-        f"{what} under the profiler: wall "
-        f"{wall_us / 1e3:.1f} ms, "
+    log(f"[profile] {what} under the profiler: wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall, "
-        f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches"
-        f"{'' if window or n_prefill is None else f', {n_prefill} prefill calls'}")
+        f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches, "
+        f"{launches / n:.0f} per {unit}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<6d} "
@@ -1584,7 +1656,7 @@ def path_granite(t: float) -> tuple:
     t = lap("granite model bf16", t)
     counts = phase_serve(model, params)
     t = lap("granite serve", t)
-    phase_profile(model, params, window=PROFILE_WINDOW)
+    phase_profile(model, params)
     t = lap("granite profile", t)
     del cfg, model, params
     free()
@@ -1613,18 +1685,249 @@ def path_gemma(t: float) -> float:
     """gemma3-12b at full width and depth on the dense engine (phase 15)."""
     cfg, model, params = load_model("gemma3-12b", dtype="float32",
                                     layers=GEMMA_F32_LAYERS)
-    phase_model_gemma(cfg, model, params, GEMMA_F32_REL_TOL)
+    phase_model_window(cfg, model, params, GEMMA_F32_REL_TOL)
     del cfg, model, params
     free()
     t = lap("gemma3 model f32", t)
     cfg, model, params = load_model("gemma3-12b")
-    phase_model_gemma(cfg, model, params, None)
+    phase_model_window(cfg, model, params, None)
     t = lap("gemma3 model bf16", t)
     phase_serve(model, params, loops=("serial",), trace_kw=GEMMA_TRACE)
     t = lap("gemma3 serve", t)
     del cfg, model, params
     free()
     return t
+
+
+def path_hymba(t: float) -> tuple:
+    """hymba-1.5b at full width on the dense engine (phases 16-18). Returns
+    (the serve's launch counts, the time of the last lap)."""
+    cfg, model, params = load_model("hymba-1.5b", dtype="float32",
+                                    layers=HYMBA_F32_LAYERS)
+    phase_model_window(cfg, model, params, HYMBA_F32_REL_TOL)
+    del cfg, model, params
+    free()
+    t = lap("hymba model f32", t)
+    cfg, model, params = load_model("hymba-1.5b")
+    n = HYMBA_BF16_LAYERS
+    phase_model_window(cfg.replace(num_layers=n),
+                       *first_layers(model, params, n), MODEL_REL_TOL)
+    phase_model_window(cfg, model, params, None)
+    t = lap("hymba model bf16", t)
+    counts = phase_serve(model, params, exact=True)
+    t = lap("hymba serve", t)
+    phase_profile(model, params)
+    t = lap("hymba profile", t)
+    del cfg, model, params
+    free()
+    return counts, t
+
+
+def phase_model_whisper(cfg, model, params, tol, device="cuda") -> None:
+    """Encoder over 1500 frames (rows of WHISPER_FRAME_LENS valid frames),
+    a decoder prefill of WHISPER_PROMPT tokens, then WHISPER_DECODE_STEPS
+    decode steps against the cross-attention cache, teacher-forced, each
+    against the same position of one decoder pass over the whole extended
+    prompt on the same encoder output; held to ``tol`` of the largest
+    |logit| (None: reported only)."""
+    B, n, steps = len(WHISPER_FRAME_LENS), WHISPER_PROMPT, WHISPER_DECODE_STEPS
+    S = max(WHISPER_FRAME_LENS)
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(B, n + steps)),
+                           dtype=torch.int32, device=device)
+    frames = torch.as_tensor(rng.randn(B, S, cfg.d_model).astype(np.float32),
+                             device=device)
+    fl = torch.as_tensor(WHISPER_FRAME_LENS, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        _, cache = model.prefill(params, toks[:, :n], frames=frames, seq_lens=fl)
+        check(tuple(cache["k_cross"].shape[:3]) == (cfg.num_layers, B, S)
+              and cache["k_self"].shape[2] == cfg.max_target_len,
+              "whisper cache layout")
+        got = []
+        for j in range(steps):
+            pos = torch.full((B,), n + j, dtype=torch.int32, device=device)
+            d, cache = model.decode_step(params, cache, toks[:, n + j], pos)
+            got.append(d)
+        enc = model.encode(params, frames, fl)
+        hidden, _ = model._decode_tokens(params, toks, enc, fl)
+        want = [model.logits(params, hidden[:, n + j]) for j in range(steps)]
+    what = (f"{cfg.name} {cfg.num_encoder_layers}+{cfg.num_layers} layers "
+            f"{cfg.dtype}: {S} frames (valid {list(WHISPER_FRAME_LENS)}), "
+            f"prompt {n}, decode steps vs one decoder pass")
+    worst = max(log_rel("whisper model", f"{what}, step {j}", got[j], want[j],
+                        tol) for j in range(steps))
+    log(f"[whisper model] {what}: worst rel {worst:.3e}")
+
+
+def path_whisper(t: float) -> tuple:
+    """whisper-base at full width and depth (phase 19): float32 held,
+    bf16 reported. Returns (its launch counts, the time of the last lap)."""
+    ops.reset_launch_counts()
+    for dtype, tol in (("float32", WHISPER_F32_REL_TOL), ("", None)):
+        cfg, model, params = load_model("whisper-base", dtype=dtype)
+        phase_model_whisper(cfg, model, params, tol)
+        del cfg, model, params
+        free()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"whisper launched a kernel: {counts}")
+    return counts, lap("whisper model", t)
+
+
+def sync_seconds(fn):
+    """(fn(), its seconds between two device synchronisations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_leaves(paths, leaves, by_path) -> bool:
+    """``leaves`` (at ``paths``) and ``by_path`` ({path: tensor}, possibly
+    on the host): the same paths, dtypes and bits."""
+    return list(by_path) == paths and all(
+        x.dtype == by_path[p].dtype and torch.equal(x, by_path[p].to(x.device))
+        for p, x in zip(paths, leaves))
+
+
+def phase_train(device="cuda") -> dict:
+    """qwen3-1.7b at full width and depth through ``make_train_step``:
+    TRAIN_STEPS steps on one batch of the reference CLI's token stream;
+    every loss finite and the last below TRAIN_LOSS_DROP of the first; no
+    kernel of this repo launched. Then a checkpoint: written, read back bit
+    for bit, and a step from the loaded state equal to a step from the live
+    one, both under deterministic algorithms (the backward of the embedding
+    gather and of the loss's gather would otherwise add with atomics in
+    any order). Steps TRAIN_PROFILE are traced on the device. Returns the
+    launch counts."""
+    cfg, model, params = load_model("qwen3-1.7b")
+    tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
+    ds = make_dataset("rotten", num_rows=2000, seed=SEED)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             next(token_stream(ds, tok, TRAIN_BATCH, TRAIN_SEQ, SEED)).items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(model, TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR)))
+    opt = init_opt_state(params)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(activities=[ProfilerActivity.CUDA] if device == "cuda"
+                   else [ProfilerActivity.CPU])
+    first, n = TRAIN_PROFILE
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        if i == first:
+            prof.start()
+        (params, opt, m), dt = sync_seconds(lambda: step(params, opt, batch))
+        if i == first + n - 1:
+            prof.stop()
+        losses.append(float(m["loss"]))
+        secs.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    plain = secs[1:first] + secs[first + n:]
+    log(f"[train] {cfg.name} {cfg.num_layers} layers bf16 params, f32 masters "
+        f"({model.param_count() / 1e9:.3f}B params), batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, lr {TRAIN_LR:g}, remat on: losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"[train] step time: first {secs[0] * 1e3:.1f} ms, median of the "
+        f"unprofiled rest {float(np.median(plain)) * 1e3:.1f} ms, min "
+        f"{min(plain) * 1e3:.1f} ms; torch.cuda.max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; grad norm last {float(m['grad_norm']):.4f}; "
+        f"launches {counts}; {nvidia_smi_line()}")
+    log_device_profile(prof, sum(secs[first:first + n]),
+                       f"{cfg.name} train steps {first}..{first + n - 1}",
+                       n, "step")
+    check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    check(losses[-1] < TRAIN_LOSS_DROP * losses[0],
+          f"no learning: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(not any(counts.values()), f"training launched a kernel: {counts}")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    trees = {"params": params, "opt": opt}
+    _, dt = sync_seconds(lambda: save_checkpoint(CKPT_DIR, TRAIN_STEPS, trees,
+                                                 {"arch": cfg.name}))
+    (at, host), dt_read = sync_seconds(lambda: load_checkpoint(CKPT_DIR))
+    check(at == TRAIN_STEPS, f"the checkpoint reads back as step {at}")
+    for name, tree in trees.items():
+        check(same_leaves(*tree_flatten(tree), host[name]),
+              f"checkpoint {name} did not read back bit for bit")
+    nbytes = sum(x.numel() * x.element_size() for x in tree_flatten(trees)[1])
+    del host
+    skeleton = tree_map(lambda x: x.new_empty(0), trees)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        p_live, o_live, m_live = step(params, opt, batch)
+        del params, opt, trees, o_live     # the live state is donated
+        free()
+        _, back = load_checkpoint(CKPT_DIR, template_trees=skeleton)
+        p_back, o_back, m_back = step(back["params"], back["opt"], batch)
+        del back, o_back
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = same_leaves(*tree_flatten(p_live), dict(zip(*tree_flatten(p_back))))
+    log(f"[train] checkpoint at step {TRAIN_STEPS}: {nbytes / 2**30:.2f} GiB "
+        f"written in {dt:.1f}s, read back bit for bit in {dt_read:.1f}s; step "
+        f"{TRAIN_STEPS + 1} from the loaded state vs from the live one "
+        f"(deterministic algorithms): loss {float(m_back['loss']):.6f} vs "
+        f"{float(m_live['loss']):.6f}, params equal: {same}")
+    check(float(m_back["loss"]) == float(m_live["loss"]) and same,
+          "a run resumed from the checkpoint differs from the unbroken one")
+    shutil.rmtree(CKPT_DIR)
+    del p_live, p_back, skeleton
+    free()
+    return counts
+
+
+def family_batch(cfg, device="cuda") -> dict:
+    """TRAIN_BATCH x TRAIN_SEQ random tokens and labels (for whisper at
+    most max_target_len of them, beside 1500 frames with ragged
+    frame_lens)."""
+    rng = np.random.RandomState(SEED)
+    seq = min(TRAIN_SEQ, cfg.max_target_len or TRAIN_SEQ)
+    batch = {k: torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                            size=(TRAIN_BATCH, seq)),
+                                dtype=torch.int32, device=device)
+             for k in ("tokens", "labels")}
+    if cfg.is_encoder_decoder:
+        S = max(WHISPER_FRAME_LENS)
+        batch["frames"] = torch.as_tensor(
+            rng.randn(TRAIN_BATCH, S, cfg.d_model).astype(np.float32),
+            device=device)
+        batch["frame_lens"] = torch.as_tensor(
+            rng.randint(S // 2, S + 1, size=TRAIN_BATCH), dtype=torch.int32,
+            device=device)
+    return batch
+
+
+def phase_train_families(device="cuda") -> dict:
+    """One train step (bf16, remat) of each family at full width cut to
+    TRAIN_FAMILY_LAYERS layers: loss and grad norm finite, no kernel of
+    this repo launched. Returns the launch counts over all of them."""
+    ops.reset_launch_counts()
+    for arch in TRAIN_FAMILIES:
+        n = TRAIN_FAMILY_LAYERS
+        cfg = get_config(arch).replace(num_layers=n)
+        if cfg.is_encoder_decoder:
+            cfg = cfg.replace(num_encoder_layers=n)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator(device=device).manual_seed(SEED))
+        batch = family_batch(cfg, device)
+        step = make_train_step(model, TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR)))
+        opt = init_opt_state(params)
+        (_, _, m), dt = sync_seconds(lambda: step(params, opt, batch))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        log(f"[train family] {cfg.name} ({cfg.family}) {n} layers, "
+            f"{model.param_count() / 1e9:.3f}B params: loss {loss:.4f}, grad "
+            f"norm {gnorm:.4f}, {dt * 1e3:.1f} ms")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{cfg.name}: non-finite loss or gradient")
+        del model, params, batch, step, opt, m
+        free()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"a family's train step launched a "
+                                    f"kernel: {counts}")
+    return counts
 
 
 def main() -> None:
@@ -1672,6 +1975,13 @@ def main() -> None:
     paths["granite serve"], t = path_granite(t)
     t = path_qwen3_moe(t)
     t = path_gemma(t)
+    paths["hymba serve"], t = path_hymba(t)
+    paths["whisper model"], t = path_whisper(t)
+    counts = phase_train()
+    t = lap("train qwen3", t)
+    paths["training"] = {k: counts[k] + v for k, v in
+                         phase_train_families().items()}
+    t = lap("train families", t)
 
     kernels = phase_times(errs, paths)
     lap("times", t)

@@ -1,19 +1,113 @@
-"""Engine-state snapshots: the serving half of ``repro/distributed/
-fault_tolerance.py`` (snapshot codec v2).
+"""Checkpoint/restore + engine-state snapshots, the PyTorch counterpart of
+``repro/distributed/fault_tolerance.py``.
 
-Scheduler queues + relQuery progress serialize to JSON; the KV cache is
-deliberately NOT checkpointed — it is recomputable via prefix replay, which
+Training: per-leaf ``.npy`` files under an atomically published step
+directory plus a JSON manifest, in the reference's format, so a checkpoint
+written by either package loads in the other bit for bit: leaves in
+``jax.tree_util`` order (sorted dict keys; ``None`` is no leaf), numbered
+``{tree}__{i:05d}.npy``, with paths such as ``blocks/wq``; bfloat16 stored
+as its raw ``uint16`` bits under the logical dtype ``bfloat16``.
+
+Serving: scheduler queues + relQuery progress serialize to JSON; the KV cache
+is deliberately NOT checkpointed — it is recomputable via prefix replay, which
 the prefix cache makes cheap (DESIGN.md §6). The JSON is byte-identical to
 the JAX package's, so a snapshot taken by either restores into the other.
-
-The training-checkpoint half of the reference (per-leaf ``.npy`` files and a
-JSON manifest) belongs with the training modules and is not here.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import json
+import os
+import shutil
+import tempfile
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+import torch
+
+from repro_torch.bridge import numpy_from_tensor, tensor_from_numpy
 from repro_torch.core.relquery import RelQuery, Request, RequestState
+from repro_torch.models.param_utils import tree_flatten, tree_unflatten
+
+
+# --------------------------------------------------------------------------
+# training checkpoints
+# --------------------------------------------------------------------------
+def save_checkpoint(path: str, step: int, trees: Dict[str, Any],
+                    metadata: Optional[Dict] = None) -> str:
+    """Write ``trees`` (e.g. {'params': ..., 'opt': ...}) under path/step_N."""
+    final = os.path.join(path, f"step_{step}")
+    # The staging dir must live under ``path`` so the final os.replace is a
+    # same-filesystem rename: mkdtemp(dir=None) falls back to the system
+    # tmpdir, and publishing across filesystems raises EXDEV.
+    os.makedirs(path, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=path)
+    manifest = {"step": step, "metadata": metadata or {}, "trees": {}}
+    try:
+        for name, tree in trees.items():
+            paths, leaves = tree_flatten(tree)
+            entries = []
+            for i, (p, leaf) in enumerate(zip(paths, leaves)):
+                arr = numpy_from_tensor(leaf)     # bf16: raw uint16 bits
+                logical_dtype = ("bfloat16" if leaf.dtype == torch.bfloat16
+                                 else str(arr.dtype))
+                fn = f"{name}__{i:05d}.npy"
+                np.save(os.path.join(tmp, fn), arr)
+                entries.append({"path": p, "file": fn,
+                                "shape": list(arr.shape), "dtype": logical_dtype})
+            manifest["trees"][name] = entries
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)   # atomic publish
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def latest_step(path: str) -> Optional[int]:
+    if not os.path.isdir(path):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(path)
+             if d.startswith("step_") and d.split("_")[1].isdigit()]
+    return max(steps) if steps else None
+
+
+def load_checkpoint(path: str, step: Optional[int] = None,
+                    template_trees: Optional[Dict[str, Any]] = None
+                    ) -> Tuple[int, Dict[str, Any]]:
+    """Load trees; with ``template_trees``, each tree takes its template's
+    structure and each tensor its template leaf's device (otherwise returns
+    {name: {leaf_path: tensor}} on the CPU)."""
+    step = step if step is not None else latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {path}")
+    d = os.path.join(path, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    for name, entries in manifest["trees"].items():
+        tensors = []
+        for e in entries:
+            t = tensor_from_numpy(np.load(os.path.join(d, e["file"]),
+                                          allow_pickle=False))
+            if str(t.dtype).removeprefix("torch.") != e["dtype"]:
+                # raw-bit stored bfloat16 (the only such dtype the port has)
+                if e["dtype"] != "bfloat16" or t.dtype != torch.uint16:
+                    raise ValueError(f"{e['file']}: dtype {e['dtype']} stored "
+                                     f"as {t.dtype} is not readable here")
+                t = t.view(torch.bfloat16)
+            tensors.append(t)
+        if template_trees and name in template_trees:
+            _, flat = tree_flatten(template_trees[name])
+            if len(flat) != len(tensors):
+                raise ValueError(f"tree arity mismatch for {name}")
+            tensors = [t.to(ref.device) for t, ref in zip(tensors, flat)]
+            out[name] = tree_unflatten(template_trees[name], tensors)
+        else:
+            out[name] = {e["path"]: t for e, t in zip(entries, tensors)}
+    return manifest["step"], out
 
 
 # --------------------------------------------------------------------------

@@ -7,11 +7,12 @@ with ``execute`` as the serial composition — plus ``release_request`` /
 ``validate_relquery`` / ``prestage`` / ``fitted_model``, the four swap hooks
 and ``kv_tokens_resident``):
 
-``RealExecutor`` — the dense baseline, for any model family: ``max_slots``
-decode cache slots (``max_len`` tokens each for attention, one recurrent
-state each for RWKV6); prefill assigns slots one request at a time with
-bucketed padding, decode runs one ``decode_step`` over all slots. Kept
-bit-identical as the reference the paged backend is pinned against.
+``RealExecutor`` — the dense baseline, for every decoder-only family:
+``max_slots`` decode cache slots (``max_len`` tokens each for attention, one
+recurrent state each for RWKV6 and hymba's Mamba branch); prefill assigns
+slots one request at a time with bucketed padding, decode runs one
+``decode_step`` over all slots. Kept bit-identical as the reference the
+paged backend is pinned against.
 
 ``PagedRealExecutor`` — block-paged KV owned by ``BlockManager``: one
 ``[num_blocks, block_size, heads, dim]`` K/V pool per layer, per-request
@@ -92,6 +93,16 @@ def _pow2_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _refuse_encoder_decoder(model) -> None:
+    """No engine path serves an encoder-decoder model, as in the reference,
+    whose executors would call its prefill without the encoder frames it
+    needs."""
+    if model.cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{model.cfg.name} is an encoder-decoder model: no engine path "
+            f"serves it (its prefill needs encoder frames)")
 
 
 class _ExecutorBase:
@@ -176,6 +187,7 @@ class RealExecutor(_ExecutorBase):
 
     def __init__(self, model, params, *, max_slots: int = 32, max_len: int = 512,
                  prefix_cache: Optional[PrefixCache] = None, greedy: bool = True):
+        _refuse_encoder_decoder(model)
         super().__init__(model, params, max_len=max_len,
                          prefix_cache=prefix_cache, greedy=greedy)
         self.max_slots = max_slots
@@ -426,6 +438,7 @@ class PagedRealExecutor(_ExecutorBase):
                  greedy: bool = True,
                  share_prefix_blocks: bool = False,
                  num_host_blocks: int = 0):
+        _refuse_encoder_decoder(model)
         if not getattr(model, "supports_paged", lambda: False)():
             raise NotImplementedError(
                 f"model {model.cfg.name!r} does not support the paged KV "

@@ -4,6 +4,11 @@ A CUDA tensor goes to the hand-written CUDA kernel (or the wrapper raises);
 a CPU tensor goes to the plain version in ``ref``, which is what the CPU
 tests run. Each launch of a CUDA kernel adds one to its counter; the plain
 path counts nothing, so the counters show which path a run took.
+
+The kernels are forward-only, as the reference's Pallas kernels have no VJP:
+a wrapper given a tensor that requires grad raises rather than return a
+result that autograd cannot see through. Training runs the models' plain
+paths (``train_loss``).
 """
 from __future__ import annotations
 
@@ -17,9 +22,17 @@ from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk_cuda
 _launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
 
 
+def _forward_only(name: str, *tensors) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (no backward): an input requires grad; "
+            f"train through the model's plain path")
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     *, num_q_tokens: int = 1):
     """See ``paged_attention.py`` for layouts."""
+    _forward_only("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                        context_lens, num_q_tokens=num_q_tokens)
@@ -32,6 +45,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
                   q_offset: int = 0):
     """See ``flash_prefill.py`` for layouts."""
+    _forward_only("flash_prefill", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -44,6 +58,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
 def rwkv6_chunk(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
     """See ``rwkv6_chunk.py`` for layouts; ``chunk`` None is one chunk of
     S tokens. Returns (o, state after the last chunk)."""
+    _forward_only("rwkv6_chunk", r, k, v, logw, u, state)
     if r.device.type == "cpu":
         return ref.rwkv6_chunk_plain(r, k, v, logw, u, state,
                                      out_dtype=out_dtype, chunk=chunk)

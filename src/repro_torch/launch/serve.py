@@ -15,9 +15,10 @@ Two execution modes, as in ``repro/launch/serve.py``:
                   archs (qwen3-1.7b, qwen2-0.5b, qwen2.5-32b, the
                   internvl2-26b backbone, granite-moe-3b-a800m,
                   qwen3-moe-30b-a3b) take either KV backend; gemma3-12b
-                  (window layers) and rwkv6-7b the dense backend only
-                  (``--kv-backend paged`` exits, as the reference refuses
-                  it).
+                  (window layers), rwkv6-7b and hymba-1.5b the dense
+                  backend only (``--kv-backend paged`` exits, as the
+                  reference refuses it). whisper-base has no engine path
+                  and exits.
 
 and two drive modes:
   (default)       closed-loop trace replay through the Frontend shim
@@ -39,6 +40,7 @@ bit-identical to the unplanned replay.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --plan full \
       --kv-backend paged --dup-row-fraction 0.5 --num-relqueries 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
       --kv-backend paged --device cpu
 """

@@ -1,6 +1,6 @@
 """Model primitives of the port: norms (RMS, layer, per-head group), RoPE,
 blockwise attention, decode attention against a dense KV cache, KV-cache
-writes and the SwiGLU MLP.
+writes, the SwiGLU and GELU MLPs and the chunked cross-entropy of training.
 
 PyTorch counterparts of ``repro/models/layers.py`` that keep its layouts and
 its dtype roundings, so both packages compare like with like:
@@ -229,6 +229,51 @@ def swiglu_mlp(x, w_gate, w_up, w_down, act="silu"):
     f = act_fn(act)
     h = f(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    return h @ w_out + b_out
+
+
+# --------------------------------------------------------------------------
+# chunked cross-entropy: never materializes [B, S, V]
+# --------------------------------------------------------------------------
+def chunked_softmax_xent(
+    x: torch.Tensor,         # [B, S, D] final hidden states
+    w_vocab: torch.Tensor,   # [D, Vp]
+    labels: torch.Tensor,    # [B, S] int; -1 = padding
+    *,
+    num_chunks: int = 8,
+    z_loss: float = 0.0,
+    vocab_valid: int = 0,    # true vocab size; pad columns masked out of the lse
+):
+    """Returns (sum_loss, num_valid), float32 scalars, over chunks of ``cs``
+    positions: ``S // num_chunks``, halved until it divides S, as in the
+    reference. Only one chunk's ``[B, cs, Vp]`` logits exist at a time."""
+    B, S, D = x.shape
+    Vp = w_vocab.shape[-1]
+    cs = max(1, S // num_chunks)
+    while S % cs:
+        cs //= 2
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // cs):
+        xc = x[:, i * cs:(i + 1) * cs]
+        yc = labels[:, i * cs:(i + 1) * cs].long()
+        logits = (xc @ w_vocab).float()                      # [B, cs, Vp]
+        if vocab_valid and vocab_valid < Vp:
+            logits = torch.where(torch.arange(Vp, device=x.device) < vocab_valid,
+                                 logits, NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        hit = torch.gather(logits, -1, yc.clamp(min=0)[..., None])[..., 0]
+        valid = (yc >= 0).float()
+        loss = (lse - hit) * valid
+        if z_loss > 0:
+            loss = loss + z_loss * torch.square(lse) * valid
+        total = total + loss.sum()
+        count = count + valid.sum()
+    return total, count
 
 
 # --------------------------------------------------------------------------

@@ -151,6 +151,9 @@ class MoETransformer(DenseTransformer):
             "w_down": t((G, Pg, Ep, F, D), custom=init_expert(F)),
         }
 
+    def _aux_weight(self) -> float:
+        return 0.01
+
     def _mlp(self, pp, p: int, x):
         cfg = self.cfg
         out, aux = moe_dispatch(

@@ -4,12 +4,16 @@ A template tree mirrors the parameter tree (nested dicts); leaves are
 ``ParamTemplate``. ``init_params`` draws every leaf from one explicit
 ``torch.Generator`` on that generator's device, with the reference's
 distributions: normal / sqrt(fan_in), zeros, ones, or a custom draw.
+
+The tree helpers at the end walk parameter and optimizer-state trees in the
+order ``jax.tree_util`` does, which the optimizer's casts and the
+checkpoint's file numbering follow.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,3 +69,61 @@ def count_params(templates) -> int:
 
     _map_leaves(add, templates)
     return total[0]
+
+
+# --------------------------------------------------------------------------
+# parameter / optimizer-state trees: nested dicts of tensors, None no leaf
+# --------------------------------------------------------------------------
+def tree_flatten(tree, prefix: str = "") -> Tuple[List[str], List]:
+    """(paths, leaves) of a nested dict in sorted-key order, the order in
+    which ``jax.tree_util`` flattens dicts; paths join keys with '/' (e.g.
+    ``blocks/wq``) and ``None`` is no leaf, as in JAX."""
+    if tree is None:
+        return [], []
+    if not isinstance(tree, dict):
+        return [prefix], [tree]
+    paths, leaves = [], []
+    for k in sorted(tree):
+        p, lv = tree_flatten(tree[k], f"{prefix}/{k}" if prefix else str(k))
+        paths += p
+        leaves += lv
+    return paths, leaves
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped as ``template`` holding ``leaves`` (in ``tree_flatten``
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure); ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def unstack(stacked) -> List[dict]:
+    """Per-layer views of a dict of tensors stacked on axis 0. One ``unbind``
+    per tensor, so autograd stacks each tensor's layer gradients once; taking
+    ``tensor[g]`` per layer would add a zero-filled gradient of the whole
+    stack per layer."""
+    names = list(stacked)
+    return [dict(zip(names, views))
+            for views in zip(*(stacked[k].unbind(0) for k in names))]

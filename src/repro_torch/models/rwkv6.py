@@ -28,12 +28,13 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.rwkv6_chunk import CHUNKS
 from repro_torch.models import layers as L
-from repro_torch.models.param_utils import count_params, init_params, t
+from repro_torch.models.param_utils import count_params, init_params, t, unstack
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -284,16 +285,19 @@ class RWKV6Model(nn.Module):
 
     # ------------------------------------------------------------- public steps
     def forward_hidden(self, params, embeds, *, collect_cache=False,
-                       seq_lens=None):
+                       seq_lens=None, remat=False):
         """embeds: [B, S, D] -> (hidden [B, S, D], caches | {}), caches stacked
-        ``[L, B, ...]`` as the reference's layer scan stacks them."""
+        ``[L, B, ...]`` as the reference's layer scan stacks them. ``remat``
+        recomputes each layer's activations in the backward pass."""
         cfg = self.cfg
         x = L.layernorm(embeds, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
-        blocks = params["blocks"]
         per_layer = []
-        for g in range(self.n_groups):
-            pp = {k: v[g] for k, v in blocks.items()}
-            x, caches = self._block_seq(x, pp, collect_cache, seq_lens)
+        for pp in unstack(params["blocks"]):
+            if remat:
+                x, caches = checkpoint(self._block_seq, x, pp, collect_cache,
+                                       seq_lens, use_reentrant=False)
+            else:
+                x, caches = self._block_seq(x, pp, collect_cache, seq_lens)
             per_layer.append(caches)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if not collect_cache:
@@ -311,6 +315,22 @@ class RWKV6Model(nn.Module):
             lg = torch.where(torch.arange(Vp, device=lg.device) < V, lg,
                              L.NEG_INF)
         return lg
+
+    def train_loss(self, params, batch, *, remat=True):
+        """batch: {'tokens': [B, S], 'labels': [B, S] (-1 pad)} -> (loss,
+        metrics), differentiable in ``params``. The WKV runs the plain chunk
+        loop at ``_chunk_size(S)``, what the reference trains through: the
+        kernel is forward-only."""
+        if self.wkv_impl != "plain":
+            return self.with_wkv_impl("plain").train_loss(params, batch,
+                                                          remat=remat)
+        embeds = self.embed_tokens(params, batch["tokens"])
+        hidden, _ = self.forward_hidden(params, embeds, remat=remat)
+        total, count = L.chunked_softmax_xent(hidden, params["lm_head"],
+                                              batch["labels"],
+                                              vocab_valid=self.cfg.vocab_size)
+        loss = total / torch.clamp(count, min=1.0)
+        return loss, {"xent": loss}
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, seq_lens=None, max_len: int = 0):

@@ -9,8 +9,9 @@ Layers come in *groups* of ``group`` layers, the local:global repeat pattern
 global). Parameters are an explicit tree of tensors (nested dicts, the same
 keys and layouts as the reference's pytree, stacked per layer as
 ``[G, Pg, ...]``), so weights carry across from the JAX package unchanged
-(``repro_torch.bridge``). The methods are functions of those parameters, run
-under ``torch.no_grad``.
+(``repro_torch.bridge``). The methods are functions of those parameters:
+prefill and decode run under ``torch.no_grad``, ``train_loss`` is
+differentiable in them (``training/train_step.py`` takes the gradients).
 
 Caches keep the reference's layouts: global layers ``k_full``/``v_full``
 ``[G, n_full, B, max_len, KVs, hd]``, window layers ring buffers
@@ -25,13 +26,15 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import GQALayout, gqa_layout
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.param_utils import count_params, init_params, t
+from repro_torch.models.param_utils import count_params, init_params, t, unstack
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOCAL_ROPE_THETA = 10_000.0  # gemma3 uses short-rope on sliding-window layers
@@ -347,53 +350,71 @@ class DenseTransformer(nn.Module):
         return self._attn_out(o, pp["wo"][p])
 
     # ------------------------------------------------------------- forward (seq mode)
-    def forward_hidden(self, params, embeds, positions, seq_lens=None, *,
-                       collect_cache=False, max_len: int = 0):
-        """embeds: [B, S, D] -> (hidden [B, S, D], aux, cache | {})."""
+    def _layer_seq(self, pp, p: int, x, positions, seq_lens, kind: str):
+        """Layer ``p`` of a group in sequence mode -> (x, aux loss, (k, v),
+        extra cache entries of this layer). Hybrid layers override it."""
         cfg = self.cfg
-        x = embeds
-        S = embeds.shape[1]
-        max_len = max_len or S
+        h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
+        attn, kv = self._mixer_seq(pp, p, h, positions, seq_lens, kind)
+        x = x + attn
+        h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
+        mlp, a = self._mlp(pp, p, h)
+        return x + mlp, a, kv, {}
+
+    def _group_seq(self, pp, x, aux, positions, seq_lens, collect: bool,
+                   max_len: int):
+        """One group of layers -> (x, aux, this group's caches): k/v_full
+        ``[n_full, B, max_len, KVs, hd]``, the rings k/v_win ``[n_win, B, W,
+        KVs, hd]``, and each extra entry of the group's one layer."""
+        S = x.shape[1]
         W = self._window(max_len)
+        full, win, extra = ([], []), ([], []), {}
+        for p in range(self.group):
+            kind = self.kinds[p]
+            x, a, (k, v), more = self._layer_seq(pp, p, x, positions, seq_lens,
+                                                 kind)
+            aux = aux + a
+            if not collect:
+                continue
+            extra.update(more)          # hybrid layers come in groups of one
+            if kind == "global":
+                pad = max_len - S
+                if pad:
+                    k = F.pad(k, (0, 0, 0, 0, 0, pad))
+                    v = F.pad(v, (0, 0, 0, 0, 0, pad))
+                full[0].append(k)
+                full[1].append(v)
+            else:
+                win[0].append(L.ring_from_sequence(k, W, seq_lens))
+                win[1].append(L.ring_from_sequence(v, W, seq_lens))
+        caches = dict(extra)
+        if full[0]:
+            caches["k_full"], caches["v_full"] = map(torch.stack, full)
+        if win[0]:
+            caches["k_win"], caches["v_win"] = map(torch.stack, win)
+        return x, aux, caches
+
+    def forward_hidden(self, params, embeds, positions, seq_lens=None, *,
+                       collect_cache=False, max_len: int = 0, remat=False):
+        """embeds: [B, S, D] -> (hidden [B, S, D], aux, cache | {}), caches
+        stacked over groups. ``remat`` recomputes each group's activations
+        in the backward pass (``torch.utils.checkpoint``), as the reference
+        wraps its layer scan's body in ``jax.checkpoint``."""
+        max_len = max_len or embeds.shape[1]
+        x = embeds
         aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
-        kf, vf, kw, vw = [], [], [], []
-        blocks = params["blocks"]
-        for g in range(self.n_groups):
-            pp = {k: v[g] for k, v in blocks.items()}
-            gk, gv, wk, wv = [], [], [], []
-            for p in range(self.group):
-                kind = self.kinds[p]
-                h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
-                attn, (k, v) = self._mixer_seq(pp, p, h, positions, seq_lens, kind)
-                x = x + attn
-                h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
-                mlp, a = self._mlp(pp, p, h)
-                x = x + mlp
-                aux = aux + a
-                if not collect_cache:
-                    continue
-                if kind == "global":
-                    pad = max_len - S
-                    if pad:
-                        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-                        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-                    gk.append(k)
-                    gv.append(v)
-                else:
-                    wk.append(L.ring_from_sequence(k, W, seq_lens))
-                    wv.append(L.ring_from_sequence(v, W, seq_lens))
-            if gk:
-                kf.append(torch.stack(gk))
-                vf.append(torch.stack(gv))
-            if wk:
-                kw.append(torch.stack(wk))
-                vw.append(torch.stack(wv))
-        caches = {}
-        if kf:
-            caches["k_full"], caches["v_full"] = torch.stack(kf), torch.stack(vf)
-        if kw:
-            caches["k_win"], caches["v_win"] = torch.stack(kw), torch.stack(vw)
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        per_group = []
+        for pp in unstack(params["blocks"]):
+            args = (pp, x, aux, positions, seq_lens, collect_cache, max_len)
+            if remat:
+                x, aux, caches = checkpoint(self._group_seq, *args,
+                                            use_reentrant=False)
+            else:
+                x, aux, caches = self._group_seq(*args)
+            per_group.append(caches)
+        caches = {name: torch.stack([c[name] for c in per_group])
+                  for name in per_group[0]} if collect_cache else {}
+        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux, caches
 
     def embed_tokens(self, params, tokens):
@@ -408,6 +429,34 @@ class DenseTransformer(nn.Module):
         return hidden @ params["lm_head"]
 
     # ------------------------------------------------------------- public steps
+    def train_loss(self, params, batch, *, remat=True):
+        """batch: {'tokens': [B, S_text], 'labels': [B, S_total] (-1 pad),
+        'extra_embeds': optional [B, P, D] patch embeddings, prepended} ->
+        (loss, metrics), differentiable in ``params``. Attention is the plain
+        blockwise path whatever ``prefill_attn_impl`` says: the kernels are
+        forward-only, as the reference's Pallas kernels have no VJP."""
+        if self.prefill_attn_impl != "block":
+            return self.with_prefill_attn("block").train_loss(
+                params, batch, remat=remat)
+        embeds = self.embed_tokens(params, batch["tokens"])
+        if batch.get("extra_embeds") is not None:
+            embeds = torch.cat([batch["extra_embeds"].to(self.dtype), embeds],
+                               dim=1)
+        B, S = embeds.shape[:2]
+        positions = L.causal_positions(S, B, embeds.device)
+        hidden, aux, _ = self.forward_hidden(params, embeds, positions,
+                                             remat=remat)
+        w_vocab = (params["embed"].T if self.cfg.tie_embeddings
+                   else params["lm_head"])
+        total, count = L.chunked_softmax_xent(hidden, w_vocab, batch["labels"],
+                                              vocab_valid=self.cfg.vocab_size)
+        xent = total / torch.clamp(count, min=1.0)
+        loss = xent + self._aux_weight() * aux / max(1, self.cfg.num_layers)
+        return loss, {"xent": xent, "aux": aux}
+
+    def _aux_weight(self) -> float:
+        return 0.0
+
     @torch.no_grad()
     def prefill(self, params, tokens, *, seq_lens=None, max_len: int = 0,
                 extra_embeds=None):
@@ -434,20 +483,25 @@ class DenseTransformer(nn.Module):
     def decode_step(self, params, cache, tokens, positions):
         """tokens: [B] int32, positions: [B] -> (logits [B, V], cache); each
         layer's KV write goes into ``cache`` in place."""
-        cfg = self.cfg
         x = self.embed_tokens(params, tokens)
         blocks = params["blocks"]
         for g in range(self.n_groups):
             pp = {k: v[g] for k, v in blocks.items()}
             for p in range(self.group):
-                h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
-                x = x + self._attn_decode_inplace(pp, p, h, positions,
-                                                  self.kinds[p], cache, g)
-                h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
-                mlp, _ = self._mlp(pp, p, h)
-                x = x + mlp
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+                x = self._layer_decode(pp, p, x, positions, cache, g)
+        x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return self.logits(params, x), cache
+
+    def _layer_decode(self, pp, p: int, x, positions, cache, g: int):
+        """Layer ``(g, p)`` of one decode step, its cache writes in place.
+        Hybrid layers override it."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, pp["ln1"][p], cfg.norm_eps)
+        x = x + self._attn_decode_inplace(pp, p, h, positions, self.kinds[p],
+                                          cache, g)
+        h = L.rmsnorm(x, pp["ln2"][p], cfg.norm_eps)
+        mlp, _ = self._mlp(pp, p, h)
+        return x + mlp
 
     def with_layers(self, num_layers: int) -> "DenseTransformer":
         """Same arch with a different layer count (a multiple of the group);

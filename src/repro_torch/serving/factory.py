@@ -3,9 +3,11 @@ simulated multi-replica clock (per replica a private PrefixCache, a scheduler
 wired to it, and a SimulatedExecutor sharing the same cache; no model and no
 torch device) and ``build_real_engine``, which pairs the paper's scheduler
 (or a baseline) with a PyTorch executor on either KV backend (dense slots or
-the block-paged pool). Every ported family serves on the dense backend (the
-dense and MoE transformers and RWKV6); the paged backend takes the
-transformers whose layers are all full attention (not gemma3, not RWKV6)."""
+the block-paged pool). Every decoder-only family serves on the dense backend
+(the dense and MoE transformers, RWKV6, hymba); the paged backend takes the
+transformers whose layers are all full attention (not gemma3, RWKV6 or
+hymba). whisper-base, an encoder-decoder, has no engine path, as in the
+reference."""
 from __future__ import annotations
 
 from typing import Optional
@@ -105,7 +107,7 @@ def build_real_engine(arch: str = "qwen3-1.7b", scheduler: str = "relserve",
     paged-attention decode), with physically shared prefix blocks whenever
     the scheduler runs with ``prefix_sharing=True``, and raises
     ``NotImplementedError`` for a model without paged KV (gemma3's window
-    layers, RWKV6). Without ``model``/``params`` the arch's smoke
+    layers, RWKV6, hymba). Either backend raises it for whisper. Without ``model``/``params`` the arch's smoke
     config is built with random weights from ``seed`` on ``device``; passed
     ``params`` must already live on ``device``. ``device=None`` means CUDA
     (see ``resolve_device``).

@@ -1,0 +1,3 @@
+"""Training of the port: AdamW on float32 masters (``optimizer``) and the
+train step with microbatched gradient accumulation, remat and bf16 gradient
+compression (``train_step``), on one device."""

@@ -16,9 +16,13 @@ and the port's own equivalence pins.
   greedy oracle of the JAX model; serial == pipelined; a swap round trip
   with ``max_slots == num_layers``; the paged backend is refused; the CLI
   runs.
+- hymba-1.5b on the dense engine: streams equal the JAX engine's on a
+  trace whose prefills all come before the first decode; serial ==
+  pipelined; a swap round trip; the paged backend is refused. whisper-base
+  has no engine path. ``launch/train.py`` trains and resumes on the CPU.
 - The one place the port departs from the reference executor: a request
   prefilled in a batch that also decodes keeps its post-prefill state in the
-  port, and not in the JAX ``RealExecutor``.
+  port, and not in the JAX ``RealExecutor`` (rwkv6 and hymba).
 - The simulator, router, cluster, autoscaler, snapshot codec and planner:
   each scenario built in both packages from the seed gives reports equal
   field for field (host-timed fields aside) and the same streams; snapshot
@@ -401,6 +405,8 @@ def test_gemma3_paged_backend_is_refused_and_dense_serial_equals_pipelined(
     ("gemma3-12b", []),
     ("qwen2.5-32b", ["--kv-backend", "paged"]),
     ("internvl2-26b", []),
+    ("hymba-1.5b", []),
+    ("hymba-1.5b", ["--engine-loop", "pipelined"]),
 ])
 def test_serve_cli_serves_the_new_archs_on_cpu(arch, argv, monkeypatch, capsys):
     """``--arch`` takes every new arch in real mode on the CPU: closed loop,
@@ -471,6 +477,132 @@ def test_rwkv6_off_batch_row_keeps_its_state_unlike_the_reference():
     assert np.abs(jstate[:, slot] - want).max() > 1e-2 * np.abs(want).max()
     got_a = port.cache["state"][:, 0].numpy()
     assert np.abs(got_a - jstate[:, 0]).max() < 1e-4 * np.abs(jstate[:, 0]).max()
+
+
+# ----------------------------------------------------------------------------
+# hymba-1.5b on the dense engine; whisper-base has no engine path; the
+# training entry point
+# ----------------------------------------------------------------------------
+HYMBA = "hymba-1.5b"
+
+
+def test_hymba_dense_streams_match_jax_engine():
+    """Greedy streams of the hymba smoke config in float32 against the JAX
+    dense engine, on a trace whose prefills all come before the first decode
+    (one relQuery of 7 rows, all at t = 0: one prefill batch, then decode
+    batches of every live row). Where a batch prefills while other rows
+    wait, the port keeps the waiting rows' state and the reference does not
+    (``test_hymba_off_batch_row_keeps_its_state_unlike_the_reference``)."""
+    jm, jp, _, _ = _models(HYMBA)
+    cfg = jax_smoke_config(HYMBA)
+    tr = dict(TRACE, num_relqueries=1, max_requests=8, rate=1e9)
+    jtrace = jax_build_trace(
+        jax_make_dataset("beer", num_rows=64, seed=1), JaxTraceConfig(**tr),
+        tokenizer=JaxHashTokenizer(vocab_size=cfg.vocab_size - 2))
+    jengine = jax_build_real_engine(HYMBA, "relserve", "dense", model=jm,
+                                    params=jp, max_len=512,
+                                    limits=JaxBatchLimits(cap=100_000))
+    jreport = jengine.run_trace(jtrace)
+    kinds = [e.kind for e in jreport.events]
+    assert kinds[0] == "prefill" and set(kinds[1:]) == {"decode"}
+    port, engine = _run(HYMBA, "dense", _trace(get_smoke_config(HYMBA), **tr))
+    assert port == _streams(jtrace) and len(port) == 7
+    assert max(r.num_prompt_tokens for rq in jtrace for r in rq.requests) \
+        > cfg.sliding_window
+    assert set(engine.executor.cache) == {"k_win", "v_win", "conv", "ssm"}
+
+
+def test_hymba_dense_serial_equals_pipelined_and_swaps_keep_streams():
+    """On a trace with mixed batches (prefills beside decodes) the port's
+    streams do not depend on the loop: the off-batch rule keeps every row
+    exact. A forced swap of a request's window rings, conv tail and SSM
+    state to the host and back continues its undisturbed stream."""
+    trace = _trace(get_smoke_config(HYMBA))
+    serial, engine = _run(HYMBA, "dense", trace)
+    pipelined, _ = _run(HYMBA, "dense", trace, engine_loop="pipelined")
+    assert serial == pipelined
+    assert all(s is None for s in engine.executor.slots)
+    _swap_roundtrip(HYMBA, "dense")
+
+
+def test_hymba_off_batch_row_keeps_its_state_unlike_the_reference():
+    """As for rwkv6: the JAX dense executor decodes every occupied row, so a
+    request prefilled in a batch that also decodes gets a spurious token-0
+    step folded into its conv tail and SSM state
+    (``repro/engine/executor.py:393-400``). The port leaves such a row
+    exactly at its post-prefill state."""
+    jm, jp, tm, tp = _models(HYMBA)
+    tok = HashTokenizer(vocab_size=tm.cfg.vocab_size - 2)
+    prompts = [tok.encode("first row of the table"),
+               tok.encode("second row, a longer one of the same table")]
+    port = RealExecutor(tm, tp, max_slots=4, max_len=128)
+    _, b = _prefill_then_mixed(port, make_relquery, Batch, prompts)
+    ref_ex = JaxRealExecutor(jm, jp, max_slots=4, max_len=128)
+    _, jb = _prefill_then_mixed(ref_ex, jax_make_relquery, JaxBatch, prompts)
+    slot = port._slot_of[b.req_id]
+    assert ref_ex._slot_of[jb.req_id] == slot == 1
+
+    n = len(prompts[1])
+    toks = np.zeros((1, _bucket(n)), np.int32)
+    toks[0, :n] = prompts[1]
+    _, alone = tm.prefill(tp, torch.from_numpy(toks),
+                          seq_lens=torch.tensor([n], dtype=torch.int32),
+                          max_len=128)
+    for name, axis in tm.cache_slot_axes().items():
+        got = port.cache[name].narrow(axis, slot, 1)
+        assert torch.equal(got, alone[name]), name
+    jssm = np.asarray(ref_ex.cache["ssm"], np.float32)
+    want = alone["ssm"][:, 0].numpy()
+    assert np.abs(jssm[:, slot] - want).max() > 1e-2 * np.abs(want).max()
+    got_a = port.cache["ssm"][:, 0].numpy()
+    assert np.abs(got_a - jssm[:, 0]).max() < 1e-5 * np.abs(jssm[:, 0]).max()
+
+
+def test_hymba_and_whisper_refused_where_the_reference_has_no_path(monkeypatch):
+    """hymba has no paged KV (ring attention + SSM state): the paged engine
+    and the CLI refuse it, naming the backend. whisper-base, an
+    encoder-decoder, has no engine path at all (the executors would prefill
+    it without frames): both backends and the CLI refuse it."""
+    from repro_torch.launch import serve
+
+    _, _, tm, tp = _models(HYMBA)
+    with pytest.raises(NotImplementedError, match="paged"):
+        build_real_engine(HYMBA, "relserve", "paged", model=tm, params=tp,
+                          device="cpu")
+    for backend in ("dense", "paged"):
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            build_real_engine("whisper-base", "relserve", backend,
+                              device="cpu")
+    for argv in (["--arch", HYMBA, "--kv-backend", "paged"],
+                 ["--arch", "whisper-base"]):
+        monkeypatch.setattr(sys, "argv", ["serve", "--device", "cpu", *argv])
+        with pytest.raises(SystemExit, match="paged|encoder-decoder"):
+            serve.main()
+
+
+def test_train_cli_runs_and_resumes_on_cpu(tmp_path, monkeypatch, capsys):
+    """``repro_torch.launch.train --device cpu``: 3 steps with a checkpoint
+    at step 2, then a rerun to 4 steps resumes from it; the reference's
+    stdout lines. Without a card and without --device it exits."""
+    from repro_torch.launch import train
+
+    ck = str(tmp_path / "ck")
+    outs = []
+    for steps in ("3", "4"):
+        monkeypatch.setattr(sys, "argv", [
+            "train", "--device", "cpu", "--steps", steps, "--ckpt-dir", ck,
+            "--ckpt-every", "2"])
+        train.main()
+        outs.append(capsys.readouterr().out)
+    assert outs[0].startswith("arch=qwen3-1.7b-smoke params=")
+    assert re.search(r"^step    0 loss=[0-9.]+ gnorm=[0-9.]+ ", outs[0], re.M)
+    assert "  checkpointed step 2" in outs[0]
+    assert "resumed from step 2" in outs[1] and "step    3 loss=" in outs[1]
+    assert "  checkpointed step 4" in outs[1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["train", "--steps", "1"])
+    with pytest.raises(SystemExit, match="device='cpu'"):
+        train.main()
 
 
 # ----------------------------------------------------------------------------

@@ -636,3 +636,110 @@ def test_rwkv6_prefill_takes_chunk_lengths_the_kernel_does_not(card, S):
     for got, want in ((lk, lp), (ck["state"], cp["state"])):
         err = float((got - want).abs().max()) / float(want.abs().max())
         assert err <= 1e-3, err
+
+
+# ----------------------------------------------------------------------------
+# the hybrid family and the training path on the card (no kernel of this repo)
+# ----------------------------------------------------------------------------
+def _rel(got, want):
+    torch.cuda.synchronize()
+    return float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+
+
+def test_hymba_decode_matches_reprefill_past_the_window_on_the_card(card):
+    """hymba-1.5b at full width cut to 2 layers, float32: a prefill of rows of
+    1100 and 1030 tokens (past the 1024-token window), then 3 decode steps,
+    each against a fresh prefill of the extended rows, to 1e-5 of the
+    largest logit; no kernel of this repo launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("hymba-1.5b").replace(dtype="float32", num_layers=2)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    n, steps = 1100, 3
+    toks = torch.randint(0, cfg.vocab_size, (2, n + steps), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    lens = torch.tensor([n, n - 70], dtype=torch.int32, device=card)
+    rows = torch.arange(2, device=card)
+    ops.reset_launch_counts()
+    _, cache = model.prefill(params, toks[:, :n], seq_lens=lens,
+                             max_len=n + steps)
+    for j in range(steps):
+        got, cache = model.decode_step(params, cache, toks[rows, lens + j],
+                                       lens + j)
+        want, _ = model.prefill(params, toks[:, :n + j + 1],
+                                seq_lens=lens + j + 1, max_len=n + steps)
+        assert _rel(got, want) <= 1e-5, j
+    assert not any(ops.launch_counts().values())
+
+
+def test_full_width_train_step_on_the_card(card):
+    """One train step of qwen3-1.7b at full width cut to 2 layers, float32:
+    the loss and the grad norm equal the CPU's on the same weights and batch
+    (1e-5 and 1e-4), so do the first moments (the clipped gradients, 1e-4 of
+    each leaf's largest value; the params are not compared: a first Adam
+    step moves each by lr times the sign of its gradient, which a rounding
+    flips where the gradient is near 0), and no kernel of this repo
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.param_utils import tree_flatten
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    cfg = get_config("qwen3-1.7b").replace(dtype="float32", num_layers=2)
+    model = build_model(cfg)
+    step = make_train_step(model, TrainConfig())
+    params = model.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(2, 64))
+                                 .astype(np.int32)) for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", card):
+        p = {k: (v.to(dev) if torch.is_tensor(v) else
+                 {kk: vv.to(dev) for kk, vv in v.items()})
+             for k, v in params.items()}
+        ops.reset_launch_counts()
+        _, opt, m = step(p, init_opt_state(p), {k: v.to(dev)
+                                                for k, v in batch.items()})
+        assert not any(ops.launch_counts().values())
+        out[str(torch.device(dev).type)] = (opt["m"], m)
+    (mom_c, mc), (mom_g, mg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(mg["grad_norm"]), float(mc["grad_norm"]),
+                               rtol=1e-4)
+    for a, b in zip(tree_flatten(mom_g)[1], tree_flatten(mom_c)[1]):
+        assert _rel(a.cpu(), b) <= 1e-4
+
+
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """Params (bf16) and optimizer state (f32, the int32 step) written from
+    the card and read back onto it bit for bit, each leaf on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.fault_tolerance import (load_checkpoint,
+                                                         save_checkpoint)
+    from repro_torch.models.param_utils import tree_flatten
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    model = build_model(get_smoke_config("hymba-1.5b"))
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    batch = {k: torch.randint(0, 256, (2, 32), device=card,
+                              generator=torch.Generator(device=card).manual_seed(1))
+             for k in ("tokens", "labels")}
+    params, opt, _ = make_train_step(model, TrainConfig(compress_grads=True))(
+        params, init_opt_state(params), batch)
+    trees = {"params": params, "opt": opt}
+    save_checkpoint(str(tmp_path), 1, trees)
+    step, back = load_checkpoint(str(tmp_path), template_trees=trees)
+    assert step == 1
+    for name in trees:
+        pa, la = tree_flatten(trees[name])
+        pb, lb = tree_flatten(back[name])
+        assert pa == pb
+        for a, b in zip(la, lb):
+            assert b.device == a.device and b.dtype == a.dtype
+            assert torch.equal(a, b)

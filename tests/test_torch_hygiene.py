@@ -1,7 +1,8 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the JAX package ``repro``; a real serve (a dense
-and an MoE smoke model), a simulated multi-replica replay with a crash and a
-planned real serve run with jax blocked; and the entry points never fall back to the CPU on their own."""
+neither jax nor anything of the JAX package ``repro``; a real serve (a dense,
+an MoE and a hybrid smoke model), a simulated multi-replica replay with a
+crash, a planned real serve and a training run with a checkpoint run with
+jax blocked; and the entry points never fall back to the CPU on their own."""
 import ast
 import os
 import subprocess
@@ -29,7 +30,10 @@ def _imported_modules(path: Path):
 def test_no_jax_or_repro_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
-    assert PORT / "models" / "moe.py" in files
+    for mod in ("models/moe.py", "models/hymba.py", "models/whisper.py",
+                "training/__init__.py", "training/optimizer.py",
+                "training/train_step.py", "launch/train.py"):
+        assert PORT / mod in files, mod
     bad = []
     for f in files:
         for mod in _imported_modules(f):
@@ -40,7 +44,9 @@ def test_no_jax_or_repro_imports():
 
 
 _SERVE_WITHOUT_JAX = r"""
+import os
 import sys
+CKPT = sys.argv[1]
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 from repro_torch.configs import get_smoke_config
@@ -66,7 +72,16 @@ moe_trace = build_trace(make_dataset("rotten", num_rows=64, seed=0),
 report = build_real_engine("granite-moe-3b-a800m", "relserve", "paged",
                            device="cpu").run_trace(moe_trace)
 assert len(report.latencies) == 2
-from repro_torch.launch import serve
+# the hybrid family on the dense engine
+hy = get_smoke_config("hymba-1.5b")
+hy_trace = build_trace(make_dataset("rotten", num_rows=64, seed=0),
+                       TraceConfig(num_relqueries=2, rate=10.0, seed=0,
+                                   max_requests=2, output_token_cap=3),
+                       tokenizer=HashTokenizer(vocab_size=hy.vocab_size - 2))
+report = build_real_engine("hymba-1.5b", "relserve", "dense",
+                           device="cpu").run_trace(hy_trace)
+assert len(report.latencies) == 2
+from repro_torch.launch import serve, train
 # a 2-replica simulated replay with a replica crash, then a planned CPU serve
 sys.argv = ["serve", "--simulate", "--num-relqueries", "8", "--rate", "3.0",
             "--max-requests", "8", "--num-replicas", "2", "--crash-at", "1.5"]
@@ -75,15 +90,20 @@ sys.argv = ["serve", "--device", "cpu", "--kv-backend", "paged", "--plan",
             "full", "--dup-row-fraction", "0.5", "--num-relqueries", "2",
             "--max-requests", "4"]
 serve.main()
+sys.argv = ["train", "--device", "cpu", "--steps", "2", "--ckpt-every", "2",
+            "--ckpt-dir", CKPT]
+train.main()
+assert os.path.isdir(os.path.join(CKPT, "step_2"))
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SERVED", sum(len(r.output_tokens) for rq in trace for r in rq.requests))
 """
 
 
-def test_serves_with_jax_blocked():
+def test_serves_with_jax_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    out = subprocess.run([sys.executable, "-c", _SERVE_WITHOUT_JAX], env=env,
+    out = subprocess.run([sys.executable, "-c", _SERVE_WITHOUT_JAX,
+                          str(tmp_path)], env=env,
                          capture_output=True, text=True, timeout=240,
                          cwd=str(REPO))
     assert out.returncode == 0, out.stderr
@@ -104,9 +124,10 @@ def test_no_device_and_no_card_raises(monkeypatch):
 # the imports rewritten from repro to repro_torch.
 VERBATIM = [
     "configs/base.py", "configs/gemma3_12b.py", "configs/granite_moe_3b.py",
-    "configs/internvl2_26b.py", "configs/qwen2_0p5b.py",
-    "configs/qwen2p5_32b.py", "configs/qwen3_1p7b.py",
-    "configs/qwen3_moe_30b.py", "configs/rwkv6_7b.py", "core/__init__.py", "core/arranger.py",
+    "configs/hymba_1p5b.py", "configs/internvl2_26b.py",
+    "configs/qwen2_0p5b.py", "configs/qwen2p5_32b.py", "configs/qwen3_1p7b.py",
+    "configs/qwen3_moe_30b.py", "configs/rwkv6_7b.py",
+    "configs/whisper_base.py", "core/__init__.py", "core/arranger.py",
     "core/batch.py", "core/latency_model.py", "core/policies.py",
     "core/predictor.py", "core/priority.py", "core/relquery.py",
     "core/scheduler.py", "data/datasets.py", "data/tables.py",
@@ -128,8 +149,9 @@ def test_framework_free_module_is_a_copy_of_the_reference(path):
 
 def test_snapshot_codec_is_the_serving_half_of_the_reference():
     """The port's codec is the reference's serving-engine half, from its
-    section header to the end of the file; the training checkpoints are not
-    in it."""
+    section header to the end of the file; the training checkpoints, before
+    that header, are rewritten in torch (their format is held by
+    tests/test_torch_transformer.py's cross-load tests)."""
     header = "# serving-engine state snapshots"
     port = (PORT / "distributed" / "fault_tolerance.py").read_text(
         encoding="utf-8").replace("repro_torch", "repro")
@@ -137,4 +159,5 @@ def test_snapshot_codec_is_the_serving_half_of_the_reference():
            ).read_text(encoding="utf-8")
     assert port[port.index(header):] == ref[ref.index(header):]
     for name in ("save_checkpoint", "load_checkpoint", "latest_step"):
-        assert f"def {name}" in ref and f"def {name}" not in port
+        assert f"def {name}" in ref[:ref.index(header)]
+        assert f"def {name}" in port[:port.index(header)]

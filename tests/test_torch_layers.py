@@ -1,5 +1,8 @@
 """Each ported primitive of ``repro_torch.models.layers`` against its JAX
-twin in ``repro.models.layers``, on the same numpy inputs.
+twin in ``repro.models.layers``, on the same numpy inputs; the training
+primitives (GELU MLP, chunked cross-entropy and its gradient, AdamW) against
+``repro.models.layers`` and ``repro.training.optimizer``; the kernel
+wrappers refuse inputs that require grad.
 
 float32 is held to 1e-5 (1e-6 for the elementwise functions), where the only
 difference left is the order of float32 sums; bfloat16 outputs to 2e-2, one
@@ -186,3 +189,160 @@ def test_ring_from_sequence(S, W, lens):
         _close(out, JL.decode_attention(jnp.asarray(q), ring_j, ring_j,
                                         jnp.asarray(pos), window=W), 1e-5)
         pos = pos + 1
+
+
+# ----------------------------------------------------------------------------
+# training primitives: the GELU MLP, the chunked cross-entropy, AdamW
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_gelu_mlp(dtype, tol):
+    x = _both(_rand(2, 5, 16), dtype)
+    w_in = _both(0.3 * _rand(16, 24, seed=1), dtype)
+    b_in = _both(0.1 * _rand(24, seed=2), dtype)
+    w_out = _both(0.3 * _rand(24, 16, seed=3), dtype)
+    b_out = _both(0.1 * _rand(16, seed=4), dtype)
+    args = list(zip(x, w_in, b_in, w_out, b_out))
+    _close(TL.gelu_mlp(*args[1]), JL.gelu_mlp(*args[0]), tol)
+
+
+@pytest.mark.parametrize("S,num_chunks,vocab_valid,z_loss", [
+    (16, 8, 0, 0.0),       # chunks of 2
+    (12, 8, 29, 0.0),      # 12 // 8 = 1 divides 12; pad columns masked
+    (20, 3, 0, 1e-2),      # 20 // 3 = 6 halves to 3, then to 1; z-loss
+    (7, 4, 30, 1e-3),      # S odd: chunks of 1
+])
+def test_chunked_softmax_xent(S, num_chunks, vocab_valid, z_loss):
+    """Sum and count against the reference, labels with -1 pads, float32:
+    the sum to 1e-5, the count exact; and the gradient of the mean loss with
+    respect to x and the vocabulary matrix to 1e-5 of its largest value."""
+    import jax
+
+    B, D, Vp = 3, 8, 32
+    x = _rand(B, S, D)
+    w = _rand(D, Vp, seed=1)
+    labels = np.random.RandomState(2).randint(0, vocab_valid or Vp,
+                                              size=(B, S)).astype(np.int32)
+    labels[0, :3] = -1
+    labels[2, -1] = -1
+    kw = dict(num_chunks=num_chunks, z_loss=z_loss, vocab_valid=vocab_valid)
+    tot_j, cnt_j = JL.chunked_softmax_xent(jnp.asarray(x), jnp.asarray(w),
+                                           jnp.asarray(labels), **kw)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    tot_t, cnt_t = TL.chunked_softmax_xent(xt, wt, torch.from_numpy(labels),
+                                           **kw)
+    assert tot_t.dtype == cnt_t.dtype == torch.float32
+    assert float(cnt_t) == float(cnt_j) == float((labels >= 0).sum())
+    np.testing.assert_allclose(float(tot_t.detach()), float(tot_j), rtol=1e-5)
+    gx, gw = torch.autograd.grad(tot_t / cnt_t, (xt, wt))
+    jgx, jgw = jax.grad(lambda a, b: (lambda t, c: t / c)(
+        *JL.chunked_softmax_xent(a, b, jnp.asarray(labels), **kw)),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    for got, want in ((gx, jgx), (gw, jgw)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want,
+                                   atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def _jax_tree(tree):
+    return {k: _jax_tree(v) if isinstance(v, dict) else jnp.asarray(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b", "whisper-base"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_update_matches_the_reference(arch, dtype):
+    """Two AdamW steps (the second from the first's state) on the smoke
+    config's parameter tree with random gradients, clipped (global norm over
+    1): new params, m, v and master within 1e-5 (float32 state), step and
+    grad norm; every param comes back in the first leaf's dtype, the
+    reference's cast."""
+    import jax
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models.registry import build_model as jax_build_model
+    from repro.training.optimizer import AdamWConfig as JaxAdamWConfig
+    from repro.training.optimizer import adamw_update as jax_adamw_update
+    from repro.training.optimizer import init_opt_state as jax_init_opt_state
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.models.param_utils import tree_flatten
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+
+    jm = jax_build_model(jax_smoke_config(arch).replace(dtype=dtype))
+    jp = jm.init_params(jax.random.PRNGKey(1))
+    rng = np.random.RandomState(3)
+    grads_np = [jax.tree.map(lambda a: (2.0 * rng.randn(*a.shape)).astype(
+        np.float32), jp) for _ in range(2)]
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    jo, to = jax_init_opt_state(jp), init_opt_state(tp)
+    cfg, jcfg = AdamWConfig(lr=1e-2), JaxAdamWConfig(lr=1e-2)
+    for g in grads_np:
+        jg = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.dtype(dtype)), g)
+        tg = params_from_numpy(jax.tree.map(np.asarray, jg))
+        jp, jo, jmet = jax_adamw_update(jp, jg, jo, jcfg)
+        tp, to, tmet = adamw_update(tp, tg, to, cfg)
+        assert float(jmet["grad_norm"]) > 1.0
+        np.testing.assert_allclose(float(tmet["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=1e-5)
+    assert to["step"].dtype == torch.int32 and int(to["step"]) == 2
+    assert to["err"] is None
+    want_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    for name, tree, jtree in (("params", tp, jp), ("m", to["m"], jo["m"]),
+                              ("v", to["v"], jo["v"]),
+                              ("master", to["master"], jo["master"])):
+        paths, leaves = tree_flatten(tree)
+        jleaves = jax.tree_util.tree_leaves(jtree)
+        assert len(leaves) == len(jleaves)
+        for p, got, want in zip(paths, leaves, jleaves):
+            want = np.asarray(want.astype(jnp.float32))
+            assert got.dtype == (want_dtype if name == "params"
+                                 else torch.float32), (name, p)
+            tol = 1e-5 if got.dtype == torch.float32 else 2 ** -8
+            np.testing.assert_allclose(got.float().numpy(), want,
+                                       atol=tol * max(np.abs(want).max(), 1e-30),
+                                       rtol=tol, err_msg=f"{name} {p}")
+
+
+def test_tree_helpers_flatten_in_jax_order():
+    """Sorted keys, '/'-joined paths, None no leaf; unflatten inverts."""
+    import jax
+
+    from repro_torch.models.param_utils import (tree_flatten, tree_map,
+                                                tree_unflatten)
+
+    tree = {"v": {"b": 1, "a": 2}, "step": 3, "err": None, "m": {"z": 4}}
+    paths, leaves = tree_flatten(tree)
+    jflat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert leaves == [leaf for _, leaf in jflat] == [4, 3, 2, 1]
+    assert paths == ["/".join(str(k.key) for k in p) for p, _ in jflat]
+    assert tree_unflatten(tree, leaves) == tree
+    assert tree_map(lambda a, b: a + b, tree, tree)["v"] == {"b": 2, "a": 4}
+
+
+@pytest.mark.parametrize("name", ["paged_attention", "flash_prefill",
+                                  "rwkv6_chunk"])
+def test_kernel_wrappers_raise_on_inputs_that_require_grad(name):
+    """The kernels are forward-only: a wrapper never returns a result that
+    autograd cannot see through, on either device."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.RandomState(0)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa: E731
+    if name == "paged_attention":
+        args = [t(1, 2, 2, 16), t(3, 4, 2, 16), t(3, 4, 2, 16),
+                torch.zeros((1, 2), dtype=torch.int32),
+                torch.ones((1,), dtype=torch.int32)]
+        grad_at = 1
+    elif name == "flash_prefill":
+        args = [t(1, 2, 16, 2, 16), t(1, 2, 16, 16), t(1, 2, 16, 16)]
+        grad_at = 0
+    else:
+        args = [t(1, 16, 2, 8), t(1, 16, 2, 8), t(1, 16, 2, 8),
+                -torch.rand(1, 16, 2, 8), t(2, 8), t(1, 2, 8, 8)]
+        grad_at = 3
+    fn = getattr(ops, name)
+    fn(*args)           # forward-only inputs run (the plain version here)
+    args[grad_at].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fn(*args)
