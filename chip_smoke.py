@@ -103,8 +103,23 @@ Phases (each raises on failure; none catches its own):
                one (deterministic algorithms)
  21. train   — one train step of each family (dense, MoE, rwkv6, hymba,
      families  whisper) at full width cut to 2 layers: finite loss and grads
-               Phases 19-21 launch no kernel of this repo (checked).
- 22. times   — each kernel, its plain version and (flash_prefill only) torch's
+               Phases 19-21 launch no kernel of this repo (checked); phase 22
+               launches flash_prefill once per layer per qwen3 prefill.
+ 22. multi-  — a one-rank NCCL process group (a file store under a temporary
+     device    directory) and a (1, 1) ("data", "model") DeviceMesh: qwen3-1.7b
+               at full width, prefilled by DenseTransformer(cfg, pc) with
+               flash_prefill, its cache resharded, then 4 sequence-parallel
+               decode steps (params and cache DTensors, every collective
+               through NCCL) against decode_step from the same cache, float32
+               at 4 layers (1e-5) and bf16 at 28 (MODEL_REL_TOL), the two
+               steps timed and the collectives of one counted;
+               granite-moe-3b-a800m with local expert parallelism against
+               moe_dispatch (float32 at 4 layers, bf16 at 32 with routes
+               replayed); a ZeRO-1 AdamW step against the plain one and
+               reshard_tree / elastic_restore of a checkpoint (qwen3-1.7b at
+               2 layers). One rank checks no cross-rank arithmetic: that is
+               tests/test_torch_layers.py's 8-rank gloo world on the CPU
+ 23. times   — each kernel, its plain version and (flash_prefill only) torch's
                SDPA timed on the device with CUDA events (calls queued behind
                a device-side sleep), beside the least time the card could
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
@@ -143,18 +158,27 @@ from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.data.trace import TraceConfig, build_trace  # noqa: E402
 from repro_torch.distributed.fault_tolerance import (  # noqa: E402
     load_checkpoint, save_checkpoint)
+from repro_torch.distributed.elastic import elastic_restore, reshard_tree  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    ParallelConfig, local_tree, place_tree)
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch.train import token_stream  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import layernorm  # noqa: E402
-from repro_torch.models.param_utils import tree_flatten, tree_map  # noqa: E402
+from repro_torch.models.param_utils import (  # noqa: E402
+    shard_params, tree_flatten, tree_map)
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.rwkv6 import _chunk_size, kernel_chunking  # noqa: E402
+from repro_torch.models.seq_parallel import (  # noqa: E402
+    SeqParallelDenseTransformer, params_from_packed, reshard_cache_from_packed)
+from repro_torch.models.transformer import DenseTransformer  # noqa: E402
 from repro_torch.planner import PlanExecutor, Planner  # noqa: E402
 from repro_torch.serving import Frontend, build_real_engine  # noqa: E402
-from repro_torch.training.optimizer import AdamWConfig, init_opt_state  # noqa: E402
-from repro_torch.training.train_step import TrainConfig, make_train_step  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    AdamWConfig, adamw_update, init_opt_state, shard_opt_state)
+from repro_torch.training.train_step import (  # noqa: E402
+    TrainConfig, loss_and_grads, make_train_step)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
@@ -281,6 +305,25 @@ TRAIN_FAMILIES = ("qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-7b",
 TRAIN_FAMILY_LAYERS = 2
 # the steps of the 25 traced on the device (first, count)
 TRAIN_PROFILE = (20, 2)
+# multi-device (phase 22): a one-rank NCCL process group and a (1, 1)
+# ("data", "model") DeviceMesh. qwen3-1.7b's sequence-parallel decode is held
+# against the single-device decode_step from the same prefill cache, in
+# float32 at MD_F32_LAYERS layers (MD_F32_REL_TOL) and in bf16 at full depth
+# (MODEL_REL_TOL), for MD_DECODE_STEPS teacher-forced steps; its step is
+# timed MD_TIMED_STEPS times beside the single-device step. granite-moe's
+# local expert-parallel dispatch is held against moe_dispatch in float32 at
+# MD_MOE_F32_LAYERS layers (MOE_F32_REL_TOL) and in bf16 at full depth with
+# routes replayed (MODEL_REL_TOL). ZeRO-1 and elastic restore run on
+# qwen3-1.7b at full width cut to TRAIN_FAMILY_LAYERS layers. A one-rank mesh
+# checks placements on the card and that every collective reaches NCCL and
+# returns, not cross-rank arithmetic (tests/test_torch_layers.py holds that
+# on 8 gloo ranks on the CPU).
+MD_DECODE_STEPS = 4
+MD_F32_LAYERS = 4
+MD_F32_REL_TOL = 1e-5
+MD_MOE_F32_LAYERS = 4
+MD_TIMED_STEPS = 10
+MD_CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_md_ckpt")
 # the checkpoint of the training phase (params and optimizer state, ~28 GB)
 # lives under the checkout's git-ignored build directory, and is removed
 CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
@@ -1930,6 +1973,238 @@ def phase_train_families(device="cuda") -> dict:
     return counts
 
 
+def md_prompts(cfg, device="cuda"):
+    """Four prompts of up to 128 tokens (rows of 120, 97, 64 and 33) and
+    MD_DECODE_STEPS teacher-forced decode tokens per row."""
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(4, 128)),
+                           dtype=torch.int32, device=device)
+    lens = torch.as_tensor((120, 97, 64, 33), dtype=torch.int32, device=device)
+    nxt = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                      size=(MD_DECODE_STEPS, 4)),
+                          dtype=torch.int32, device=device)
+    return toks, lens, nxt
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the calls of the collectives the port issues (all_reduce,
+    all_gather_into_tensor) while inside; yields the counts."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather_into_tensor": 0}
+    inner = {k: getattr(dist, k) for k in counts}
+
+    def wrap(name):
+        def fn(*a, **kw):
+            counts[name] += 1
+            return inner[name](*a, **kw)
+        return fn
+    for k in counts:
+        setattr(dist, k, wrap(k))
+    try:
+        yield counts
+    finally:
+        for k, f in inner.items():
+            setattr(dist, k, f)
+
+
+def md_seq_parallel(mesh, pc, dtype: str, layers: int, tol, timed: bool,
+                    device="cuda") -> None:
+    """qwen3-1.7b: a prefill of md_prompts on DenseTransformer(cfg, pc) with
+    the flash_prefill kernel, its cache resharded to the sequence-parallel
+    layout, then MD_DECODE_STEPS sequence-parallel decode steps on the mesh
+    against the single-device decode_step from the same cache; held to
+    ``tol``. With ``timed``: the two steps' times and the collectives of one
+    sequence-parallel step (calls, and NCCL kernels in a device trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, _, params = full_model("qwen3-1.7b", dtype, device, layers)
+    base = DenseTransformer(cfg, pc).with_prefill_attn("flash")
+    sp = SeqParallelDenseTransformer(cfg, pc, mesh)
+    sparams = shard_params(params_from_packed(params, base), sp.templates(), pc,
+                           mesh)
+    toks, lens, nxt = md_prompts(cfg, device)
+    max_len = toks.shape[1] + MD_DECODE_STEPS
+    with torch.no_grad():
+        _, cache = base.prefill(params, toks, seq_lens=lens, max_len=max_len)
+        scache = reshard_cache_from_packed(cache, base, sp)
+        check(all(x.to_local().device.type == device for x in scache.values()),
+              "the sequence-parallel cache is not on the card")
+        what = f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}"
+        for j in range(MD_DECODE_STEPS):
+            want, cache = base.decode_step(params, cache, nxt[j], lens + j)
+            got, scache = sp.decode_step(sparams, scache, nxt[j], lens + j)
+            log_rel("multi-device", f"{what}: sequence-parallel decode step {j} "
+                    f"on the (1, 1) mesh vs decode_step", got.full_tensor(),
+                    want, tol)
+        if not timed:
+            return
+        at = lens + MD_DECODE_STEPS - 1
+        plain_s, sp_s = [], []
+        for i in range(MD_TIMED_STEPS):    # in turns: plain, sp, sp, plain
+            order = ("plain", "sp") if i % 2 == 0 else ("sp", "plain")
+            for who in order:
+                if who == "plain":
+                    _, dt = sync_seconds(lambda: base.decode_step(
+                        params, cache, nxt[-1], at))
+                    plain_s.append(dt)
+                else:
+                    _, dt = sync_seconds(lambda: sp.decode_step(
+                        sparams, scache, nxt[-1], at))
+                    sp_s.append(dt)
+        with count_collectives() as calls:
+            sp.decode_step(sparams, scache, nxt[-1], at)
+        with profile(activities=[ProfilerActivity.CUDA] if device == "cuda"
+                     else [ProfilerActivity.CPU]) as prof:
+            sp.decode_step(sparams, scache, nxt[-1], at)
+            torch.cuda.synchronize()
+    nccl = sum(e.count for e in prof.key_averages() if "nccl" in e.key.lower())
+    L = cfg.num_layers
+    log(f"[multi-device] {what}, batch 4: decode step, median of "
+        f"{MD_TIMED_STEPS} (in turns): sequence-parallel on the (1, 1) NCCL "
+        f"mesh {float(np.median(sp_s)) * 1e3:.2f} ms (min "
+        f"{min(sp_s) * 1e3:.2f}), single-device decode_step "
+        f"{float(np.median(plain_s)) * 1e3:.2f} ms (min "
+        f"{min(plain_s) * 1e3:.2f}); collectives per step {calls} "
+        f"({sum(calls.values())} = 5 x {L} layers + 2; "
+        f"{sum(calls.values()) / L:.2f} per layer), NCCL kernels in a device "
+        f"trace of one step {nccl}; {nvidia_smi_line()}")
+    check(calls == {"all_reduce": 5 * L + 1, "all_gather_into_tensor": 1},
+          f"collectives per step: {calls}")
+
+
+def md_local_ep(mesh, pc, device="cuda") -> None:
+    """granite-moe-3b-a800m at full width: prefill and one decode step of
+    md_prompts with model.mesh set (moe_dispatch_local_ep; the experts placed
+    on the model axis, the rest replicated) and unset (moe_dispatch), in
+    float32 at MD_MOE_F32_LAYERS layers and in bf16 at full depth, the
+    local-EP run replaying the moe_dispatch run's routes (and, reported, on
+    its own routes)."""
+    for dtype, layers, tol in (("float32", MD_MOE_F32_LAYERS, MOE_F32_REL_TOL),
+                               ("", 0, MODEL_REL_TOL)):
+        cfg, _, params = full_model("granite-moe-3b-a800m", dtype, device, layers)
+        plain, ep = build_model(cfg, pc), build_model(cfg, pc)
+        ep.mesh = mesh
+        lp = local_tree(place_tree(params, mesh, ep.ep_param_specs()))
+        toks, lens, nxt = md_prompts(cfg, device)
+        routes = Routes()
+        runs = {}
+        with torch.no_grad():
+            for name, m, p, route in (
+                    ("moe_dispatch", plain, params, routes.record),
+                    ("local EP, replayed", ep, lp, routes.replay),
+                    ("local EP", ep, lp, contextlib.nullcontext)):
+                with route():
+                    lg, c = m.prefill(p, toks, seq_lens=lens, max_len=136)
+                    d, _ = m.decode_step(p, c, nxt[0], lens)
+                runs[name] = (lg, d)
+        what = f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}"
+        for i, step in enumerate(("prefill", "decode")):
+            want = runs["moe_dispatch"][i]
+            log_rel("multi-device", f"{what} {step}: local EP on the (1, 1) "
+                    f"mesh replaying moe_dispatch's routes vs moe_dispatch",
+                    runs["local EP, replayed"][i], want, tol)
+            log_rel("multi-device", f"{what} {step}: local EP, own routes, vs "
+                    f"moe_dispatch", runs["local EP"][i], want, None)
+        del cfg, plain, ep, params, lp, runs
+        free()
+
+
+def md_zero1_elastic(mesh, pc, device="cuda") -> None:
+    """qwen3-1.7b at full width cut to TRAIN_FAMILY_LAYERS layers, bf16:
+    one AdamW step (real gradients of one batch) on DTensor state placed by
+    opt_state_specs against the plain step, which at dp = 1 should agree bit
+    for bit (reported, and held at 1e-6 of the largest value); then
+    reshard_tree of the params and elastic_restore from a checkpoint written
+    by fault_tolerance: the same bits."""
+    cfg, _, params = full_model("qwen3-1.7b", "", device, TRAIN_FAMILY_LAYERS)
+    model = DenseTransformer(cfg, pc)
+    batch = family_batch(cfg, device)
+    _, grads = loss_and_grads(model, params, batch, True)
+    acfg = AdamWConfig(lr=TRAIN_LR)
+    pspecs = model.param_specs()
+    p1, s1, m1 = adamw_update(params, grads, init_opt_state(params), acfg)
+    z_state = shard_opt_state(init_opt_state(params), pspecs, params, pc, mesh)
+    q1, t1, n1 = adamw_update(shard_params(params, model.templates(), pc, mesh),
+                              place_tree(grads, mesh, pspecs), z_state, acfg)
+    worst, equal = 0.0, True
+    for name, got, want in (("params", q1, p1), ("m", t1["m"], s1["m"]),
+                            ("v", t1["v"], s1["v"]),
+                            ("master", t1["master"], s1["master"])):
+        for a, b in zip(tree_flatten(got)[1], tree_flatten(want)[1]):
+            a = a.full_tensor()
+            equal &= bool(torch.equal(a, b))
+            worst = max(worst, float((a.float() - b.float()).abs().max()
+                                     / b.float().abs().max().clamp(min=1e-30)))
+    log(f"[multi-device] ZeRO-1 AdamW step, {cfg.name} {cfg.num_layers} layers "
+        f"bf16 params ({model.param_count() / 1e9:.3f}B), state placed by "
+        f"opt_state_specs on the (1, 1) mesh vs the plain step: bit for bit "
+        f"{equal}, worst rel {worst:.3e}; grad norm {float(n1['grad_norm']):.6f} "
+        f"vs {float(m1['grad_norm']):.6f}")
+    check(worst <= 1e-6 and float(n1["grad_norm"]) == float(m1["grad_norm"]),
+          "the ZeRO-1 step differs from the plain step")
+    del p1, s1, q1, t1, z_state, grads
+
+    placed = reshard_tree(params, mesh, pspecs)
+    shutil.rmtree(MD_CKPT_DIR, ignore_errors=True)
+    save_checkpoint(MD_CKPT_DIR, 0, {"params": params})
+    skeleton = {"params": tree_map(lambda x: x.new_empty(0), params)}
+    _, trees = load_checkpoint(MD_CKPT_DIR, template_trees=skeleton)
+    shutil.rmtree(MD_CKPT_DIR)
+    _, restored = elastic_restore(build_model, cfg, mesh, trees)
+    paths, want = tree_flatten(params)
+    for label, tree in (("reshard_tree", placed),
+                        ("elastic_restore", restored["params"])):
+        same = same_leaves(paths, [x.full_tensor() for x in tree_flatten(tree)[1]],
+                           dict(zip(paths, want)))
+        log(f"[multi-device] {label} of the params onto the (1, 1) mesh: the "
+            f"same bits {same}")
+        check(same, f"{label} changed the parameters")
+
+
+def phase_multi_device(device="cuda") -> dict:
+    """Phase 22: the multi-device modules on a one-rank NCCL process group
+    (a file store under a temporary directory) and a (1, 1) ("data",
+    "model") DeviceMesh. Returns the path's launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if device == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1, device_id=(torch.device("cuda", torch.cuda.current_device())
+                                     if device == "cuda" else None))
+        try:
+            mesh = init_device_mesh(device, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            pc = ParallelConfig.from_mesh(mesh)
+            log(f"[multi-device] mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, "
+                f"backend {dist.get_backend(mesh.get_group('model'))}, {pc}")
+            ops.reset_launch_counts()
+            md_seq_parallel(mesh, pc, "float32", MD_F32_LAYERS, MD_F32_REL_TOL,
+                            False, device)
+            free()
+            md_seq_parallel(mesh, pc, "", 0, MODEL_REL_TOL, True, device)
+            free()
+            md_local_ep(mesh, pc, device)
+            md_zero1_elastic(mesh, pc, device)
+            counts = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    free()
+    n_prefill = MD_F32_LAYERS + get_config("qwen3-1.7b").num_layers
+    log(f"[multi-device] launches {counts}")
+    check(counts == {"paged_attention": 0, "flash_prefill": n_prefill,
+                     "rwkv6_chunk": 0},
+          f"multi-device launches {counts}: one flash_prefill per layer per "
+          f"qwen3 prefill expected ({n_prefill})")
+    return counts
+
+
 def main() -> None:
     t_start = t = time.perf_counter()
     phase_device()
@@ -1982,6 +2257,8 @@ def main() -> None:
     paths["training"] = {k: counts[k] + v for k, v in
                          phase_train_families().items()}
     t = lap("train families", t)
+    paths["multi-device"] = phase_multi_device()
+    t = lap("multi-device", t)
 
     kernels = phase_times(errs, paths)
     lap("times", t)

@@ -4,7 +4,10 @@ The caller converts a JAX pytree to numpy (``jax.tree.map(np.asarray,
 tree)``); ``params_from_numpy`` turns that tree of numpy arrays into the
 port's tree of tensors, same keys, same layouts: ``None`` (the optimizer's
 ``err`` before gradient compression fills it) stays ``None``, and a 0-d array
-(its ``step``) becomes a 0-d tensor of the same dtype. bfloat16 arrays (numpy
+(its ``step``) becomes a 0-d tensor of the same dtype. The trees have
+the JAX model's shapes at whatever tensor-parallel layout it was built for
+(``ParallelConfig.tp``: packed GQA slots, padded vocab and experts), which a
+port model built with the same ``pc`` has by construction. bfloat16 arrays (numpy
 dtype name ``bfloat16``, from ml_dtypes) pass through a ``uint16`` view, so
 the bits carry over exactly; ``numpy_from_tensor`` goes the other way (bf16
 to a ``uint16`` view, as the checkpoint files store it). This module imports

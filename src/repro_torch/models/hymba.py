@@ -78,8 +78,8 @@ class HymbaModel(DenseTransformer):
     # the conv and SSM state fold every decode step into the row
     RECURRENT_CACHE = True
 
-    def __init__(self, cfg):
-        super().__init__(cfg)
+    def __init__(self, cfg, pc=None):
+        super().__init__(cfg, pc)
         self.d_inner = cfg.ssm_expand * cfg.d_model
         self.dt_rank = max(16, cfg.d_model // 16)
 
@@ -93,17 +93,17 @@ class HymbaModel(DenseTransformer):
         G, Pg, D = self.n_groups, self.group, cfg.d_model
         Di, N, ck, dtr = self.d_inner, cfg.ssm_state, cfg.ssm_conv, self.dt_rank
         base["blocks"].update({
-            "m_in": t((G, Pg, D, 2 * Di), fan_in=D),
-            "m_conv_w": t((G, Pg, Di, ck), fan_in=ck),
-            "m_conv_b": t((G, Pg, Di), "zeros"),
-            "m_alog": t((G, Pg, Di, N), "zeros"),
-            "m_wx": t((G, Pg, Di, dtr + 2 * N), fan_in=Di),
-            "m_wdt": t((G, Pg, dtr, Di), fan_in=dtr),
-            "m_bdt": t((G, Pg, Di), "zeros"),
-            "m_dskip": t((G, Pg, Di), "ones"),
-            "m_out": t((G, Pg, Di, D), fan_in=Di),
-            "fuse_na": t((G, Pg, D), "zeros"),
-            "fuse_nm": t((G, Pg, D), "zeros"),
+            "m_in": t((G, Pg, D, 2 * Di), (None, None, None, "d_inner"), fan_in=D),
+            "m_conv_w": t((G, Pg, Di, ck), (None, None, "d_inner", None), fan_in=ck),
+            "m_conv_b": t((G, Pg, Di), (None, None, "d_inner"), "zeros"),
+            "m_alog": t((G, Pg, Di, N), (None, None, "d_inner", None), "zeros"),
+            "m_wx": t((G, Pg, Di, dtr + 2 * N), (None, None, "d_inner", None), fan_in=Di),
+            "m_wdt": t((G, Pg, dtr, Di), (None, None, None, "d_inner"), fan_in=dtr),
+            "m_bdt": t((G, Pg, Di), (None, None, "d_inner"), "zeros"),
+            "m_dskip": t((G, Pg, Di), (None, None, "d_inner"), "ones"),
+            "m_out": t((G, Pg, Di, D), (None, None, "d_inner", None), fan_in=Di),
+            "fuse_na": t((G, Pg, D), (None, None, None), "zeros"),
+            "fuse_nm": t((G, Pg, D), (None, None, None), "zeros"),
         })
         return base
 
@@ -118,6 +118,12 @@ class HymbaModel(DenseTransformer):
                                   cfg.ssm_state), dtype=torch.float32,
                                  device=device)
         return out
+
+    def cache_specs(self):
+        specs = super().cache_specs()
+        specs["conv"] = self.pc.spec(None, "batch", "d_inner", None)
+        specs["ssm"] = self.pc.spec(None, "batch", "d_inner", None)
+        return specs
 
     def cache_slot_axes(self) -> Dict[str, int]:
         return dict(super().cache_slot_axes(), conv=1, ssm=1)

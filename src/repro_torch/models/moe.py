@@ -1,6 +1,7 @@
 """Mixture-of-Experts transformer (qwen3-moe, granite-moe), the PyTorch
-counterpart of ``repro/models/moe.py``: ``moe_dispatch`` and
-``MoETransformer``, on one device.
+counterpart of ``repro/models/moe.py``: ``moe_dispatch``,
+``moe_dispatch_local_ep`` (expert-parallel on a ``DeviceMesh``) and
+``MoETransformer``.
 
 Expert dispatch uses the reference's *grouped-capacity* scheme: the
 token-expert slots are sorted by expert (stably), packed into an
@@ -27,10 +28,11 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed.sharding import round_up
 from repro_torch.models import layers as L
-from repro_torch.models.param_utils import t
+from repro_torch.models.param_utils import map_templates, t
 from repro_torch.models.transformer import DenseTransformer
 
 
@@ -121,14 +123,82 @@ def moe_dispatch(
     return gathered.reshape(T, top_k, D).sum(dim=1), rt.aux
 
 
+def moe_dispatch_local_ep(
+    x: torch.Tensor,          # [T_loc, D] this rank's data shard of the tokens
+    router_w: torch.Tensor,   # [D, E]
+    w_gate: torch.Tensor,     # [E_loc, D, F] this rank's experts (Ep / tp)
+    w_up: torch.Tensor,       # [E_loc, D, F]
+    w_down: torch.Tensor,     # [E_loc, F, D]
+    *,
+    top_k: int,
+    capacity_factor: float,
+    act: str,
+    mesh,
+    pc,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel dispatch with no token exchange, the counterpart of
+    the reference's ``shard_map``: every rank of the ``pc.tp_axis`` group
+    holds the same tokens (its data shard, replicated over the model axis)
+    and the weights of experts ``[m * E_loc, (m + 1) * E_loc)``, ``m`` its
+    index on that axis. It routes all its tokens (capacity C from its own
+    T_loc), keeps the slots routed to its experts, runs the grouped products
+    on them, and one all-reduce (sum) over the model axis combines the
+    per-expert partial outputs. The aux loss is averaged over the model axis
+    only, as the reference's ``pmean``: at dp > 1 each data shard keeps its
+    own value.
+
+    Within an expert the slots keep their token order (a stable sort), so a
+    rank's cells are the rows ``[m * E_loc, (m + 1) * E_loc)`` of the
+    single-device route's cells over the same tokens, and a slot's cell there
+    is its global cell less ``m * E_loc * C``: ``moe_route`` is reused as it
+    is (and replayed by callers that patch it)."""
+    T, D = x.shape
+    E_loc = w_gate.shape[0]
+    m = mesh.get_local_rank(pc.tp_axis)
+    group = mesh.get_group(pc.tp_axis)
+    rt = moe_route(x, router_w, E_loc * pc.tp, top_k=top_k,
+                   capacity_factor=capacity_factor)
+    C = rt.capacity
+    lo = m * E_loc
+    grouped = torch.cat([x, x.new_zeros((1, D))])[rt.tok_cell[lo:lo + E_loc]]
+    f = L.act_fn(act)
+    h = f(torch.bmm(grouped, w_gate)) * torch.bmm(grouped, w_up)
+    out_g = torch.bmm(h, w_down).reshape(E_loc * C, D)
+    out_g = torch.cat([out_g, out_g.new_zeros((1, D))])
+    dest = rt.dest - lo * C
+    dest = torch.where((dest >= 0) & (dest < E_loc * C), dest, E_loc * C)
+    gathered = out_g[dest] * rt.top_w.reshape(-1, 1).to(x.dtype)
+    out = gathered.reshape(T, top_k, D).sum(dim=1)
+    dist.all_reduce(out, group=group)                     # combine experts
+    aux = rt.aux.clone()
+    dist.all_reduce(aux, group=group)
+    return out, aux / pc.tp
+
+
 class MoETransformer(DenseTransformer):
-    """Dense transformer with the MLP swapped for grouped-capacity MoE."""
+    """Dense transformer with the MLP swapped for grouped-capacity MoE.
+
+    With ``mesh`` set (a ``DeviceMesh`` whose model axis is ``pc.tp_axis``),
+    the MLP runs ``moe_dispatch_local_ep``: the model then runs on each rank
+    over its data shard of the batch, with the attention and dense weights
+    replicated and the expert weights its own shard (``ep_param_specs``)."""
+
+    mesh = None   # set by the caller for the expert-parallel dispatch
 
     @property
     def padded_experts(self) -> int:
-        """Experts in the grouped products: the reference pads them to a TP
-        multiple; on one device that is the true count."""
-        return self.cfg.num_experts
+        """Experts in the grouped products, padded to a TP multiple with
+        zero-weight experts that the router never picks."""
+        e = self.cfg.num_experts
+        return round_up(e, self.pc.tp) if self.pc.tp > 1 else e
+
+    def ep_param_specs(self):
+        """Specs of the local expert-parallel layout: the expert dims on the
+        model axis, every other dim replicated."""
+        return map_templates(
+            lambda tm: self.pc.spec(*(n if n == "expert" else None
+                                      for n in tm.logical)),
+            self.templates())
 
     def _mlp_templates(self):
         cfg = self.cfg
@@ -145,10 +215,13 @@ class MoETransformer(DenseTransformer):
             return f
 
         return {
-            "router": t((G, Pg, D, E), fan_in=D),
-            "w_gate": t((G, Pg, Ep, D, F), custom=init_expert(D)),
-            "w_up": t((G, Pg, Ep, D, F), custom=init_expert(D)),
-            "w_down": t((G, Pg, Ep, F, D), custom=init_expert(F)),
+            "router": t((G, Pg, D, E), (None, None, None, None), fan_in=D),
+            "w_gate": t((G, Pg, Ep, D, F), (None, None, "expert", None, None),
+                        custom=init_expert(D)),
+            "w_up": t((G, Pg, Ep, D, F), (None, None, "expert", None, None),
+                      custom=init_expert(D)),
+            "w_down": t((G, Pg, Ep, F, D), (None, None, "expert", None, None),
+                        custom=init_expert(F)),
         }
 
     def _aux_weight(self) -> float:
@@ -156,6 +229,14 @@ class MoETransformer(DenseTransformer):
 
     def _mlp(self, pp, p: int, x):
         cfg = self.cfg
+        if self.pc.tp_axis is not None and self.mesh is not None:
+            # local expert-parallel dispatch, no token exchange
+            out, aux = moe_dispatch_local_ep(
+                x.reshape(-1, cfg.d_model), pp["router"][p], pp["w_gate"][p],
+                pp["w_up"][p], pp["w_down"][p], top_k=cfg.num_experts_per_tok,
+                capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
+                mesh=self.mesh, pc=self.pc)
+            return out.reshape(x.shape), aux
         out, aux = moe_dispatch(
             x.reshape(-1, cfg.d_model), pp["router"][p], pp["w_gate"][p],
             pp["w_up"][p], pp["w_down"][p], top_k=cfg.num_experts_per_tok,

@@ -1,9 +1,12 @@
-"""Parameter templates: one declaration drives shapes and initialisation.
+"""Parameter templates: one declaration drives abstract shapes, shardings
+and initialisation.
 
 A template tree mirrors the parameter tree (nested dicts); leaves are
-``ParamTemplate``. ``init_params`` draws every leaf from one explicit
-``torch.Generator`` on that generator's device, with the reference's
-distributions: normal / sqrt(fan_in), zeros, ones, or a custom draw.
+``ParamTemplate``, each with its logical axis names. ``init_params`` draws
+every leaf from one explicit ``torch.Generator`` on that generator's device,
+with the reference's distributions: normal / sqrt(fan_in), zeros, ones, or
+a custom draw; ``shard_params`` then places the tree on a ``DeviceMesh``
+by ``param_specs``.
 
 The tree helpers at the end walk parameter and optimizer-state trees in the
 order ``jax.tree_util`` does, which the optimizer's casts and the
@@ -18,24 +21,55 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ParallelConfig, place_tree, placements
+
 
 @dataclass(frozen=True)
 class ParamTemplate:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones
     fan_in: Optional[int] = None  # overrides scale for 'normal'
     # generator -> float32 tensor on the generator's device (packed weights)
     custom: Optional[Callable[[torch.Generator], torch.Tensor]] = None
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in length")
 
-def t(shape, init="normal", fan_in=None, custom=None) -> ParamTemplate:
-    return ParamTemplate(tuple(shape), init, fan_in, custom)
+
+def t(shape, logical, init="normal", fan_in=None, custom=None) -> ParamTemplate:
+    return ParamTemplate(tuple(shape), tuple(logical), init, fan_in, custom)
 
 
-def _map_leaves(fn, tree):
+def map_templates(fn, tree):
     if isinstance(tree, ParamTemplate):
         return fn(tree)
-    return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return {k: map_templates(fn, v) for k, v in tree.items()}
+
+
+def abstract_params(templates, dtype: torch.dtype = torch.bfloat16):
+    """Shapes and dtype only: a tree of tensors on the ``meta`` device."""
+    return map_templates(
+        lambda tm: torch.empty(tm.shape, dtype=dtype, device="meta"), templates)
+
+
+def param_specs(templates, pc: ParallelConfig):
+    return map_templates(lambda tm: pc.spec(*tm.logical), templates)
+
+
+def param_shardings(templates, pc: ParallelConfig, mesh):
+    """Each leaf's DTensor placements on ``mesh`` (raises on an uneven one)."""
+    return map_templates(
+        lambda tm: placements(pc.spec(*tm.logical), mesh, tm.shape), templates)
+
+
+def shard_params(params, templates, pc: ParallelConfig, mesh):
+    """``params`` (the same full tree on every rank, e.g. drawn from one
+    seed) as DTensors on ``mesh``, each leaf placed by its spec: the
+    counterpart of the reference's ``param_shardings`` + ``device_put``."""
+    return place_tree(params, mesh, param_specs(templates, pc))
 
 
 def init_params(templates, generator: torch.Generator,
@@ -57,7 +91,7 @@ def init_params(templates, generator: torch.Generator,
                         device=device)
         return (w * std).to(dtype)
 
-    return _map_leaves(init, templates)
+    return map_templates(init, templates)
 
 
 def count_params(templates) -> int:
@@ -67,7 +101,7 @@ def count_params(templates) -> int:
         total[0] += int(np.prod(tm.shape))
         return tm
 
-    _map_leaves(add, templates)
+    map_templates(add, templates)
     return total[0]
 
 

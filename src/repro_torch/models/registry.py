@@ -2,7 +2,10 @@
 entry point used by the engine, launchers and tests."""
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ParallelConfig
 from repro_torch.models.hymba import HymbaModel
 from repro_torch.models.moe import MoETransformer
 from repro_torch.models.rwkv6 import RWKV6Model
@@ -19,9 +22,9 @@ _FAMILIES = {
 }
 
 
-def build_model(cfg: ModelConfig):
+def build_model(cfg: ModelConfig, pc: Optional[ParallelConfig] = None):
     try:
         cls = _FAMILIES[cfg.family]
     except KeyError:
         raise KeyError(f"unknown family {cfg.family!r} for arch {cfg.name!r}")
-    return cls(cfg)
+    return cls(cfg, pc)

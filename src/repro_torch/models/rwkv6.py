@@ -23,7 +23,7 @@ dtype before the gate.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +31,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ParallelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.rwkv6_chunk import CHUNKS
 from repro_torch.models import layers as L
-from repro_torch.models.param_utils import count_params, init_params, t, unstack
+from repro_torch.models.param_utils import (
+    abstract_params, count_params, init_params, param_shardings, param_specs,
+    t, unstack)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -101,12 +104,13 @@ class RWKV6Model(nn.Module):
     # runs the plain version. Instance-level; see with_wkv_impl().
     wkv_impl = "kernel"
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, pc: Optional[ParallelConfig] = None):
         super().__init__()
         if cfg.d_model % cfg.rwkv_head_dim:
             raise ValueError(f"{cfg.name}: d_model {cfg.d_model} is not a "
                              f"multiple of rwkv_head_dim {cfg.rwkv_head_dim}")
         self.cfg = cfg
+        self.pc = pc or ParallelConfig.single_device()
         self.n_heads = cfg.d_model // cfg.rwkv_head_dim
         self.n_groups = cfg.num_layers
         self.group = 1
@@ -121,47 +125,56 @@ class RWKV6Model(nn.Module):
         Lyr, D, F_ = cfg.num_layers, cfg.d_model, cfg.d_ff
         mlo, dlo = cfg.rwkv_mix_lora, cfg.rwkv_decay_lora
         blocks = {
-            "ln1_s": t((Lyr, D), "ones"),
-            "ln1_b": t((Lyr, D), "zeros"),
-            "ln2_s": t((Lyr, D), "ones"),
-            "ln2_b": t((Lyr, D), "zeros"),
+            "ln1_s": t((Lyr, D), (None, None), "ones"),
+            "ln1_b": t((Lyr, D), (None, None), "zeros"),
+            "ln2_s": t((Lyr, D), (None, None), "ones"),
+            "ln2_b": t((Lyr, D), (None, None), "zeros"),
             # time-mix ddlerp
-            "mu_base": t((Lyr, D), "zeros"),
-            "mu": t((Lyr, 5, D), "zeros"),
-            "lora_a": t((Lyr, D, 5 * mlo), fan_in=D),
-            "lora_b": t((Lyr, 5, mlo, D), "zeros"),
+            "mu_base": t((Lyr, D), (None, None), "zeros"),
+            "mu": t((Lyr, 5, D), (None, None, None), "zeros"),
+            "lora_a": t((Lyr, D, 5 * mlo), (None, None, None), fan_in=D),
+            "lora_b": t((Lyr, 5, mlo, D), (None, None, None, None), "zeros"),
             # projections
-            "w_r": t((Lyr, D, D), fan_in=D),
-            "w_k": t((Lyr, D, D), fan_in=D),
-            "w_v": t((Lyr, D, D), fan_in=D),
-            "w_g": t((Lyr, D, D), fan_in=D),
-            "w_o": t((Lyr, D, D), fan_in=D),
+            "w_r": t((Lyr, D, D), (None, None, "ff"), fan_in=D),
+            "w_k": t((Lyr, D, D), (None, None, "ff"), fan_in=D),
+            "w_v": t((Lyr, D, D), (None, None, "ff"), fan_in=D),
+            "w_g": t((Lyr, D, D), (None, None, "ff"), fan_in=D),
+            "w_o": t((Lyr, D, D), (None, "ff", None), fan_in=D),
             # decay
-            "w0": t((Lyr, D), "zeros"),
-            "wd1": t((Lyr, D, dlo), fan_in=D),
-            "wd2": t((Lyr, dlo, D), "zeros"),
-            "bonus": t((Lyr, D), "zeros"),
-            "gn": t((Lyr, D), "ones"),
+            "w0": t((Lyr, D), (None, None), "zeros"),
+            "wd1": t((Lyr, D, dlo), (None, None, None), fan_in=D),
+            "wd2": t((Lyr, dlo, D), (None, None, None), "zeros"),
+            "bonus": t((Lyr, D), (None, None), "zeros"),
+            "gn": t((Lyr, D), (None, None), "ones"),
             # channel-mix
-            "mu_ck": t((Lyr, D), "zeros"),
-            "mu_cr": t((Lyr, D), "zeros"),
-            "wc_k": t((Lyr, D, F_), fan_in=D),
-            "wc_v": t((Lyr, F_, D), fan_in=F_),
-            "wc_r": t((Lyr, D, D), fan_in=D),
+            "mu_ck": t((Lyr, D), (None, None), "zeros"),
+            "mu_cr": t((Lyr, D), (None, None), "zeros"),
+            "wc_k": t((Lyr, D, F_), (None, None, "ff"), fan_in=D),
+            "wc_v": t((Lyr, F_, D), (None, "ff", None), fan_in=F_),
+            "wc_r": t((Lyr, D, D), (None, None, "ff"), fan_in=D),
         }
-        V = cfg.vocab_size          # one device: no tensor-parallel padding
+        Vp = cfg.padded_vocab(self.pc.tp)
         return {
-            "embed": t((V, D), fan_in=D),
-            "ln0_s": t((D,), "ones"),
-            "ln0_b": t((D,), "zeros"),
+            "embed": t((Vp, D), ("vocab", None), fan_in=D),
+            "ln0_s": t((D,), (None,), "ones"),
+            "ln0_b": t((D,), (None,), "zeros"),
             "blocks": blocks,
-            "final_norm": t((D,), "zeros"),
-            "lm_head": t((D, V), fan_in=D),
+            "final_norm": t((D,), (None,), "zeros"),
+            "lm_head": t((D, Vp), (None, "vocab"), fan_in=D),
         }
+
+    def abstract_params(self):
+        return abstract_params(self.templates(), self.dtype)
 
     def init_params(self, generator: torch.Generator):
         """Random parameters on ``generator.device`` in the config's dtype."""
         return init_params(self.templates(), generator, self.dtype)
+
+    def param_specs(self):
+        return param_specs(self.templates(), self.pc)
+
+    def param_shardings(self, mesh):
+        return param_shardings(self.templates(), self.pc, mesh)
 
     def param_count(self) -> int:
         return count_params(self.templates())
@@ -180,6 +193,13 @@ class RWKV6Model(nn.Module):
                                     dtype=self.dtype, device=device),
             "cm_shift": torch.zeros((Lyr, batch, cfg.d_model),
                                     dtype=self.dtype, device=device),
+        }
+
+    def cache_specs(self):
+        return {
+            "state": self.pc.spec(None, "batch", "heads", None, None),
+            "tm_shift": self.pc.spec(None, "batch", None),
+            "cm_shift": self.pc.spec(None, "batch", None),
         }
 
     @staticmethod
@@ -388,7 +408,7 @@ class RWKV6Model(nn.Module):
         return self.logits(params, x), cache
 
     def _sibling(self, cfg: ModelConfig, wkv_impl: str) -> "RWKV6Model":
-        m = type(self)(cfg)
+        m = type(self)(cfg, self.pc)
         m.wkv_impl = wkv_impl
         return m
 

@@ -23,7 +23,7 @@ the same dicts.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +31,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import GQALayout, gqa_layout
+from repro_torch.distributed.sharding import (
+    GQALayout, ParallelConfig, gqa_layout)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.param_utils import count_params, init_params, t, unstack
+from repro_torch.models.param_utils import (
+    abstract_params, count_params, init_params, param_shardings, param_specs,
+    t, unstack)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOCAL_ROPE_THETA = 10_000.0  # gemma3 uses short-rope on sliding-window layers
@@ -52,10 +55,12 @@ class DenseTransformer(nn.Module):
     # CPU). Instance-level; see with_prefill_attn().
     prefill_attn_impl = "block"
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, pc: Optional[ParallelConfig] = None):
         super().__init__()
         self.cfg = cfg
-        self.layout: GQALayout = gqa_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+        self.pc = pc or ParallelConfig.single_device()
+        self.layout: GQALayout = gqa_layout(cfg.num_heads, cfg.num_kv_heads,
+                                            self.pc.tp)
         if cfg.attn_kind == "local_global":
             self.group = cfg.local_global_pattern + 1
             if cfg.num_layers % self.group:
@@ -112,42 +117,57 @@ class DenseTransformer(nn.Module):
             return w.index_select(3, dup.to(gen.device))
 
         blocks: Dict[str, Any] = {
-            "ln1": t((G, Pg, D), "zeros"),
-            "ln2": t((G, Pg, D), "zeros"),
-            "wq": t((G, Pg, D, KVs, Qp, hd), custom=init_wq),
-            "wk": t((G, Pg, D, KVs, hd), custom=init_kv),
-            "wv": t((G, Pg, D, KVs, hd), custom=init_kv),
-            "wo": t((G, Pg, KVs, Qp, hd, D), custom=init_wo),
+            "ln1": t((G, Pg, D), (None, None, None), "zeros"),
+            "ln2": t((G, Pg, D), (None, None, None), "zeros"),
+            "wq": t((G, Pg, D, KVs, Qp, hd), (None, None, None, "kv_heads", None, None),
+                    custom=init_wq),
+            "wk": t((G, Pg, D, KVs, hd), (None, None, None, "kv_heads", None),
+                    custom=init_kv),
+            "wv": t((G, Pg, D, KVs, hd), (None, None, None, "kv_heads", None),
+                    custom=init_kv),
+            "wo": t((G, Pg, KVs, Qp, hd, D), (None, None, "kv_heads", None, None, None),
+                    custom=init_wo),
         }
         if cfg.qkv_bias:
-            blocks["bq"] = t((G, Pg, KVs, Qp, hd), "zeros")
-            blocks["bk"] = t((G, Pg, KVs, hd), "zeros")
-            blocks["bv"] = t((G, Pg, KVs, hd), "zeros")
+            blocks["bq"] = t((G, Pg, KVs, Qp, hd), (None, None, "kv_heads", None, None),
+                             "zeros")
+            blocks["bk"] = t((G, Pg, KVs, hd), (None, None, "kv_heads", None), "zeros")
+            blocks["bv"] = t((G, Pg, KVs, hd), (None, None, "kv_heads", None), "zeros")
         if cfg.qk_norm:
-            blocks["q_norm"] = t((G, Pg, hd), "zeros")
-            blocks["k_norm"] = t((G, Pg, hd), "zeros")
+            blocks["q_norm"] = t((G, Pg, hd), (None, None, None), "zeros")
+            blocks["k_norm"] = t((G, Pg, hd), (None, None, None), "zeros")
         blocks.update(self._mlp_templates())
+        Vp = cfg.padded_vocab(self.pc.tp)
         tree = {
-            "embed": t((cfg.vocab_size, D), fan_in=D),
+            "embed": t((Vp, D), ("vocab", None), fan_in=D),
             "blocks": blocks,
-            "final_norm": t((D,), "zeros"),
+            "final_norm": t((D,), (None,), "zeros"),
         }
         if not cfg.tie_embeddings:
-            tree["lm_head"] = t((D, cfg.vocab_size), fan_in=D)
+            tree["lm_head"] = t((D, Vp), (None, "vocab"), fan_in=D)
         return tree
 
     def _mlp_templates(self):
         cfg = self.cfg
         G, Pg, D, F = self.n_groups, self.group, cfg.d_model, cfg.d_ff
         return {
-            "w_gate": t((G, Pg, D, F), fan_in=D),
-            "w_up": t((G, Pg, D, F), fan_in=D),
-            "w_down": t((G, Pg, F, D), fan_in=F),
+            "w_gate": t((G, Pg, D, F), (None, None, None, "ff"), fan_in=D),
+            "w_up": t((G, Pg, D, F), (None, None, None, "ff"), fan_in=D),
+            "w_down": t((G, Pg, F, D), (None, None, "ff", None), fan_in=F),
         }
+
+    def abstract_params(self):
+        return abstract_params(self.templates(), self.dtype)
 
     def init_params(self, generator: torch.Generator):
         """Random parameters on ``generator.device`` in the config's dtype."""
         return init_params(self.templates(), generator, self.dtype)
+
+    def param_specs(self):
+        return param_specs(self.templates(), self.pc)
+
+    def param_shardings(self, mesh):
+        return param_shardings(self.templates(), self.pc, mesh)
 
     def param_count(self) -> int:
         return count_params(self.templates())
@@ -156,11 +176,16 @@ class DenseTransformer(nn.Module):
     def _window(self, max_len: int) -> int:
         return min(self.cfg.sliding_window or max_len, max_len)
 
+    @property
+    def cache_heads(self) -> int:
+        """KV heads of a cache row: the packed layout's slots."""
+        return self.layout.kv_slots
+
     def init_cache(self, batch: int, max_len: int, device=None):
         """Dense KV cache: ``k_full``/``v_full [G, n_full, batch, max_len,
         KVs, hd]`` for global layers, ring buffers ``k_win``/``v_win
         [G, n_win, batch, W, KVs, hd]`` for window layers."""
-        tail = (batch, max_len, self.layout.kv_slots, self.cfg.head_dim)
+        tail = (batch, max_len, self.cache_heads, self.cfg.head_dim)
         out = {}
         if self.n_full:
             shp = (self.n_groups, self.n_full) + tail
@@ -172,11 +197,17 @@ class DenseTransformer(nn.Module):
             out["v_win"] = torch.zeros(shp, dtype=self.dtype, device=device)
         return out
 
+    def _kv_names(self):
+        return (("k_full", "v_full") if self.n_full else ()) + (
+            ("k_win", "v_win") if self.n_win else ())
+
+    def cache_specs(self):
+        spec = self.pc.spec(None, None, "batch", None, "kv_heads", None)
+        return {name: spec for name in self._kv_names()}
+
     def cache_slot_axes(self) -> Dict[str, int]:
         """Axis of each dense-cache entry that indexes the sequence (slot)."""
-        names = (("k_full", "v_full") if self.n_full else ()) + (
-            ("k_win", "v_win") if self.n_win else ())
-        return {name: 2 for name in names}
+        return {name: 2 for name in self._kv_names()}
 
     # ---------------------------------------------------------------- paged cache
     def supports_paged(self) -> bool:
@@ -329,7 +360,7 @@ class DenseTransformer(nn.Module):
         prefill attention runs via ``impl`` ('block' | 'flash')."""
         if impl not in ("block", "flash"):
             raise ValueError(f"unknown prefill attention impl {impl!r}")
-        m = type(self)(self.cfg)
+        m = type(self)(self.cfg, self.pc)
         m.prefill_attn_impl = impl
         return m
 
@@ -425,8 +456,14 @@ class DenseTransformer(nn.Module):
 
     def logits(self, params, hidden):
         if self.cfg.tie_embeddings:
-            return hidden @ params["embed"].T
-        return hidden @ params["lm_head"]
+            lg = hidden @ params["embed"].T
+        else:
+            lg = hidden @ params["lm_head"]
+        V, Vp = self.cfg.vocab_size, lg.shape[-1]
+        if Vp > V:   # vocab padded to the TP multiple: mask pad columns
+            lg = lg.masked_fill(torch.arange(Vp, device=lg.device) >= V,
+                                L.NEG_INF)
+        return lg
 
     # ------------------------------------------------------------- public steps
     def train_loss(self, params, batch, *, remat=True):
@@ -506,6 +543,6 @@ class DenseTransformer(nn.Module):
     def with_layers(self, num_layers: int) -> "DenseTransformer":
         """Same arch with a different layer count (a multiple of the group);
         the prefill attention impl carries over."""
-        m = type(self)(self.cfg.replace(num_layers=num_layers))
+        m = type(self)(self.cfg.replace(num_layers=num_layers), self.pc)
         m.prefill_attn_impl = self.prefill_attn_impl
         return m

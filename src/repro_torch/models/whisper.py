@@ -17,14 +17,17 @@ There is no engine path, as in the reference: the executors call
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import gqa_layout
+from repro_torch.distributed.sharding import ParallelConfig, gqa_layout
 from repro_torch.models import layers as L
-from repro_torch.models.param_utils import count_params, init_params, t, unstack
+from repro_torch.models.param_utils import (
+    abstract_params, count_params, init_params, param_shardings, param_specs,
+    t, unstack)
 from repro_torch.models.transformer import _DTYPES, DenseTransformer
 
 
@@ -43,10 +46,11 @@ class WhisperModel(nn.Module):
 
     KERNELS = ()
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, pc: Optional[ParallelConfig] = None):
         super().__init__()
         self.cfg = cfg
-        self.layout = gqa_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+        self.pc = pc or ParallelConfig.single_device()
+        self.layout = gqa_layout(cfg.num_heads, cfg.num_kv_heads, self.pc.tp)
         self.n_groups = cfg.num_layers
         self.group = 1
 
@@ -85,22 +89,24 @@ class WhisperModel(nn.Module):
             return w.index_select(2, dup.to(gen.device))
 
         return {
-            "wq": t((Lyr, D, KVs, Qp, hd), custom=init_wq),
-            "bq": t((Lyr, KVs, Qp, hd), "zeros"),
-            "wk": t((Lyr, D, KVs, hd), custom=init_kv),
-            "wv": t((Lyr, D, KVs, hd), custom=init_kv),
-            "bv": t((Lyr, KVs, hd), "zeros"),
-            "wo": t((Lyr, KVs, Qp, hd, D), custom=init_wo),
-            "bo": t((Lyr, D), "zeros"),
+            "wq": t((Lyr, D, KVs, Qp, hd), (None, None, "kv_heads", None, None),
+                    custom=init_wq),
+            "bq": t((Lyr, KVs, Qp, hd), (None, "kv_heads", None, None), "zeros"),
+            "wk": t((Lyr, D, KVs, hd), (None, None, "kv_heads", None), custom=init_kv),
+            "wv": t((Lyr, D, KVs, hd), (None, None, "kv_heads", None), custom=init_kv),
+            "bv": t((Lyr, KVs, hd), (None, "kv_heads", None), "zeros"),
+            "wo": t((Lyr, KVs, Qp, hd, D), (None, "kv_heads", None, None, None),
+                    custom=init_wo),
+            "bo": t((Lyr, D), (None, None), "zeros"),
         }
 
     def _mlp_templates(self, Lyr: int):
         D, F_ = self.cfg.d_model, self.cfg.d_ff
         return {
-            "w_in": t((Lyr, D, F_), fan_in=D),
-            "b_in": t((Lyr, F_), "zeros"),
-            "w_out": t((Lyr, F_, D), fan_in=F_),
-            "b_out": t((Lyr, D), "zeros"),
+            "w_in": t((Lyr, D, F_), (None, None, "ff"), fan_in=D),
+            "b_in": t((Lyr, F_), (None, "ff"), "zeros"),
+            "w_out": t((Lyr, F_, D), (None, "ff", None), fan_in=F_),
+            "b_out": t((Lyr, D), (None, None), "zeros"),
         }
 
     def templates(self):
@@ -110,8 +116,8 @@ class WhisperModel(nn.Module):
         def norms(Lyr, names):
             out = {}
             for n in names:
-                out[f"{n}_s"] = t((Lyr, D), "ones")
-                out[f"{n}_b"] = t((Lyr, D), "zeros")
+                out[f"{n}_s"] = t((Lyr, D), (None, None), "ones")
+                out[f"{n}_b"] = t((Lyr, D), (None, None), "zeros")
             return out
 
         enc = norms(Le, ("ln1", "ln2"))
@@ -122,22 +128,36 @@ class WhisperModel(nn.Module):
         dec.update({f"xa_{k}": v for k, v in self._attn_templates(Ld).items()})
         dec.update(self._mlp_templates(Ld))
         return {
-            "embed": t((cfg.vocab_size, D), fan_in=D),
-            "pos_dec": t((cfg.max_target_len, D), fan_in=D),
+            "embed": t((cfg.padded_vocab(self.pc.tp), D), ("vocab", None), fan_in=D),
+            "pos_dec": t((cfg.max_target_len, D), (None, None), fan_in=D),
             "enc": enc,
             "dec": dec,
-            "enc_norm_s": t((D,), "ones"),
-            "enc_norm_b": t((D,), "zeros"),
-            "dec_norm_s": t((D,), "ones"),
-            "dec_norm_b": t((D,), "zeros"),
+            "enc_norm_s": t((D,), (None,), "ones"),
+            "enc_norm_b": t((D,), (None,), "zeros"),
+            "dec_norm_s": t((D,), (None,), "ones"),
+            "dec_norm_b": t((D,), (None,), "zeros"),
         }
+
+    def abstract_params(self):
+        return abstract_params(self.templates(), self.dtype)
 
     def init_params(self, generator: torch.Generator):
         """Random parameters on ``generator.device`` in the config's dtype."""
         return init_params(self.templates(), generator, self.dtype)
 
+    def param_specs(self):
+        return param_specs(self.templates(), self.pc)
+
+    def param_shardings(self, mesh):
+        return param_shardings(self.templates(), self.pc, mesh)
+
     def param_count(self) -> int:
         return count_params(self.templates())
+
+    def cache_specs(self):
+        kv = self.pc.spec(None, "batch", None, "kv_heads", None)
+        return {"k_self": kv, "v_self": kv, "k_cross": kv, "v_cross": kv,
+                "frame_lens": self.pc.spec("batch")}
 
     # ---------------------------------------------------------------- blocks
     @staticmethod

@@ -1,6 +1,14 @@
-"""AdamW with float32 master weights, the PyTorch counterpart of
-``repro/training/optimizer.py`` on one device (its ZeRO-1 sharding,
-``zero1_spec`` / ``opt_state_specs``, waits for the multi-device port).
+"""AdamW with float32 master weights and ZeRO-1 optimizer-state sharding,
+the PyTorch counterpart of ``repro/training/optimizer.py``.
+
+Optimizer state (m, v, master) is sharded over the data-parallel axes on the
+first free (unsharded, divisible) dimension of each tensor, on top of the
+parameter's tensor-parallel sharding (``opt_state_specs``; placed as
+DTensors by ``shard_opt_state``). ``adamw_update`` then runs the ZeRO-1
+schedule explicitly: each gradient is redistributed to its state's placement
+(from ``Partial``, a reduce-scatter; from ``Replicate``, a slice), each rank
+updates its shard in place, and the new parameters are gathered back to
+their own placement (an all-gather over the data-parallel axes).
 
 The update is the reference's own formula, not ``torch.optim.AdamW``'s:
 gradients clipped by their global norm, then
@@ -11,9 +19,13 @@ order). Trees are nested dicts of tensors (``param_utils.tree_*``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (
+    ParallelConfig, PartitionSpec, place_tree)
 from repro_torch.models.param_utils import tree_flatten, tree_map
 
 
@@ -42,8 +54,63 @@ def init_opt_state(params):
     }
 
 
+def abstract_opt_state(abstract_params):
+    """Shapes and dtypes of ``init_opt_state``'s tree (``meta`` tensors)."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")  # noqa: E731
+    return {
+        "m": tree_map(f32, abstract_params),
+        "v": tree_map(f32, abstract_params),
+        "master": tree_map(f32, abstract_params),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+        "err": None,
+    }
+
+
+def zero1_spec(spec: PartitionSpec, shape: Tuple[int, ...],
+               pc: ParallelConfig) -> PartitionSpec:
+    """Add DP sharding on the first free divisible dim of a param spec."""
+    if not pc.dp_axes or pc.dp <= 1:
+        return spec
+    used = set()
+    for e in spec:
+        for a in (e if isinstance(e, (tuple, list)) else (e,)):
+            used.add(a)
+    if any(a in used for a in pc.dp_axes):
+        return spec   # already DP-sharded (e.g. FSDP params)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (s, dim) in enumerate(zip(entries, shape)):
+        if s is None and dim % pc.dp == 0 and dim >= pc.dp:
+            entries[i] = pc.dp_axes if len(pc.dp_axes) > 1 else pc.dp_axes[0]
+            return PartitionSpec(*entries)
+    return spec  # nothing shardable: stay param-sharded (small tensor)
+
+
+def opt_state_specs(param_specs, abstract_params, pc: ParallelConfig):
+    zp = tree_map(lambda sp, t: zero1_spec(sp, t.shape, pc), param_specs,
+                  abstract_params)
+    return {"m": zp, "v": zp, "master": zp, "step": PartitionSpec(), "err": None}
+
+
+def shard_opt_state(state, param_specs, params, pc: ParallelConfig, mesh):
+    """``state`` with m, v and master placed on ``mesh`` by their ZeRO-1
+    specs (``params`` gives the shapes); step and err pass through."""
+    specs = opt_state_specs(param_specs, params, pc)
+    return dict(state, **{k: place_tree(state[k], mesh, specs[k])
+                          for k in ("m", "v", "master")})
+
+
+def _full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    """The gradients' global L2 norm, a plain tensor on every rank (each
+    DTensor leaf's sum of squares reduced across the ranks)."""
+    return torch.sqrt(sum(_full(torch.sum(torch.square(g.float())))
                           for g in tree_flatten(tree)[1]))
 
 
@@ -52,7 +119,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     """One AdamW step on the float32 masters -> (params in the first leaf's
     dtype, state, metrics). ``state``'s m, v and master are updated in place
     (the reference's jit wrapper donates them); each is computed as the
-    reference's expression, operation for operation."""
+    reference's expression, operation for operation. On DTensor state each
+    rank updates its own shards; the parameters come back in the placements
+    of ``params``."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -60,6 +129,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     c1, c2 = 1 - cfg.b1 ** stepf, 1 - cfg.b2 ** stepf
 
     def upd(g, m, v, master):
+        if isinstance(m, DTensor):      # to the state's shard: ZeRO-1
+            g = g.redistribute(m.device_mesh, m.placements).to_local()
+        m, v, master = _local(m), _local(v), _local(master)
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
@@ -69,7 +141,14 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
 
     tree_map(upd, grads, state["m"], state["v"], state["master"])
     dtype = tree_flatten(params)[1][0].dtype
-    new_params = tree_map(lambda w: w.to(dtype, copy=True), state["master"])
+
+    def cast(w, p):
+        w = w.to(dtype, copy=True)
+        if isinstance(w, DTensor):      # gathered to the param's placement
+            w = w.redistribute(p.device_mesh, p.placements)
+        return w
+
+    new_params = tree_map(cast, state["master"], params)
     new_state = {"m": state["m"], "v": state["v"], "master": state["master"],
                  "step": step, "err": state.get("err")}
     return new_params, new_state, {"grad_norm": gnorm}

@@ -743,3 +743,68 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
         for a, b in zip(la, lb):
             assert b.device == a.device and b.dtype == a.dtype
             assert torch.equal(a, b)
+
+
+def test_one_rank_nccl_mesh_on_the_card(card, tmp_path):
+    """A one-rank NCCL process group and a (1, 1) ("data", "model") mesh on
+    the card, at smoke size in float32: sequence-parallel decode (params and
+    cache DTensors on cuda, every collective through NCCL) against the
+    single-device decode_step, and the MoE model with local expert
+    parallelism against moe_dispatch, to 1e-5 of the largest logit. One rank
+    checks no cross-rank arithmetic (tests/test_torch_layers.py holds that on
+    8 gloo ranks)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import ParallelConfig, local_tree, place_tree
+    from repro_torch.models.moe import MoETransformer
+    from repro_torch.models.param_utils import shard_params
+    from repro_torch.models.seq_parallel import (
+        SeqParallelDenseTransformer, params_from_packed, reshard_cache_from_packed)
+    from repro_torch.models.transformer import DenseTransformer
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        pc = ParallelConfig.from_mesh(mesh)
+        assert dist.get_backend(mesh.get_group("model")) == "nccl"
+        gen = torch.Generator(device=card).manual_seed(0)
+        rng = np.random.RandomState(0)
+        toks = torch.as_tensor(rng.randint(0, 256, (3, 12)), dtype=torch.int32,
+                               device=card)
+        lens = torch.tensor([12, 7, 3], dtype=torch.int32, device=card)
+        nxt = torch.as_tensor(rng.randint(0, 256, (2, 3)), dtype=torch.int32,
+                              device=card)
+
+        cfg = get_smoke_config("qwen3-1.7b").replace(dtype="float32")
+        base = DenseTransformer(cfg, pc)
+        sp = SeqParallelDenseTransformer(cfg, pc, mesh)
+        params = base.init_params(gen)
+        sparams = shard_params(params_from_packed(params, base), sp.templates(),
+                               pc, mesh)
+        _, cache = base.prefill(params, toks, seq_lens=lens, max_len=16)
+        scache = reshard_cache_from_packed(cache, base, sp)
+        assert scache["k_full"].to_local().device.type == "cuda"
+        for j in range(2):
+            want, cache = base.decode_step(params, cache, nxt[j], lens + j)
+            got, scache = sp.decode_step(sparams, scache, nxt[j], lens + j)
+            got = got.full_tensor()
+            assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+        cfg = get_smoke_config("granite-moe-3b-a800m").replace(dtype="float32")
+        plain, ep = MoETransformer(cfg, pc), MoETransformer(cfg, pc)
+        ep.mesh = mesh
+        params = plain.init_params(gen)
+        lp = local_tree(place_tree(params, mesh, ep.ep_param_specs()))
+        outs = []
+        for m, p in ((plain, params), (ep, lp)):
+            lg, c = m.prefill(p, toks, seq_lens=lens, max_len=16)
+            d, _ = m.decode_step(p, c, nxt[0], lens)
+            outs.append((lg, d))
+        for got, want in zip(outs[1], outs[0]):
+            assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    finally:
+        dist.destroy_process_group()

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the JAX package ``repro``; a real serve (a dense,
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+entry module of the spawned gloo ranks import neither jax nor anything of
+the JAX package ``repro``; a real serve (a dense,
 an MoE and a hybrid smoke model), a simulated multi-replica replay with a
 crash, a planned real serve and a training run with a checkpoint run with
 jax blocked; and the entry points never fall back to the CPU on their own."""
@@ -32,7 +33,9 @@ def test_no_jax_or_repro_imports():
     assert len(files) > 30
     for mod in ("models/moe.py", "models/hymba.py", "models/whisper.py",
                 "training/__init__.py", "training/optimizer.py",
-                "training/train_step.py", "launch/train.py"):
+                "training/train_step.py", "launch/train.py",
+                "models/seq_parallel.py", "distributed/elastic.py",
+                "distributed/sharding.py"):
         assert PORT / mod in files, mod
     bad = []
     for f in files:
@@ -41,6 +44,17 @@ def test_no_jax_or_repro_imports():
             if root in ("jax", "jaxlib", "repro", "ml_dtypes"):
                 bad.append(f"{f.relative_to(REPO)}: {mod}")
     assert not bad, bad
+
+
+def test_spawned_mesh_ranks_import_neither_jax_nor_repro():
+    """The entry module of the gloo ranks that tests/test_torch_layers.py
+    spawns imports torch, numpy and repro_torch only (the ranks also report
+    their sys.modules: test_torch_layers.py::
+    test_gloo_ranks_import_neither_jax_nor_repro)."""
+    worker = REPO / "tests" / "_torch_mesh_worker.py"
+    roots = {mod.split(".")[0] for mod in _imported_modules(worker)}
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, roots
 
 
 _SERVE_WITHOUT_JAX = r"""

@@ -4,6 +4,15 @@ primitives (GELU MLP, chunked cross-entropy and its gradient, AdamW) against
 ``repro.models.layers`` and ``repro.training.optimizer``; the kernel
 wrappers refuse inputs that require grad.
 
+The multi-device half: ``ParallelConfig``, the specs of every arch and of
+the sequence-parallel model, ZeRO-1 specs and GQA packing against
+``repro.distributed.sharding`` and ``repro.training.optimizer``; the packed
+layouts at tp 4 on one device against the JAX models; then one gloo world
+of 8 ranks (``tests/_torch_mesh_worker.py``, spawned once for the file)
+against one JAX process with 8 host devices at the same meshes: sequence-
+parallel decode, local expert-parallel dispatch, shard placement, ZeRO-1
+AdamW and elastic restore.
+
 float32 is held to 1e-5 (1e-6 for the elementwise functions), where the only
 difference left is the order of float32 sums; bfloat16 outputs to 2e-2, one
 or two bf16 roundings apart. The cache writes are exact.
@@ -13,10 +22,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.distributed import sharding as JS  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro.models.registry import build_model as jax_build_model  # noqa: E402
+from repro.models.seq_parallel import SeqParallelDenseTransformer as JaxSP  # noqa: E402
+from repro.training import optimizer as JO  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.distributed import sharding as TS  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.models.seq_parallel import SeqParallelDenseTransformer  # noqa: E402
+from repro_torch.training import optimizer as TO  # noqa: E402
 
 
 def _rand(*shape, seed=0):
@@ -346,3 +367,497 @@ def test_kernel_wrappers_raise_on_inputs_that_require_grad(name):
     args[grad_at].requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         fn(*args)
+
+
+# --------------------------------------------------------------------------
+# multi-device: specs, packed layouts at tp > 1, and a gloo world of 8 ranks
+# --------------------------------------------------------------------------
+
+# the three layouts the specs are held under: one device, the reference's
+# (2, 4) ("data", "model") test mesh, and (2, 2, 2) ("pod", "data", "model")
+PCS = {"single": ((), None, 1, 1),
+       "data2_model4": (("data",), "model", 4, 2),
+       "pod2_data2_model2": (("pod", "data"), "model", 2, 4)}
+
+
+def _jax_leaves(tree, is_leaf=None):
+    """{'a/b': leaf} of a JAX pytree (None is no leaf)."""
+    return {"/".join(str(k.key) for k in path): x for path, x in
+            jax.tree_util.tree_flatten_with_path(tree, is_leaf=is_leaf)[0]}
+
+
+def _port_leaves(tree):
+    from repro_torch.models.param_utils import tree_flatten
+    return dict(zip(*tree_flatten(tree)))
+
+
+def _same_specs(port, ref):
+    """Two spec trees, leaf for leaf (path, entries)."""
+    from jax.sharding import PartitionSpec
+    want = {k: tuple(v) for k, v in _jax_leaves(
+        ref, is_leaf=lambda x: isinstance(x, PartitionSpec)).items()}
+    got = {k: tuple(v) for k, v in _port_leaves(port).items()}
+    assert got == want
+
+
+class _Mesh:
+    """What ``placements`` reads of a DeviceMesh: its dim names and shape."""
+
+    def __init__(self, shape, names):
+        self.shape, self.mesh_dim_names = shape, names
+
+
+@pytest.mark.parametrize("pc_name", list(PCS))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_specs_equal_the_reference(arch, pc_name):
+    """Template shapes, param_specs, cache_specs and ZeRO-1 opt_state_specs
+    of every arch (and the sequence-parallel model's, for the dense ones)
+    equal the JAX package's, leaf for leaf, under each layout."""
+    tpc, jpc = TS.ParallelConfig(*PCS[pc_name]), JS.ParallelConfig(*PCS[pc_name])
+    jm = jax_build_model(jax_smoke_config(arch), jpc)
+    tm = build_model(get_smoke_config(arch), tpc)
+    models = [(tm, jm)]
+    if type(tm).__name__ == "DenseTransformer":
+        models.append((SeqParallelDenseTransformer(get_smoke_config(arch), tpc),
+                       JaxSP(jax_smoke_config(arch), jpc)))
+    for t, j in models:
+        shapes = {k: tuple(v.shape) for k, v in _jax_leaves(j.abstract_params()).items()}
+        abstract = t.abstract_params()
+        assert {k: tuple(v.shape) for k, v in _port_leaves(abstract).items()} == shapes
+        assert all(v.device.type == "meta" for v in _port_leaves(abstract).values())
+        _same_specs(t.param_specs(), j.param_specs())
+        _same_specs(t.cache_specs(), j.cache_specs())
+        _same_specs(TO.opt_state_specs(t.param_specs(), abstract, tpc),
+                    JO.opt_state_specs(j.param_specs(), j.abstract_params(), jpc))
+        assert {k: tuple(v.shape) for k, v in _port_leaves(
+            TO.abstract_opt_state(abstract)).items()} == {
+            k: tuple(v.shape) for k, v in _jax_leaves(
+                JO.abstract_opt_state(j.abstract_params())).items()}
+        if tpc.tp_axis:      # placements on a mesh of the layout's shape
+            names = tpc.dp_axes + (tpc.tp_axis,)
+            mesh = _Mesh((2,) * len(tpc.dp_axes) + (tpc.tp,), names)
+            specs = _port_leaves(t.param_specs())
+            for path, pl in _port_leaves(t.param_shardings(mesh)).items():
+                assert pl == TS.placements(specs[path], mesh,
+                                           _port_leaves(abstract)[path].shape)
+
+
+def test_zero1_spec_and_parallel_config_on_hand_made_cases():
+    P = TS.PartitionSpec
+    pc = TS.ParallelConfig(("pod", "data"), "model", 2, 4)
+    cases = [((None, "model"), (8, 6)), (("model", None), (6, 8)),
+             ((None, None), (3, 8)), ((None,), (2,)),
+             ((("pod", "data"), None), (8, 8)), ((), (4, 5))]
+    for spec, shape in cases:
+        got = TO.zero1_spec(P(*spec), shape, pc)
+        want = JO.zero1_spec(jax.sharding.PartitionSpec(*spec), shape,
+                             JS.ParallelConfig(("pod", "data"), "model", 2, 4))
+        assert tuple(got) == tuple(want) and isinstance(got, P), (spec, shape)
+    assert tuple(TO.zero1_spec(P(None, "model"), (8, 6), pc)) == (("pod", "data"), "model")
+    assert TO.zero1_spec(P("model"), (8,), TS.ParallelConfig.single_device()) == P("model")
+    one = TS.ParallelConfig(("data",), "model", 4, 2)
+    assert tuple(one.spec("batch", "ff", None)) == ("data", "model", None)
+    assert tuple(pc.spec("batch", "vocab")) == (("pod", "data"), "model")
+    assert tuple(TS.ParallelConfig.single_device().spec("batch", "heads")) == (None, None)
+    with pytest.raises(ValueError, match="unknown logical axis"):
+        pc.spec("rows")
+
+
+def test_placements_and_uneven_shards():
+    from torch.distributed.tensor import Replicate, Shard
+    P = TS.PartitionSpec
+    m = _Mesh((2, 2, 2), ("pod", "data", "model"))
+    assert TS.placements(P(("pod", "data"), None, "model"), m, (8, 3, 4)) == [
+        Shard(0), Shard(0), Shard(2)]
+    assert TS.placements(P(None), m, (5,)) == [Replicate()] * 3
+    pc = TS.ParallelConfig.from_mesh(m)
+    assert (pc.dp_axes, pc.tp_axis, pc.tp, pc.dp) == (("pod", "data"), "model", 2, 4)
+    for spec, shape in ((P("model"), (5,)), (P(None, ("pod", "data")), (2, 6)),
+                        (P(("data", "pod")), (8,)), (P("model", "model"), (4, 4)),
+                        (P("expert"), (4,))):
+        with pytest.raises(ValueError):
+            TS.placements(spec, m, shape)
+
+
+@pytest.mark.parametrize("head_axis", [0, 1, 2])
+@pytest.mark.parametrize("H,KV,tp", [(4, 2, 4), (3, 1, 4), (40, 8, 16), (8, 8, 2)])
+def test_gqa_packing_is_the_reference_bit_for_bit(H, KV, tp, head_axis):
+    rng = np.random.RandomState(0)
+    tl, jl = TS.gqa_layout(H, KV, tp), JS.gqa_layout(H, KV, tp)
+    assert (tl.kv_slots, tl.q_per_slot, tl.dup_map, tl.q_map) == (
+        jl.kv_slots, jl.q_per_slot, jl.dup_map, jl.q_map)
+    shape = [3, 5, 7]
+    shape[head_axis] = H
+    w = rng.randn(*shape).astype(np.float32)
+    packed = TS.pack_q_weight(w, tl, head_axis)
+    assert packed.tobytes() == JS.pack_q_weight(w, jl, head_axis).tobytes()
+    back = TS.unpack_q_output(packed, tl, head_axis)
+    assert back.tobytes() == JS.unpack_q_output(packed, jl, head_axis).tobytes()
+    assert back.tobytes() == w.tobytes()
+    shape[head_axis] = KV
+    kv = rng.randn(*shape).astype(np.float32)
+    assert TS.pack_kv_weight(kv, tl, head_axis).tobytes() == \
+        JS.pack_kv_weight(kv, jl, head_axis).tobytes()
+    assert TS.shardable(tl.kv_slots, tp) and TS.tp_dim(H * 16, TS.ParallelConfig(
+        tp=tp)) == JS.tp_dim(H * 16, JS.ParallelConfig(tp=tp))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m"])
+def test_packed_layout_at_tp4_on_one_device_equals_the_reference(arch):
+    """DenseTransformer / MoETransformer built for tp 4 (packed GQA slots, the
+    vocab padded from 250 to 252 with its pad logits masked, granite's 5
+    experts padded to 8 zero-weight ones), on weights carried from JAX built
+    with ParallelConfig(tp=4): prefill and decode logits at 1e-5 in float32,
+    pad columns included."""
+    import jax.numpy as jnp
+
+    from repro_torch.bridge import params_from_numpy
+    cfg = dict(vocab_size=250, dtype="float32")
+    jm = jax_build_model(jax_smoke_config(arch).replace(**cfg), JS.ParallelConfig(tp=4))
+    tm = build_model(get_smoke_config(arch).replace(**cfg), TS.ParallelConfig(tp=4))
+    jp = jm.init_params(jax.random.PRNGKey(3))
+    rng = np.random.RandomState(4)
+    jp["blocks"] = dict(jp["blocks"], **{
+        k: jnp.asarray(0.1 * rng.randn(*jp["blocks"][k].shape), jnp.float32)
+        for k in ("ln1", "ln2", "q_norm", "k_norm") if k in jp["blocks"]})
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    assert tm.layout.kv_slots == 4 and tp["embed"].shape[0] == 252
+    if arch.startswith("granite"):
+        assert tm.padded_experts == 8
+        assert not tp["blocks"]["w_gate"][:, :, 5:].any()
+    toks = rng.randint(0, 250, (3, 12)).astype(np.int32)
+    lens = np.array([12, 7, 3], np.int32)
+    nxt = rng.randint(0, 250, (3,)).astype(np.int32)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), seq_lens=jnp.asarray(lens), max_len=16)
+    jd, _ = jm.decode_step(jp, jc, jnp.asarray(nxt), jnp.asarray(lens))
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks), seq_lens=torch.from_numpy(lens),
+                        max_len=16)
+    td, _ = tm.decode_step(tp, tc, torch.from_numpy(nxt), torch.from_numpy(lens))
+    for got, want in ((tl, jl), (td, jd)):
+        want = np.asarray(want)
+        assert (want[:, 250:] == -1e30).all() and (got[:, 250:] == -1e30).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want[:, :250]).max())
+
+
+@pytest.mark.parametrize("arch,tp", [("qwen3-1.7b", 4), ("qwen2-0.5b", 4),
+                                     ("qwen2-0.5b", 1)])
+def test_params_from_packed_inverts_the_reference_packing(arch, tp):
+    """Canonical attention weights packed by the reference's pack_q_weight /
+    pack_kv_weight at ``tp`` (duplicated KV slots, zero pad Q slots), then
+    params_from_packed: the canonical weights back, bit for bit, in the
+    sequence-parallel model's template shapes."""
+    from repro_torch.models.seq_parallel import params_from_packed
+    from repro_torch.models.transformer import DenseTransformer
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    pc = TS.ParallelConfig(tp=tp)
+    base, sp = DenseTransformer(cfg, pc), SeqParallelDenseTransformer(cfg, pc)
+    lay, jl = base.layout, JS.gqa_layout(cfg.num_heads, cfg.num_kv_heads, tp)
+    rng = np.random.RandomState(0)
+    canon = {k: rng.randn(*v.shape).astype(np.float32)
+             for k, v in _port_leaves(sp.abstract_params()["blocks"]).items()}
+    G, Pg, D = base.n_groups, base.group, cfg.d_model
+    H, hd = cfg.num_heads, cfg.head_dim
+    packed = dict(canon)
+    packed["wq"] = JS.pack_q_weight(canon["wq"], jl, 3).reshape(
+        G, Pg, D, lay.kv_slots, lay.q_per_slot, hd)
+    packed["wk"] = JS.pack_kv_weight(canon["wk"], jl, 3)
+    packed["wv"] = JS.pack_kv_weight(canon["wv"], jl, 3)
+    packed["wo"] = JS.pack_q_weight(canon["wo"].reshape(G, Pg, H, hd, D), jl, 2
+                                    ).reshape(G, Pg, lay.kv_slots, lay.q_per_slot, hd, D)
+    if cfg.qkv_bias:
+        packed["bq"] = JS.pack_q_weight(canon["bq"], jl, 2).reshape(
+            G, Pg, lay.kv_slots, lay.q_per_slot, hd)
+        packed["bk"] = JS.pack_kv_weight(canon["bk"], jl, 2)
+        packed["bv"] = JS.pack_kv_weight(canon["bv"], jl, 2)
+    for k, v in packed.items():
+        assert v.shape == tuple(base.abstract_params()["blocks"][k].shape), k
+    back = params_from_packed(
+        {"blocks": {k: torch.from_numpy(v) for k, v in packed.items()}}, base)
+    for k, v in canon.items():
+        assert back["blocks"][k].numpy().tobytes() == v.tobytes(), k
+
+
+_JAX_MESH_SCRIPT = r"""import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_config
+from repro.distributed.sharding import ParallelConfig, pack_kv_weight, pack_q_weight
+from repro.launch.mesh import compat_make_mesh, compat_set_mesh
+from repro.launch.hlo_stats import collective_stats
+from repro.models.moe import moe_dispatch_local_ep
+from repro.models.registry import build_model
+from repro.models.seq_parallel import SeqParallelDenseTransformer, reshard_cache_from_packed
+from repro.models.transformer import DenseTransformer
+from repro.training.optimizer import opt_state_specs
+
+out = {}
+mesh = compat_make_mesh((2, 4), ("data", "model"))
+compat_set_mesh(mesh)
+pc = ParallelConfig.from_mesh(mesh)
+
+
+def coords(m):
+    return {d.id: "_".join(map(str, i)) for i, d in np.ndenumerate(m.devices)}
+
+
+def flat(tree, prefix, is_leaf=None):
+    for path, x in jax.tree_util.tree_flatten_with_path(tree, is_leaf=is_leaf)[0]:
+        yield prefix + "/" + "/".join(str(k.key) for k in path), x
+
+
+# -- sequence-parallel decode: qwen3 (2 layers) and gemma3 (5 window : 1)
+for arch in ("qwen3-1.7b", "gemma3-12b"):
+    cfg = get_smoke_config(arch).replace(vocab_size=254, dtype="float32")
+    if arch == "qwen3-1.7b":
+        cfg = cfg.replace(num_layers=2)
+    base, sp = DenseTransformer(cfg, pc), SeqParallelDenseTransformer(cfg, pc, mesh=mesh)
+    rng = np.random.RandomState(0)
+    ps = jax.tree.map(lambda s: (0.1 * rng.randn(*s.shape)).astype(np.float32),
+                      sp.abstract_params())
+    lay, b = base.layout, dict(ps["blocks"])
+    G, Pg, D = sp.n_groups, sp.group, cfg.d_model
+    H, hd = cfg.num_heads, cfg.head_dim
+    b["wq"] = pack_q_weight(ps["blocks"]["wq"], lay, head_axis=3).reshape(
+        G, Pg, D, lay.kv_slots, lay.q_per_slot, hd)
+    b["wk"] = pack_kv_weight(ps["blocks"]["wk"], lay, head_axis=3)
+    b["wv"] = pack_kv_weight(ps["blocks"]["wv"], lay, head_axis=3)
+    b["wo"] = pack_q_weight(ps["blocks"]["wo"].reshape(G, Pg, H, hd, D), lay,
+                            head_axis=2).reshape(G, Pg, lay.kv_slots, lay.q_per_slot, hd, D)
+    pb = dict(ps, blocks=b)
+    B, S, MAX = 2, 12, 16
+    toks = jnp.asarray(rng.randint(0, cfg.vocab_size, (B, S)), jnp.int32)
+    lens = jnp.asarray([12, 7], jnp.int32)
+    _, cache_b = base.prefill(jax.tree.map(jnp.asarray, pb), toks, seq_lens=lens, max_len=MAX)
+    cache_sp = reshard_cache_from_packed(cache_b, base, sp)
+    tok1 = rng.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
+    tok2 = rng.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
+    step = jax.jit(sp.decode_step)
+    psj = jax.tree.map(jnp.asarray, ps)
+    hlo = step.lower(psj, cache_sp, jnp.asarray(tok1), lens).compile().as_text()
+    for kind, n in collective_stats(hlo).counts.items():
+        out[f"sp/{arch}/gspmd/{kind}"] = np.int32(n)
+    lg1, c1 = step(psj, cache_sp, jnp.asarray(tok1), lens)
+    lg2, c2 = step(psj, c1, jnp.asarray(tok2), lens + 1)
+    key = f"sp/{arch}"
+    out.update({k: np.asarray(v) for k, v in flat(ps, key + "/params")})
+    out.update({k: np.asarray(v) for k, v in flat(cache_b, key + "/cache_b")})
+    out.update({k: np.asarray(v) for k, v in flat(c2, key + "/cache2")})
+    out.update({key + "/pos": np.asarray(lens), key + "/tok1": tok1,
+                key + "/tok2": tok2, key + "/lg1": np.asarray(lg1),
+                key + "/lg2": np.asarray(lg2)})
+
+# -- local expert parallelism with capacity drops: 6 experts padded to 8
+rng = np.random.RandomState(1)
+T, D, F, E, Ep, K = 32, 16, 24, 6, 8, 2
+x = rng.randn(T, D).astype(np.float32)
+router = rng.randn(D, E).astype(np.float32)
+x[:, 0] = np.abs(x[:, 0]) + 2.0        # skew the router to experts 0 and 1:
+router[0, :2] = (2.0, 1.5)             # their slots overflow capacity
+mask = (np.arange(Ep) < E).astype(np.float32)[:, None, None]
+wg, wu = (0.2 * rng.randn(Ep, D, F).astype(np.float32) * mask for _ in range(2))
+wd = 0.2 * rng.randn(Ep, F, D).astype(np.float32) * mask
+o, aux = jax.jit(lambda *a: moe_dispatch_local_ep(
+    *a, top_k=K, capacity_factor=1.0, act="silu", mesh=mesh, pc=pc))(x, router, wg, wu, wd)
+out.update({"ep/x": x, "ep/router": router, "ep/wg": wg, "ep/wu": wu,
+            "ep/wd": wd, "ep/out": np.asarray(o), "ep/top_k": np.int32(K)})
+c24 = coords(mesh)
+for sh in aux.addressable_shards:
+    out[f"ep/aux/{c24[sh.device.id]}"] = np.asarray(sh.data)
+
+# -- placement of granite's params, ZeRO-1 master and cache at (2, 4), (2, 2, 2)
+for name, shape, names in (("24", (2, 4), ("data", "model")),
+                           ("222", (2, 2, 2), ("pod", "data", "model"))):
+    m = compat_make_mesh(shape, names)
+    pcm = ParallelConfig.from_mesh(m)
+    model = build_model(get_smoke_config("granite-moe-3b-a800m").replace(dtype="float32"), pcm)
+    params = model.init_params(jax.random.PRNGKey(1))
+    specs = model.param_specs()
+    rng = np.random.RandomState(2)
+    cache = jax.tree.map(lambda s: rng.randn(*s.shape).astype(np.float32),
+                         model.cache_struct(8, 16))
+    trees = {"params": (params, specs),
+             "master": (params, opt_state_specs(specs, model.abstract_params(), pcm)["master"]),
+             "cache": (cache, model.cache_specs())}
+    cm = coords(m)
+    isp = lambda s: isinstance(s, P)
+    for tname, (tree, tspecs) in trees.items():
+        leaves = dict(flat(tree, f"place/{name}/{tname}"))
+        lspecs = dict(flat(tspecs, f"place/{name}/{tname}", is_leaf=isp))
+        for path, leaf in leaves.items():
+            arr = jax.device_put(leaf, NamedSharding(m, lspecs[path]))
+            out[path + "/full"] = np.asarray(leaf)
+            for sh in arr.addressable_shards:
+                out[f"{path}/{cm[sh.device.id]}"] = np.asarray(sh.data)
+
+# -- JAX refuses an uneven input sharding
+try:
+    jax.jit(lambda a: a * 2, in_shardings=NamedSharding(mesh, P("model", None)))(
+        np.zeros((6, 4), np.float32))
+    out["uneven_refused"] = np.bool_(False)
+except ValueError:
+    out["uneven_refused"] = np.bool_(True)
+
+np.savez(sys.argv[1], **out)
+print("WROTE", len(out))
+"""
+
+WORLD_DEADLINE_S = 200     # under pytest.ini's 300 s per test
+
+
+def _run_world(workdir, npz):
+    """8 spawned ranks of tests/_torch_mesh_worker.py; every rank must exit
+    0 before the deadline (else all are killed and the test fails with the
+    first rank's traceback). Returns each rank's readings."""
+    import json
+    import time
+
+    import _torch_mesh_worker as worker
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=worker.main, args=(r, str(workdir), str(npz)))
+             for r in range(worker.WORLD)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + WORLD_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errs = [(workdir / f"rank{r}.err") for r in range(worker.WORLD)]
+    errs = [e.read_text() for e in errs if e.exists()]
+    assert not late, f"ranks {late} passed the {WORLD_DEADLINE_S} s deadline; {errs[:1]}"
+    assert all(p.exitcode == 0 for p in procs), errs[:1] or [p.exitcode for p in procs]
+    return [json.loads((workdir / f"rank{r}.json").read_text())
+            for r in range(worker.WORLD)]
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    """The JAX package's values at (2, 4) and (2, 2, 2) from one process with
+    8 host devices, then the port's 8-rank gloo world on them."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    workdir = tmp_path_factory.mktemp("mesh_world")
+    npz = workdir / "ref.npz"
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _JAX_MESH_SCRIPT, str(npz)],
+                          env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return np.load(npz), _run_world(workdir, npz)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b"])
+def test_seq_parallel_decode_on_a_gloo_mesh_equals_the_reference(mesh_world, arch):
+    """Two sequence-parallel decode steps at (2, 4) from JAX's prefill cache
+    (resharded by reshard_cache_from_packed), the second reading the first's
+    cache write (gemma3: window layers whose ring wraps), equal JAX's at (2,
+    4) to 1e-5 of the largest logit in float32; the caches after them too."""
+    _, ranks = mesh_world
+    for r in ranks:
+        got = r["sp"][arch]
+        assert got["err1"] < 1e-5 and got["err2"] < 1e-5, got
+        assert got["cache_err"] < 1e-5 and got["pad_masked"], got
+        # the port's collective calls per step: five all-reduces per layer
+        # (QKV partials, the merge's max and its sums, o-projection, MLP),
+        # the embedding's all-reduce and the logits' all-gather. The
+        # reference's compiled step (XLA:CPU, after its combiner passes) is
+        # recorded beside them in "gspmd" (PERF.md §6 cites both)
+        L = 2 if arch == "qwen3-1.7b" else 6
+        assert got["collectives"] == {"all_reduce": 5 * L + 1,
+                                      "all_gather_into_tensor": 1}, got
+        assert sum(got["gspmd"].values()) > 0, got
+        # each rank holds a quarter of the sequence: 16 // 4, the rings 8 // 4
+        assert got["local_seq"] == dict(
+            {"k_full": 4, "v_full": 4},
+            **({"k_win": 2, "v_win": 2} if arch == "gemma3-12b" else {}))
+
+
+def test_local_ep_dispatch_with_drops_equals_the_reference(mesh_world):
+    """moe_dispatch_local_ep at (2, 4), 6 experts padded to 8, capacity
+    factor 1 with a skewed router so that slots drop: every rank's output
+    rows equal JAX's to 1e-5, and its aux equals the JAX device's at the
+    same coordinate. That aux is the model-axis mean of the rank's own data
+    shard, so the two data shards read different values though the
+    reference declares the output replicated (ROADMAP §3, known)."""
+    _, ranks = mesh_world
+    assert sum(r["ep"]["dropped"] for r in ranks) > 0
+    for r in ranks:
+        assert r["ep"]["err"] < 1e-5, r["ep"]
+        assert abs(r["ep"]["aux"] - r["ep"]["aux_jax"]) < 1e-6 * r["ep"]["aux_jax"]
+    by_data = {r["coord24"][0]: r["ep"]["aux_jax"] for r in ranks}
+    assert by_data[0] != by_data[1]
+
+
+@pytest.mark.parametrize("mesh", ["24", "222"])
+def test_placed_shards_equal_the_reference_bit_for_bit(mesh_world, mesh):
+    """granite's smoke params (kv slots, vocab, experts on the model axis),
+    their ZeRO-1 master (plus a DP axis) and a cache (batch over the DP
+    axes): every rank's local shard equals, bit for bit and in shape, the
+    addressable shard of the JAX device at the same mesh coordinate."""
+    _, ranks = mesh_world
+    for r in ranks:
+        assert r["place"][mesh]["leaves"] == 26 and not r["place"][mesh]["bad"], r["place"]
+
+
+def test_jax_refuses_an_uneven_sharding_and_so_does_the_port(mesh_world):
+    ref, _ = mesh_world
+    assert bool(ref["uneven_refused"])
+    with pytest.raises(ValueError, match="uneven"):
+        TS.placements(TS.PartitionSpec("model", None), _Mesh((2, 4), ("data", "model")),
+                      (6, 4))
+
+
+def test_moe_model_with_local_ep_on_a_gloo_mesh_equals_one_device(mesh_world):
+    """granite's smoke MoETransformer at (2, 4) with model.mesh set: each rank
+    prefills and decodes its data shard's rows with its 2 of 8 experts, and
+    equals the single-device model to 1e-5 (capacity set so nothing drops)."""
+    _, ranks = mesh_world
+    for r in ranks:
+        got = r["moe_model"]
+        assert got["prefill_err"] < 1e-5 and got["decode_err"] < 1e-5, got
+        assert (got["local_experts"], got["padded_experts"]) == (2, 8)
+
+
+def test_zero1_adamw_on_a_gloo_mesh_equals_one_device(mesh_world):
+    """Two AdamW steps on state placed by opt_state_specs at (2, 4), gradients
+    Partial over data (reduce-scattered to the state): params, m, v and
+    master equal the single-device steps to 1e-6; local state shards have
+    the shapes of JAX's at the same coordinate; params return to their own
+    placement."""
+    _, ranks = mesh_world
+    for r in ranks:
+        z = r["zero1"]
+        assert max(z["err"].values()) < 1e-6, z
+        assert all(abs(a - b) <= 1e-6 * a for a, b in z["norms"]), z
+        assert z["shapes_ok"] and z["params_placed"] and z["step"] == 2
+        assert z["dp_sharded_leaves"] > 0
+
+
+def test_elastic_restore_moves_a_checkpoint_between_gloo_meshes(mesh_world):
+    """A bf16 checkpoint written by fault_tolerance, elastic_restore'd onto
+    (2, 4) then (4, 2): the full tensors keep its bits; the other tree
+    passes through."""
+    _, ranks = mesh_world
+    for r in ranks:
+        e = r["elastic"]
+        assert (e["24"]["tp"], e["42"]["tp"]) == (4, 2)
+        for k in ("24", "42"):
+            assert e[k]["same_bits"] and e[k]["opt_passes"] and e[k]["sharded"] > 0
+
+
+def test_gloo_ranks_import_neither_jax_nor_repro(mesh_world):
+    _, ranks = mesh_world
+    assert all(r["imported"] == [] for r in ranks)
