@@ -103,8 +103,8 @@ Phases (each raises on failure; none catches its own):
                one (deterministic algorithms)
  21. train   — one train step of each family (dense, MoE, rwkv6, hymba,
      families  whisper) at full width cut to 2 layers: finite loss and grads
-               Phases 19-21 launch no kernel of this repo (checked); phase 22
-               launches flash_prefill once per layer per qwen3 prefill.
+               Phases 19-21 launch no kernel of this repo (checked); phases 22
+               and 23 launch flash_prefill once per layer per qwen3 prefill.
  22. multi-  — a one-rank NCCL process group (a file store under a temporary
      device    directory) and a (1, 1) ("data", "model") DeviceMesh: qwen3-1.7b
                at full width, prefilled by DenseTransformer(cfg, pc) with
@@ -119,7 +119,21 @@ Phases (each raises on failure; none catches its own):
                reshard_tree / elastic_restore of a checkpoint (qwen3-1.7b at
                2 layers). One rank checks no cross-rank arithmetic: that is
                tests/test_torch_layers.py's 8-rank gloo world on the CPU
- 23. times   — each kernel, its plain version and (flash_prefill only) torch's
+ 23. tp      — the whole-model tensor-parallel forward on a one-rank NCCL
+     forward,  (1, 1) mesh (DTensor weights placed by param_specs) against the
+     cells,    single-device path: prefill and decode logits, train loss and
+     dry run   gradients of qwen3-1.7b (float32 at 4 layers, 1e-6 / 1e-5;
+               bf16 at 28, MODEL_REL_TOL) and granite-moe-3b-a800m (float32
+               at 4 layers, routes replayed); then qwen3-1.7b's prefill_32k,
+               decode_32k and train_4k cells (launch/cells.py) run for real
+               at full width and depth in bf16, cut in batch only (32 -> 1,
+               128 -> 8, 256 -> 2), each step timed (median of 5 after a
+               warm-up) beside its roofline bound, mfu and bound_share;
+               flash_prefill at S 32768 on layer 0's q/k/v against its plain
+               version over query blocks (q_offset), its grid under 65535;
+               the production meshes' dry run (launch/dryrun.py) of
+               qwen3-1.7b and granite-moe-3b-a800m in four subprocesses
+ 24. times   — each kernel, its plain version and (flash_prefill only) torch's
                SDPA timed on the device with CUDA events (calls queued behind
                a device-side sleep), beside the least time the card could
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
@@ -153,6 +167,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.priority import BatchLimits  # noqa: E402
 from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.data.trace import TraceConfig, build_trace  # noqa: E402
@@ -163,6 +178,8 @@ from repro_torch.distributed.sharding import (  # noqa: E402
     ParallelConfig, local_tree, place_tree)
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch.cells import build_cell, materialize, use_kernels  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS, roofline_row  # noqa: E402
 from repro_torch.launch.train import token_stream  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import layernorm  # noqa: E402
@@ -332,6 +349,37 @@ CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
 # phase's time (the four whole-serve profiles ~510 s of a 807 s run on an
 # H100, 700 W, before they were windowed)
 PROFILE_WINDOW = (4, 16)
+# the tensor-parallel forward and the cells (phase 23). On the (1, 1) NCCL
+# mesh the TP forward of qwen3-1.7b (and granite-moe-3b-a800m, routes
+# replayed) is held against the single-device path: prefill and decode
+# logits, the train loss and its gradients, in float32 at TP_F32_LAYERS
+# layers (logits and loss to TP_F32_REL_TOL of the largest, gradients to
+# TP_GRAD_REL_TOL of each leaf's largest) and in bf16 at full depth
+# (MODEL_REL_TOL). One rank: every collective is a one-rank NCCL call, so the
+# two paths do the same arithmetic, in places in another form (the masked
+# vocab lookup, the local shards' products); tests/test_torch_layers.py
+# holds the cross-rank arithmetic on 8 gloo ranks.
+TP_F32_LAYERS = 4
+TP_F32_REL_TOL = 1e-6
+TP_GRAD_REL_TOL = 1e-5
+# qwen3-1.7b's cells run for real at full width and depth in bf16, each cut
+# only where one card's 80 GB forces it: (name, seq_len, batch, the cut)
+CELL_ARCH = "qwen3-1.7b"
+CELLS = (("prefill_32k", 32768, 1, "batch 32 -> 1"),
+         ("decode_32k", 32768, 8, "batch 128 -> 8"),
+         ("train_4k", 4096, 2, "batch 256 -> 2 (grad_accum 2 kept)"))
+CELL_STEPS = 5
+# flash_prefill at S = 32768 against its plain version, evaluated over query
+# blocks of FLASH_BLOCK rows with q_offset (32768^2 scores at once would not
+# fit): each block at the bf16 tolerance and, since a late block's outputs
+# (averages over up to 32768 values) lie below that tolerance, to the f32
+# result rounded once (assert_rounded_once's limit). The grid's y dimension
+# must stay under CUDA's 65535
+FLASH_BLOCK = 1024
+GRID_Y_MAX = 65535
+# the production meshes' dry run, in a subprocess (every row ok, or skipped
+# where supports_shape says so)
+DRYRUN_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m")
 
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "flash_prefill": "src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -922,9 +970,15 @@ class Routes:
             rt = next(it)
             check(rt.top_i.shape[0] == x.shape[0], "replayed a route of "
                   "another batch")
-            w = torch.softmax((x @ router_w).float(), dim=-1).gather(1, rt.top_i)
+            probs = torch.softmax((x @ router_w).float(), dim=-1)
+            w = probs.gather(1, rt.top_i)
+            # the aux loss on the recorded first choices and this run's
+            # probabilities: moe_route's value, differentiable in this run
+            E = probs.shape[1]
+            frac = (rt.top_i[:, :1] == torch.arange(E, device=x.device)).float()
             return rt._replace(
-                top_w=w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9))
+                top_w=w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9),
+                aux=E * torch.sum(frac.mean(dim=0) * probs.mean(dim=0)))
         with self._patched(rep):
             yield
         check(next(it, None) is None, "a replay used fewer routes than the "
@@ -1506,12 +1560,13 @@ def time_prefill(dt, label: str, **shape) -> dict:
             "library_ms": lib}
 
 
-def phase_times(errs: dict, paths: dict) -> list:
+def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
     """The kernels' record at the main-path (qwen3-1.7b) inputs of phase 3;
     the attention kernels are also timed at the MoE models' shapes.
     ``paths``: each serve's own launch counts (counters set to 0 before it
     and read after it); a record's ``launches`` is their sum and
-    ``launches_by_path`` splits it."""
+    ``launches_by_path`` splits it. flash_prefill's record also carries its
+    time at S 32768 from the prefill cell (``at_32k``)."""
     def launches(name):
         by_path = {path: got[name] for path, got in paths.items()
                    if name in got}
@@ -1526,6 +1581,8 @@ def phase_times(errs: dict, paths: dict) -> list:
         out.append(dict({"name": name, "route": "cuda", "source": SOURCES[name],
                          "replaces": REPLACES[name], **launches(name),
                          "max_abs_err": errs[name]}, **rec))
+        if name == "flash_prefill":
+            out[-1]["at_32k"] = flash_32k
         for label, KV, R, hd in MOE_SHAPES:
             timer(dt, label, **({"KV": KV, "Qp": R, "hd": hd}
                                 if name == "paged_attention"
@@ -2205,6 +2262,352 @@ def phase_multi_device(device="cuda") -> dict:
     return counts
 
 
+# ----------------------------------------------------------------------------
+# phase 23: the tensor-parallel forward, qwen3-1.7b's cells, the dry run
+# ----------------------------------------------------------------------------
+def leaf_rel(got, want) -> float:
+    """Worst leaf of two gradient trees: max |got - want| over the leaf's
+    largest |want|."""
+    worst = 0.0
+    for a, b in zip(tree_flatten(got)[1], tree_flatten(want)[1]):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        scale = float(b.float().abs().max())
+        worst = max(worst, max_err(a, b) / max(scale, 1e-30))
+    return worst
+
+
+def tp_forward_check(arch: str, dtype: str, layers: int, mesh, pc, tol,
+                     grad_tol, device="cuda") -> None:
+    """``arch`` at full width (``layers`` layers if given, in ``dtype``):
+    the TP forward (DTensor weights placed by param_specs on the (1, 1)
+    mesh, flash_prefill on the rank's heads) against the single-device
+    model on the same weights: prefill and decode logits of md_prompts, the
+    train loss and gradients of family_batch (remat off). An MoE model's TP
+    run replays the single-device run's routes."""
+    cfg, single, params = full_model(arch, dtype, device, layers)
+    single = single.with_prefill_attn("flash")
+    tp = build_model(cfg, pc).with_prefill_attn("flash")
+    tp.mesh = mesh
+    dparams = shard_params(params, tp.templates(), pc, mesh)
+    toks, lens, nxt = md_prompts(cfg, device)
+    batch = family_batch(cfg, device)
+    routes = Routes()
+    moe_model = cfg.family == "moe"
+    runs = {}
+    for name, m, p, route in (
+            ("single", single, params,
+             routes.record if moe_model else contextlib.nullcontext),
+            ("tp", tp, dparams,
+             routes.replay if moe_model else contextlib.nullcontext)):
+        with route():
+            with torch.no_grad():
+                lg, cache = m.prefill(p, toks, seq_lens=lens, max_len=136)
+                dec, _ = m.decode_step(p, cache, nxt[0], lens)
+            loss, grads = loss_and_grads(m, p, batch, False)
+        full = (lambda x: x.full_tensor()) if name == "tp" else (lambda x: x)
+        runs[name] = (full(lg), full(dec), loss, grads)
+        del cache
+    what = f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}" + (
+        ", routes replayed" if moe_model else "")
+    for i, step in enumerate(("prefill", "decode")):
+        log_rel("tp forward", f"{what} {step}: the TP forward on the (1, 1) "
+                f"mesh vs one device", runs["tp"][i], runs["single"][i], tol)
+    l_t, l_s = float(runs["tp"][2]), float(runs["single"][2])
+    g_rel = leaf_rel(runs["tp"][3], runs["single"][3])
+    log(f"[tp forward] {what} train loss: TP {l_t:.7f} vs one device "
+        f"{l_s:.7f} (rel {abs(l_t - l_s) / abs(l_s):.3e}); gradients' worst "
+        f"leaf rel {g_rel:.3e} (tol {tol:g} and {grad_tol:g})")
+    check(math.isfinite(l_t) and abs(l_t - l_s) <= tol * abs(l_s),
+          f"{what}: the TP loss differs from one device's")
+    check(g_rel <= grad_tol, f"{what}: the TP gradients differ")
+
+
+def phase_tp_forward(device="cuda") -> dict:
+    """The whole-model TP forward on a one-rank NCCL process group and a
+    (1, 1) ("data", "model") DeviceMesh against the single-device path.
+    Returns its launch counts: one flash_prefill per layer per prefill, the
+    TP and the single-device run each."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import tensor_parallel as TP
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if device == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1, device_id=(torch.device("cuda", torch.cuda.current_device())
+                                     if device == "cuda" else None))
+        try:
+            mesh = init_device_mesh(device, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            pc = ParallelConfig.from_mesh(mesh)
+            ops.reset_launch_counts()
+            TP.reset_collective_counts()
+            tp_forward_check(CELL_ARCH, "float32", TP_F32_LAYERS, mesh, pc,
+                             TP_F32_REL_TOL, TP_GRAD_REL_TOL, device)
+            free()
+            tp_forward_check(CELL_ARCH, "", 0, mesh, pc, MODEL_REL_TOL,
+                             MODEL_REL_TOL, device)
+            free()
+            tp_forward_check("granite-moe-3b-a800m", "float32", TP_F32_LAYERS,
+                             mesh, pc, TP_F32_REL_TOL, TP_GRAD_REL_TOL, device)
+            counts = ops.launch_counts()
+            calls = TP.collective_counts()
+        finally:
+            dist.destroy_process_group()
+    free()
+    n_prefill = 2 * (2 * TP_F32_LAYERS + get_config(CELL_ARCH).num_layers)
+    log(f"[tp forward] launches {counts}; tensor-parallel collectives issued "
+        f"(every one through NCCL) {calls}")
+    check(counts == {"paged_attention": 0, "flash_prefill": n_prefill,
+                     "rwkv6_chunk": 0},
+          f"tp forward launches {counts}: one flash_prefill per layer per "
+          f"prefill expected ({n_prefill})")
+    check(calls.get("all_reduce", 0) > 0 and calls.get("all_gather_into_tensor", 0) > 0,
+          f"the TP forward issued no collective: {calls}")
+    return counts
+
+
+def flash_prefill_at_32k(cell, args) -> dict:
+    """flash_prefill on layer 0's q/k/v of the prefill cell's prompt (S =
+    32768) against its plain version over query blocks of FLASH_BLOCK rows
+    (``q_offset``, keys up to the block's end); then its time beside
+    torch's SDPA and the bound. Not counted: these launches only compare."""
+    from repro_torch.models import layers as Lyr
+
+    model, params, toks = cell.model, args[0], args[1]
+    pp = {k: v[0] for k, v in params["blocks"].items()}
+    with torch.no_grad():
+        x = model.embed_tokens(params, toks)
+        h = Lyr.rmsnorm(x, pp["ln1"][0], model.cfg.norm_eps)
+        pos = Lyr.causal_positions(toks.shape[1], toks.shape[0], toks.device)
+        q, k, v = model._qkv(pp, 0, h, pos, "global")
+        q, k, v = q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2)
+        del x, h
+        B, G, S, R, hd = q.shape
+        grid = (B * G, (S * R + 63) // 64)
+        check(grid[1] <= GRID_Y_MAX, f"flash_prefill's grid {grid} passes "
+              f"gridDim.y's {GRID_Y_MAX}")
+        out = ops.flash_prefill(q, k, v, causal=True)
+        tol = TOL[("flash_prefill", torch.bfloat16)]
+        f32 = 2 * TOL[("flash_prefill", torch.float32)]
+        q32, k32, v32 = upcast((q, k, v))
+        err, ok, worst = 0.0, True, (0.0, 0, 0.0)
+        for lo in range(0, S, FLASH_BLOCK):
+            hi = lo + FLASH_BLOCK
+            # the plain version on bf16 inputs computes in f32 and rounds at
+            # the end: want32 rounded is its bf16 result
+            want32 = ref.flash_prefill_ref(q32[:, :, lo:hi], k32[:, :, :hi],
+                                           v32[:, :, :hi], causal=True,
+                                           q_offset=lo)
+            want = want32.to(torch.bfloat16).float()
+            got = out[:, :, lo:hi].float()
+            err = max(err, max_err(got, want))
+            ok &= bool(((got - want).abs() <= tol + tol * want.abs()).all())
+            # held per block to the f32 result rounded once, so that the
+            # late blocks' small outputs (keys up to 32768) are held too
+            d = (got - want32).abs()
+            ratio = float((d / (BF16_HALF_ULP * want32.abs() + f32)).max())
+            if ratio >= worst[0]:
+                worst = (ratio, lo, float(d.max() / want32.abs().max()))
+            del want32, want, got, d
+        del q32, k32, v32
+        log(f"[cells] flash_prefill at S {S}, qwen3 layer 0's q/k/v "
+            f"{list(q.shape)} bf16, against its plain version over query "
+            f"blocks of {FLASH_BLOCK} with q_offset: max_abs_err {err:.3e} "
+            f"(atol = rtol = {tol:g}); grid {grid}, y under {GRID_Y_MAX}")
+        log(f"[cells] flash_prefill at S {S} vs the f32 result, per block: worst "
+            f"error {worst[0]:.3f} of half a bf16 ulp + {f32:g}, in the block at "
+            f"query {worst[1]} (max abs error {worst[2]:.3e} of that block's "
+            f"largest |want|)")
+        check(ok, "flash_prefill at S 32768 disagrees with its plain version")
+        check(worst[0] <= 1.0, f"flash_prefill at S 32768, block at query "
+              f"{worst[1]}: bf16 output is not the f32 result rounded once")
+        pairs = S * (S + 1) // 2 * R * B * G
+        flops = 4 * hd * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        ms = cuda_time_ms(lambda: ops.flash_prefill(q, k, v, causal=True),
+                          iters=5, warmup=1)
+        qh = q.permute(0, 1, 3, 2, 4).reshape(B, G * R, S, hd)
+        lib = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, k, v, is_causal=True, enable_gqa=True), iters=5, warmup=1)
+    rec = {"ms": ms, "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "max_abs_err": err, "S": S}
+    log(f"[cells] flash_prefill at S {S} (one layer of the prefill cell): "
+        f"kernel {ms:.4f} ms, sdpa {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"(flops {flops}, bytes {nbytes}); {nvidia_smi_line()}")
+    return rec
+
+
+def run_cell_steps(cell, args, steps: int) -> tuple:
+    """One warm-up call of the cell, then ``steps`` timed ones (host clock
+    around torch.cuda.synchronize()). Returns (the last output, seconds per
+    step, peak bytes allocated during the timed steps, launches in one
+    step). Each step takes the same arguments, so the last step's output
+    is let go before the next (a train step's new parameters, a prefill's
+    cache: GiBs the step itself does not hold)."""
+    out, _ = sync_seconds(lambda: cell.fn(*args))
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for i in range(steps):
+        out = None
+        before = ops.launch_counts()
+        out, dt = sync_seconds(lambda: cell.fn(*args))
+        secs.append(dt)
+        after = ops.launch_counts()
+        if i == 0:
+            one = {k: after[k] - before[k] for k in after}
+    return out, secs, torch.cuda.max_memory_allocated(), one
+
+
+def phase_cells(device="cuda") -> tuple:
+    """qwen3-1.7b's prefill_32k, decode_32k and train_4k cells (CELLS) built
+    by launch/cells.py, run for real at full width and depth in bf16 on
+    random weights from SEED through the kernels (use_kernels), each beside
+    roofline_row's bound at its cut shape. Returns (the path's launch
+    counts, flash_prefill's record at S 32768)."""
+    card = nvidia_smi_line()
+    rows = []
+    built = {}
+    for name, S, B, cut in CELLS:
+        kind = {"prefill_32k": "prefill", "decode_32k": "decode"}.get(name, "train")
+        built[name] = ShapeConfig(name, kind, S, B)
+    # the comparison launches come before the counters are set to 0
+    pre = use_kernels(build_cell(CELL_ARCH, "prefill_32k", None,
+                                 shape=built["prefill_32k"]))
+    pre_args = materialize(pre, device, SEED)
+    flash = flash_prefill_at_32k(pre, pre_args)
+    free()
+    ops.reset_launch_counts()
+    counted = {k: 0 for k in ops.launch_counts()}
+    for name, S, B, cut in CELLS:
+        shape = built[name]
+        kind = "serve" if shape.kind == "decode" else shape.kind
+        if kind == "prefill":
+            cell, args = pre, pre_args
+            del pre, pre_args
+        else:
+            cell = use_kernels(build_cell(CELL_ARCH, name, None, shape=shape))
+            args = materialize(cell, device, SEED)
+        out, secs, peak, one = run_cell_steps(cell, args, CELL_STEPS)
+        for k in counted:
+            counted[k] += one[k] * (CELL_STEPS + 1)
+        if kind == "prefill":
+            lg, cache = out
+            check(tuple(lg.shape) == (B, cell.model.cfg.vocab_size)
+                  and bool(torch.isfinite(lg.float()).all()), f"{name}: logits")
+            check(one == {"paged_attention": 0, "rwkv6_chunk": 0,
+                          "flash_prefill": cell.model.cfg.num_layers},
+                  f"{name}: launches per prefill {one}")
+            what = f"logits {list(lg.shape)} finite, cache k_full {list(cache['k_full'].shape)}"
+        elif kind == "serve":
+            lg, _ = out
+            check(tuple(lg.shape) == (B, cell.model.cfg.vocab_size)
+                  and bool(torch.isfinite(lg.float()).all()), f"{name}: logits")
+            check(not any(one.values()), f"{name}: launches per step {one}")
+            what = f"logits {list(lg.shape)} finite"
+        else:
+            loss = float(out[2]["loss"])
+            check(math.isfinite(loss) and not any(one.values()),
+                  f"{name}: loss {loss}, launches {one}")
+            what = f"loss {loss:.4f}, grad norm {float(out[2]['grad_norm']):.4f}"
+        out = lg = cache = args = None
+        free()
+        t = float(np.median(secs))
+        row = roofline_row(CELL_ARCH, name, None, shape=shape)
+        mfu = row["model_flops_global"] / (PEAK_FLOPS * t)
+        rec = {"cell": name, "reduced": cut, "seq_len": S, "batch": B,
+               "step_s": t, "step_s_min": min(secs), "steps": CELL_STEPS,
+               "peak_bytes": peak, "compute_term_s": row["compute_term_s"],
+               "memory_term_s": row["memory_term_s"],
+               "collective_term_s": row["collective_term_s"],
+               "bound_s": row["step_time_bound_s"], "bound_by": row["bottleneck"],
+               "model_flops": row["model_flops_global"],
+               "dot_flops": row["dot_flops_per_device"], "mfu": mfu,
+               "bound_share": row["step_time_bound_s"] / t, "card": card}
+        rows.append(rec)
+        log(f"[cells] {CELL_ARCH} {name} ({cut}; {S} tokens x {B}) on {card}: "
+            f"step {t * 1e3:.2f} ms (median of {CELL_STEPS} after a warm-up; "
+            f"min {min(secs) * 1e3:.2f}), peak {peak / 2**30:.2f} GiB; bound "
+            f"{row['step_time_bound_s'] * 1e3:.2f} ms ({row['bottleneck']}: "
+            f"compute {row['compute_term_s'] * 1e3:.2f} ms, memory "
+            f"{row['memory_term_s'] * 1e3:.2f} ms, collective "
+            f"{row['collective_term_s'] * 1e3:.2f} ms); model FLOPs "
+            f"{row['model_flops_global']:.4e}, dot FLOPs "
+            f"{row['dot_flops_per_device']:.4e}; mfu {mfu:.4f}, bound_share "
+            f"{rec['bound_share']:.4f}; {what}")
+        del cell
+        free()
+    check(ops.launch_counts() == counted,
+          f"cells launches {ops.launch_counts()} vs per-step counts {counted}")
+    log("[cells] json " + json.dumps({"cells": rows}))
+    return counted, flash
+
+
+def phase_dryrun() -> None:
+    """``python -m repro_torch.launch.dryrun --arch A`` on the (16, 16) mesh
+    and with ``--multi-pod`` on (2, 16, 16) (the rows of ``--both-meshes``)
+    for each of DRYRUN_ARCHS: four subprocesses side by side, each mesh on a
+    fake process group, fake CUDA tensors, each cell composed from two and
+    three layers. Every row must be ok, or skipped where supports_shape
+    says so."""
+    import tempfile
+
+    from repro_torch.configs import get_shape
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = {arch: os.path.join(tmp, f"{arch}.json") for arch in DRYRUN_ARCHS}
+        procs = {(arch, pod): subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--out", out[arch] + pod] + (["--multi-pod"] if pod else []),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch in DRYRUN_ARCHS for pod in ("", ".pod")}
+        try:
+            outs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for (arch, pod), p in procs.items():
+            check(p.returncode == 0, f"dry run of {arch}{pod} failed: "
+                  f"{outs[arch, pod][-3000:]}")
+        for arch in DRYRUN_ARCHS:
+            rows = []
+            for pod in ("", ".pod"):
+                with open(out[arch] + pod) as f:
+                    rows += json.load(f)
+            cfg = get_config(arch)
+            check(len(rows) == 8, f"{arch}: {len(rows)} dry-run rows")
+            for r in rows:
+                skip = not cfg.supports_shape(get_shape(r["shape"]))
+                check(r["status"] == ("skipped" if skip else "ok"),
+                      f"{arch} {r['shape']} {r['mesh']}: {r['status']} "
+                      f"{r.get('error')}")
+                if r["status"] == "ok":
+                    log(f"[dryrun] {arch} {r['shape']} {r['mesh']}: peak "
+                        f"{r['peak_bytes_per_device'] / 1e9:.2f} GB/device "
+                        f"({r['trace']}), dot FLOPs "
+                        f"{r['dot_flops_per_device']:.4e}/device, collectives "
+                        f"{r['collective_counts']}, wire bytes "
+                        f"{sum(r['collective_wire_bytes'].values()):.4e}, "
+                        f"collective time at the assumed links "
+                        f"{r['collective_seconds'] * 1e3:.2f} ms, traced in "
+                        f"{r['lower_s']} s")
+                else:
+                    log(f"[dryrun] {arch} {r['shape']} {r['mesh']}: skipped "
+                        f"({r['reason']})")
+        log(f"[dryrun] {len(DRYRUN_ARCHS)} archs x 8 rows in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
 def main() -> None:
     t_start = t = time.perf_counter()
     phase_device()
@@ -2259,8 +2662,14 @@ def main() -> None:
     t = lap("train families", t)
     paths["multi-device"] = phase_multi_device()
     t = lap("multi-device", t)
+    paths["tp forward"] = phase_tp_forward()
+    t = lap("tp forward", t)
+    paths["cells"], flash_32k = phase_cells()
+    t = lap("cells", t)
+    phase_dryrun()
+    t = lap("dry run", t)
 
-    kernels = phase_times(errs, paths)
+    kernels = phase_times(errs, paths, flash_32k)
     lap("times", t)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())

@@ -1,18 +1,20 @@
-"""Config registry of the port: ``get_config(arch_id)`` /
-``get_smoke_config(arch_id)``.
-
-Every arch of the JAX package is listed: the dense family and the VLM
-backbone (``DenseTransformer``: full attention, qkv bias, gemma3's
-local:global layers, ``extra_embeds``), the MoE family
-(``MoETransformer``), rwkv6-7b (``RWKV6Model``), hymba-1.5b
-(``HymbaModel``) and whisper-base (``WhisperModel``).
-"""
+"""Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``."""
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.configs import (
+from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeConfig,
+)
+
+from repro_torch.configs import (  # noqa: E402
     gemma3_12b,
     granite_moe_3b,
     hymba_1p5b,
@@ -41,15 +43,27 @@ _MODULES = {
 ARCH_IDS: List[str] = list(_MODULES)
 
 
-def _module(arch: str):
+def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    return _MODULES[arch]
-
-
-def get_config(arch: str) -> ModelConfig:
-    return _module(arch).CONFIG
+    return _MODULES[arch].CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
-    return _module(arch).SMOKE_CONFIG
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return _MODULES[arch].SMOKE_CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES_BY_NAME[name]
+
+
+def all_cells() -> List[tuple]:
+    """The 40 assigned (arch, shape) cells, with skip annotations."""
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in ALL_SHAPES:
+            cells.append((arch, shape.name, cfg.supports_shape(shape)))
+    return cells

@@ -157,6 +157,22 @@ def local_tree(tree):
     return tree.to_local() if isinstance(tree, DTensor) else tree
 
 
+def from_local(x: torch.Tensor, mesh, spec) -> DTensor:
+    """This rank's shard ``x`` as a DTensor laid out by ``spec``: the global
+    shape is the local one times the mesh dims that each tensor dim names
+    (no communication)."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    shape = list(x.shape)
+    for d, entry in enumerate(spec):
+        shape[d] *= math.prod(sizes[a] for a in _names(entry))
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(x, mesh, placements(spec, mesh, shape),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
 def dp_rank(mesh, pc: ParallelConfig) -> int:
     """This rank's index along the batch: its coordinates on the DP axes,
     row-major (the block of a batch dim that ``placements`` gives it)."""

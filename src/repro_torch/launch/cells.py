@@ -1,0 +1,394 @@
+"""(architecture x shape x mesh) cells, the port's counterpart of
+``repro/launch/cells.py``: a step function, its abstract arguments
+(``meta`` tensors, no allocation) and their placements.
+
+Every cell runs one of:
+  train_step  — fwd+bwd+AdamW (microbatched, remat, ZeRO-1)   [train_4k]
+  prefill     — full-context prefill returning logits+cache   [prefill_32k]
+  serve_step  — one decode token against a seq_len KV cache   [decode_32k, long_500k]
+
+On a mesh the parameters, the optimizer state and the caches are DTensors
+placed by ``param_specs()``, ``opt_state_specs()`` and ``cache_specs()`` (the
+``in_shardings``, where the reference has ``NamedSharding``s), and the model
+runs tensor-parallel (``models/transformer.py``). The batch inputs are every
+rank's whole (``None`` in ``in_shardings``): each rank takes its rows, after
+the train step's microbatch split, as the reference splits the global batch.
+
+``trace_cell`` takes the place of ``lower_cell``: it runs the cell once on
+this rank under ``FakeTensorMode`` (no memory, no arithmetic), counting the
+FLOPs of its matrix products, recording its collectives and tracking its
+peak memory (``torch.distributed._tools.mem_tracker.MemTracker``). A
+hand-written kernel cannot run on fake tensors, so a traced prefill attends
+through the model's plain blockwise path, as the reference's dry run lowers
+its plain jnp attention (``repro/models/layers.py``); a cell's model prefills
+so by default, as the reference's cells do. A cell run for real on the card
+(``materialize``) goes through ``use_kernels`` first: its prefill then
+launches ``flash_prefill``.
+
+A fake-tensor trace costs host time per operator, so a full-depth cell at
+production shapes takes minutes. ``trace_composed`` traces the cell at two
+and three layer groups and composes the full depth from the third group's
+increment: exact for the FLOPs and the collectives, which a trace counts
+layer by layer, and for the peak where every group past the second adds
+the same bytes. On a (2, 2, 2) mesh at smoke size (tests/test_torch_engine.py)
+the composed peak equals a full trace's for decode and is 0.978 of it for a
+ZeRO-1 train step, whose peak moves from the head's backward toward the
+optimizer as layers are added; composed from one and two groups it had
+come out 0.76-1.10 (the first group's increment differs: a prefill's
+stacked caches, that train step). These are a process's first traces of
+each shape, as in a dry run. Traced again in the same process, that train
+step's 3- and 5-layer cells read 5.1% and 5.7% lower peaks (the same
+operators run; the cause is not found), and composed 0.934 of the full
+trace.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.configs import get_config, get_shape
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed.sharding import ParallelConfig, placements
+from repro_torch.launch.hlo_stats import (
+    CollectiveRecord, CollectiveRecorder, CollectiveStats, collective_stats,
+    dot_flops)
+from repro_torch.models.param_utils import tree_flatten, tree_map
+from repro_torch.models.registry import build_model
+from repro_torch.training.optimizer import (
+    abstract_opt_state, init_opt_state, opt_state_specs)
+from repro_torch.training.train_step import TrainConfig, make_train_step
+
+WHISPER_PROMPT_LEN = 64          # decoder prompt tokens at prefill
+
+# per-arch gradient accumulation for train_4k (the reference's fit-to-memory
+# knob, kept so that the cells are the same steps)
+TRAIN_GRAD_ACCUM: Dict[str, int] = {
+    "qwen2.5-32b": 4,
+    "internvl2-26b": 4,
+    "gemma3-12b": 2,
+    "qwen3-moe-30b-a3b": 2,
+    "rwkv6-7b": 2,
+    "hymba-1.5b": 2,
+    "qwen3-1.7b": 2,
+}
+
+# the families whose whole-model forward runs on a mesh
+MESH_FAMILIES = ("dense", "vlm", "moe")
+
+
+def effective_pc(mesh, global_batch: int) -> ParallelConfig:
+    """Drop DP batch sharding when the batch doesn't divide it (long_500k B=1)."""
+    pc = ParallelConfig.from_mesh(mesh)
+    if global_batch % max(pc.dp, 1) != 0:
+        return ParallelConfig(dp_axes=(), tp_axis=pc.tp_axis, tp=pc.tp, dp=1)
+    return pc
+
+
+@dataclass
+class Cell:
+    arch: str
+    shape: ShapeConfig
+    kind: str                    # train | prefill | serve
+    fn: Any
+    args: Tuple                  # trees of meta tensors (global shapes)
+    in_shardings: Optional[Tuple]   # trees of PartitionSpecs (None: whole)
+    donate_argnums: Tuple[int, ...]
+    model: Any
+    pc: ParallelConfig
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def build_cell(arch: str, shape_name: str, mesh=None,
+               cfg_override: Optional[ModelConfig] = None,
+               train_layout: str = "tp", compress_grads: bool = False, *,
+               shape: Optional[ShapeConfig] = None) -> Cell:
+    """``shape`` replaces the registry's ``shape_name`` (a cut of it)."""
+    cfg = cfg_override or get_config(arch)
+    shape = shape or get_shape(shape_name)
+    if not cfg.supports_shape(shape):
+        raise ValueError(f"{arch} skips {shape_name} (see DESIGN.md §5)")
+    if mesh is not None and shape.kind == "train" and train_layout == "fsdp":
+        raise NotImplementedError(
+            "train_layout='fsdp' is not ported yet (ROADMAP.md §1, the next "
+            "slice after the TP forward of rwkv6, hymba and whisper)")
+    if mesh is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{arch}: the {cfg.family} family's forward on a mesh is not "
+            f"ported yet (ROADMAP.md §1, next slice); it runs at mesh=None")
+    pc = ParallelConfig.single_device() if mesh is None \
+        else effective_pc(mesh, shape.global_batch)
+    model = build_model(cfg, pc)
+    model.mesh = mesh
+    B, S = shape.global_batch, shape.seq_len
+    params = model.abstract_params()
+    p_specs = model.param_specs() if mesh is not None else None
+
+    if shape.kind == "train":
+        ga = 1 if train_layout == "fsdp" else TRAIN_GRAD_ACCUM.get(arch, 1)
+        if compress_grads and mesh is not None:
+            raise NotImplementedError(
+                "compress_grads on a mesh is not ported yet (ROADMAP.md §1)")
+        tc = TrainConfig(grad_accum=ga, compress_grads=compress_grads)
+        step = make_train_step(model, tc)
+        opt = abstract_opt_state(params)
+        # the step counter stays a plain tensor on every rank
+        opt_sh = dict(opt_state_specs(p_specs, params, pc), step=None) \
+            if mesh is not None else None
+        batch = _train_batch(cfg, B, S)
+        return Cell(arch, shape, "train", step, (params, opt, batch),
+                    (p_specs, opt_sh, None) if mesh is not None else None,
+                    (0, 1), model, pc)
+
+    if shape.kind == "prefill":
+        return _prefill_cell(arch, cfg, model, shape, B, S, pc, mesh, params,
+                             p_specs)
+
+    # decode / long_decode -> serve_step
+    cache = model.cache_struct(B, S)
+    cache_sh = model.cache_specs() if mesh is not None else None
+
+    def serve_step(p, c, t, pos):
+        return model.decode_step(p, c, t, pos)
+
+    return Cell(arch, shape, "serve", serve_step,
+                (params, cache, _meta((B,)), _meta((B,))),
+                (p_specs, cache_sh, None, None) if mesh is not None else None,
+                (1,), model, pc)
+
+
+def _train_batch(cfg, B, S):
+    bf16 = torch.bfloat16
+    if cfg.is_encoder_decoder:
+        T = cfg.max_target_len
+        return {"frames": _meta((B, S, cfg.d_model), bf16),
+                "tokens": _meta((B, T)), "labels": _meta((B, T))}
+    if cfg.num_vision_patches > 0:
+        Pch = cfg.num_vision_patches
+        return {"tokens": _meta((B, S - Pch)), "labels": _meta((B, S)),
+                "extra_embeds": _meta((B, Pch, cfg.d_model), bf16)}
+    return {"tokens": _meta((B, S)), "labels": _meta((B, S))}
+
+
+def _prefill_cell(arch, cfg, model, shape, B, S, pc, mesh, params, p_specs):
+    bf16 = torch.bfloat16
+    seq_lens = _meta((B,))
+    if cfg.is_encoder_decoder:
+        frames = _meta((B, S, cfg.d_model), bf16)
+        tokens = _meta((B, WHISPER_PROMPT_LEN))
+
+        def prefill(p, t, f, sl):
+            return model.prefill(p, t, frames=f, seq_lens=sl)
+        args = (params, tokens, frames, seq_lens)
+    elif cfg.num_vision_patches > 0:
+        Pch = cfg.num_vision_patches
+        tokens = _meta((B, S - Pch))
+        extra = _meta((B, Pch, cfg.d_model), bf16)
+
+        def prefill(p, t, e, sl):
+            return model.prefill(p, t, extra_embeds=e, seq_lens=sl, max_len=S)
+        args = (params, tokens, extra, seq_lens)
+    else:
+        def prefill(p, t, sl):
+            return model.prefill(p, t, seq_lens=sl, max_len=S)
+        args = (params, _meta((B, S)), seq_lens)
+    in_sh = (p_specs,) + (None,) * (len(args) - 1) if mesh is not None else None
+    return Cell(arch, shape, "prefill", prefill, args, in_sh, (), model, pc)
+
+
+# --------------------------------------------------------------------------
+# arguments: fake (traced) or real (run on the card)
+# --------------------------------------------------------------------------
+def _local_shape(shape, pl, mesh):
+    out = list(shape)
+    for i, p in enumerate(pl):
+        if hasattr(p, "dim"):
+            out[p.dim] //= mesh.size(i)
+    return out
+
+
+def _place(tree, specs, mesh, new):
+    """Each meta leaf of ``tree`` as ``new(shape, dtype)``: this rank's shard
+    wrapped as a DTensor where ``specs`` places it on ``mesh``, the whole
+    tensor elsewhere."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _place(v, specs[k] if specs is not None else None, mesh, new)
+                for k, v in tree.items()}
+    if specs is None or mesh is None:
+        return new(tuple(tree.shape), tree.dtype)
+    pl = placements(specs, mesh, tree.shape)
+    local = new(tuple(_local_shape(tree.shape, pl, mesh)), tree.dtype)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=tree.shape, stride=tree.stride())
+
+
+def abstract_args(cell: Cell, device):
+    """The cell's arguments as uninitialised tensors on ``device`` (fake
+    ones under ``FakeTensorMode``), placed by its ``in_shardings``."""
+    mesh = cell.model.mesh
+    specs = cell.in_shardings or (None,) * len(cell.args)
+    return tuple(_place(a, s, mesh, lambda shp, dt: torch.empty(
+        shp, dtype=dt, device=device)) for a, s in zip(cell.args, specs))
+
+
+def use_kernels(cell: Cell) -> Cell:
+    """The cell with its model's prefill attending through ``flash_prefill``
+    (the kernel on CUDA tensors), where the cell's own is the plain
+    blockwise path, as the reference's cells. The kernel masks causally
+    only: rows past a prompt's length differ, and with them an MoE layer's
+    routes where slots drop (a pad row takes capacity)."""
+    if hasattr(cell.model, "with_prefill_attn"):
+        cell.model.prefill_attn_impl = "flash"
+    return cell
+
+
+def materialize(cell: Cell, device, seed: int = 0):
+    """The cell's arguments for a real run at ``mesh=None``: parameters from
+    ``init_params`` with a generator seeded ``seed``, the optimizer state of
+    those parameters, token inputs drawn below the vocab size, lengths equal
+    to the sequence, zero caches and bf16 inputs drawn normal."""
+    if cell.model.mesh is not None:
+        raise ValueError("materialize runs a cell at mesh=None")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = cell.model.init_params(gen)
+    cfg, S = cell.model.cfg, cell.shape.seq_len
+
+    def draw(x):
+        if x.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, tuple(x.shape),
+                                 generator=gen, dtype=torch.int32, device=device)
+        return torch.randn(tuple(x.shape), generator=gen, dtype=torch.float32,
+                           device=device).to(x.dtype)
+
+    def full(x, v):
+        return torch.full(tuple(x.shape), v, dtype=x.dtype, device=device)
+
+    if cell.kind == "train":
+        return (params, init_opt_state(params), tree_map(draw, cell.args[2]))
+    if cell.kind == "serve":      # one token after S - 1 cached ones
+        cache = tree_map(lambda x: torch.zeros(tuple(x.shape), dtype=x.dtype,
+                                               device=device), cell.args[1])
+        return (params, cache, draw(cell.args[2]), full(cell.args[3], S - 1))
+    # prefill: every row S long
+    return ((params,) + tuple(draw(a) for a in cell.args[1:-1])
+            + (full(cell.args[-1], S),))
+
+
+# --------------------------------------------------------------------------
+# tracing
+# --------------------------------------------------------------------------
+@dataclass
+class CellTrace:
+    dot_flops: float                 # per device
+    flop_counts: Dict[str, int]      # FlopCounterMode's total per operator
+    collectives: CollectiveStats
+    records: list                    # hlo_stats.CollectiveRecord per call
+    peak_bytes: int                  # MemTracker's peak on the device
+    seconds: float
+    composed_from: Optional[Tuple[int, int]] = None   # layers of the two traces
+
+
+def _leaves(args):
+    out = []
+    for a in args:
+        for x in tree_flatten(a)[1] if isinstance(a, dict) else [a]:
+            out.append(x.to_local() if isinstance(x, DTensor) else x)
+    return out
+
+
+def trace_cell(cell: Cell, device=None) -> CellTrace:
+    """Run ``cell.fn`` once on this rank on fake tensors; ``device`` is the
+    fake tensors' (default: the card where there is one, else the CPU; on a
+    mesh, the mesh's device type)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mesh = cell.model.mesh
+    if device is None:
+        device = mesh.device_type if mesh is not None else (
+            "cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device)
+    prev = getattr(cell.model, "prefill_attn_impl", None)
+    if prev is not None:
+        cell.model.prefill_attn_impl = "block"
+    t0 = time.perf_counter()
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            args = abstract_args(cell, device)
+            tracker = MemTracker()
+            tracker.track_external(*_leaves(args))
+            flops = FlopCounterMode(display=False)
+            rec = CollectiveRecorder()
+            with tracker, flops, rec:
+                cell.fn(*args)
+            peak = tracker.get_tracker_snapshot("peak")
+    finally:
+        if prev is not None:
+            cell.model.prefill_attn_impl = prev
+    counts = {getattr(op, "__name__", str(op)): int(n) for op, n in
+              flops.get_flop_counts().get("Global", {}).items()}
+    dev_peak = peak.get(device, {}) or next(iter(peak.values()), {})
+    return CellTrace(dot_flops(flops), counts, collective_stats(rec.records),
+                     rec.records, int(dev_peak.get("Total", 0)),
+                     time.perf_counter() - t0)
+
+
+def _by_group(records) -> Dict[tuple, list]:
+    out: Dict[tuple, list] = {}
+    for r in records:
+        calls, nbytes = out.get((r.kind, r.group_size, r.intra_node), (0, 0))
+        out[(r.kind, r.group_size, r.intra_node)] = (calls + r.calls,
+                                                     nbytes + r.out_bytes)
+    return out
+
+
+def compose(t1: CellTrace, t2: CellTrace, k: int) -> CellTrace:
+    """``t2`` plus ``k`` times its increment over ``t1`` (the traces of a
+    cell at n and n + 1 layer groups; ``k`` more groups). The collectives
+    compose per kind and group: calls and output bytes."""
+    a1, a2 = _by_group(t1.records), _by_group(t2.records)
+    if set(a1) - set(a2):
+        raise ValueError("a group's collectives are not a superset: the "
+                         "trace does not grow layer by layer")
+    records = []
+    for key, (calls, nbytes) in a2.items():
+        c1, b1 = a1.get(key, (0, 0))
+        records.append(CollectiveRecord(
+            key[0], nbytes + k * (nbytes - b1), key[1], key[2],
+            calls + k * (calls - c1)))
+    flops = {op: n + k * (n - t1.flop_counts.get(op, 0))
+             for op, n in t2.flop_counts.items()}
+    return CellTrace(t2.dot_flops + k * (t2.dot_flops - t1.dot_flops), flops,
+                     collective_stats(records), records,
+                     t2.peak_bytes + k * (t2.peak_bytes - t1.peak_bytes),
+                     t1.seconds + t2.seconds)
+
+
+def trace_composed(arch: str, shape_name: str, mesh=None,
+                   cfg_override: Optional[ModelConfig] = None, *,
+                   shape: Optional[ShapeConfig] = None, device=None) -> CellTrace:
+    """The cell's trace at full depth, composed from traces at two and three
+    layer groups (``compose``; ``composed_from`` gives their layers); a
+    model of at most three groups is traced whole. The one trace behind
+    ``roofline.roofline_row`` and ``dryrun.run_cell``."""
+    cfg = cfg_override or get_config(arch)
+    cell = build_cell(arch, shape_name, mesh, cfg_override=cfg, shape=shape)
+    g = cell.model.layers_per_scan_step
+    groups = cfg.num_layers // g
+    if groups <= 3:
+        return trace_cell(cell, device)
+    t2, t3 = (trace_cell(build_cell(arch, shape_name, mesh, shape=shape,
+                                    cfg_override=cfg.replace(num_layers=n * g)),
+                         device) for n in (2, 3))
+    out = compose(t2, t3, groups - 3)
+    out.composed_from = (2 * g, 3 * g)
+    return out

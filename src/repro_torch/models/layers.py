@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.tensor_parallel import NO_REGION, Region
+
 NEG_INF = -1e30
 
 
@@ -241,32 +243,49 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out):
 # --------------------------------------------------------------------------
 def chunked_softmax_xent(
     x: torch.Tensor,         # [B, S, D] final hidden states
-    w_vocab: torch.Tensor,   # [D, Vp]
+    w_vocab: torch.Tensor,   # [D, Vp], or this rank's [D, Vp / tp] columns
     labels: torch.Tensor,    # [B, S] int; -1 = padding
     *,
     num_chunks: int = 8,
     z_loss: float = 0.0,
     vocab_valid: int = 0,    # true vocab size; pad columns masked out of the lse
+    region: Region = NO_REGION,
 ):
     """Returns (sum_loss, num_valid), float32 scalars, over chunks of ``cs``
     positions: ``S // num_chunks``, halved until it divides S, as in the
-    reference. Only one chunk's ``[B, cs, Vp]`` logits exist at a time."""
+    reference. Only one chunk's ``[B, cs, Vp]`` logits exist at a time.
+
+    In an active tensor-parallel ``region`` (``distributed/tensor_parallel``)
+    ``w_vocab`` is the rank's block ``region.rank`` of the vocab columns:
+    ``x`` enters the region, the largest of the ranks' log-sum-exps is
+    all-reduced (no gradient), and the ranks' sums of exps and the labels'
+    logits are reduced from it. With no region every edge is the identity."""
+    x = region.enter(x)
     B, S, D = x.shape
-    Vp = w_vocab.shape[-1]
+    n = w_vocab.shape[-1]
+    lo = region.rank * n
     cs = max(1, S // num_chunks)
     while S % cs:
         cs //= 2
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
+    cols = lo + torch.arange(n, device=x.device)
     for i in range(S // cs):
         xc = x[:, i * cs:(i + 1) * cs]
         yc = labels[:, i * cs:(i + 1) * cs].long()
-        logits = (xc @ w_vocab).float()                      # [B, cs, Vp]
-        if vocab_valid and vocab_valid < Vp:
-            logits = torch.where(torch.arange(Vp, device=x.device) < vocab_valid,
-                                 logits, NEG_INF)
+        logits = (xc @ w_vocab).float()                      # [B, cs, n]
+        if vocab_valid and vocab_valid < lo + n:
+            logits = torch.where(cols < vocab_valid, logits, NEG_INF)
+        # the log-sum-exp over this rank's columns, then over the ranks'
+        # (with no region m is lse and the second line returns it exactly);
+        # logsumexp keeps no [B, cs, n] tensor that gather does not keep
         lse = torch.logsumexp(logits, dim=-1)
-        hit = torch.gather(logits, -1, yc.clamp(min=0)[..., None])[..., 0]
+        m = region.max(lse)
+        lse = m + torch.log(region.reduce(torch.exp(lse - m)))
+        idx = yc.clamp(min=0) - lo
+        mine = (idx >= 0) & (idx < n)
+        hit = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        hit = region.reduce(torch.where(mine, hit, 0.0))
         valid = (yc >= 0).float()
         loss = (lse - hit) * valid
         if z_loss > 0:

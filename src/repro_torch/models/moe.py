@@ -28,8 +28,8 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import round_up
 from repro_torch.models import layers as L
 from repro_torch.models.param_utils import map_templates, t
@@ -50,6 +50,14 @@ class Route(NamedTuple):
     capacity: int
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` for ``idx < n``, in a tensor of
+    static shape (a fake-tensor trace takes no output shape that depends
+    on the data)."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def moe_route(x: torch.Tensor, router_w: torch.Tensor, num_padded: int, *,
               top_k: int, capacity_factor: float) -> Route:
     """Router softmax in float32, top-k, renormalisation, aux loss, and the
@@ -68,7 +76,7 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, num_padded: int, *,
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
     # ---- aux loss (switch-style load balancing) ----
-    frac_tokens = torch.bincount(top_i[:, 0], minlength=E).float() / T
+    frac_tokens = _counts(top_i[:, 0], E).float() / T
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
 
     # ---- sort token-expert slots by expert, rank within the expert ----
@@ -82,7 +90,7 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, num_padded: int, *,
     C = int(round_up(max(8, math.ceil(T * top_k / E * capacity_factor)), 8))
 
     # cell (e, c) holds the c-th slot routed to expert e, or nothing (T)
-    count = torch.bincount(eid, minlength=Ep)
+    count = _counts(eid, Ep)
     cells = torch.arange(C, device=dev)
     src = (first[:, None] + cells[None, :]).clamp(max=TK - 1)         # [Ep, C]
     tok_cell = torch.where(cells[None, :] < count[:, None], tok_s[src], T)
@@ -145,7 +153,9 @@ def moe_dispatch_local_ep(
     on them, and one all-reduce (sum) over the model axis combines the
     per-expert partial outputs. The aux loss is averaged over the model axis
     only, as the reference's ``pmean``: at dp > 1 each data shard keeps its
-    own value.
+    own value. The collectives are ``tensor_parallel``'s: ``x`` and the
+    router weights enter the model axis's region (their gradients summed
+    over it), the output and the aux loss are reduced from it.
 
     Within an expert the slots keep their token order (a stable sort), so a
     rank's cells are the rows ``[m * E_loc, (m + 1) * E_loc)`` of the
@@ -156,6 +166,7 @@ def moe_dispatch_local_ep(
     E_loc = w_gate.shape[0]
     m = mesh.get_local_rank(pc.tp_axis)
     group = mesh.get_group(pc.tp_axis)
+    x, router_w = TP.enter(x, group), TP.enter(router_w, group)
     rt = moe_route(x, router_w, E_loc * pc.tp, top_k=top_k,
                    capacity_factor=capacity_factor)
     C = rt.capacity
@@ -168,20 +179,21 @@ def moe_dispatch_local_ep(
     dest = rt.dest - lo * C
     dest = torch.where((dest >= 0) & (dest < E_loc * C), dest, E_loc * C)
     gathered = out_g[dest] * rt.top_w.reshape(-1, 1).to(x.dtype)
-    out = gathered.reshape(T, top_k, D).sum(dim=1)
-    dist.all_reduce(out, group=group)                     # combine experts
-    aux = rt.aux.clone()
-    dist.all_reduce(aux, group=group)
-    return out, aux / pc.tp
+    out = TP.reduce(gathered.reshape(T, top_k, D).sum(dim=1), group)
+    return out, TP.reduce(rt.aux, group) / pc.tp
 
 
 class MoETransformer(DenseTransformer):
     """Dense transformer with the MLP swapped for grouped-capacity MoE.
 
     With ``mesh`` set (a ``DeviceMesh`` whose model axis is ``pc.tp_axis``),
-    the MLP runs ``moe_dispatch_local_ep``: the model then runs on each rank
-    over its data shard of the batch, with the attention and dense weights
-    replicated and the expert weights its own shard (``ep_param_specs``)."""
+    the MLP runs ``moe_dispatch_local_ep``. Given DTensor parameters placed
+    by ``param_specs()``, the model runs tensor-parallel as
+    ``DenseTransformer`` does, the experts on the model axis. Given each
+    rank's plain tensors placed by ``ep_param_specs()`` (the attention and
+    dense weights replicated, the experts its own shard), it runs on each
+    rank over the rows of the batch it is given, with no other
+    collective."""
 
     mesh = None   # set by the caller for the expert-parallel dispatch
 

@@ -195,6 +195,18 @@ class RWKV6Model(nn.Module):
                                     dtype=self.dtype, device=device),
         }
 
+    def cache_struct(self, batch: int, max_len: int = 0):
+        """Shapes and dtypes of ``init_cache``'s tree (``meta`` tensors)."""
+        return self.init_cache(batch, max_len, device="meta")
+
+    @property
+    def scan_trip_count(self) -> int:
+        return self.cfg.num_layers
+
+    @property
+    def layers_per_scan_step(self) -> int:
+        return 1
+
     def cache_specs(self):
         return {
             "state": self.pc.spec(None, "batch", "heads", None, None),
@@ -322,6 +334,8 @@ class RWKV6Model(nn.Module):
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if not collect_cache:
             return x, {}
+        if not per_layer:  # no layer (a roofline's 0-layer variant)
+            return x, self.init_cache(x.shape[0], device=x.device)
         return x, {name: torch.stack([c[name] for c in per_layer])
                    for name in CACHE_NAMES}
 

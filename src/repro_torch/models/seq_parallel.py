@@ -32,6 +32,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (
     ParallelConfig, dp_rank, local_tree, place_tree, placements)
 from repro_torch.models import layers as L
@@ -81,8 +82,7 @@ class SeqParallelDenseTransformer(DenseTransformer):
 
     # ------------------------------------------------------------- decode
     def _all_reduce(self, x, op=dist.ReduceOp.SUM):
-        dist.all_reduce(x, op=op, group=self.mesh.get_group(self.pc.tp_axis))
-        return x
+        return TP.all_reduce(x, self.mesh.get_group(self.pc.tp_axis), op)
 
     def _sp_attention(self, q, k_new, v_new, kc, vc, positions, window: int):
         """Attention over this rank's sequence chunk, merged across the model
@@ -198,11 +198,7 @@ class SeqParallelDenseTransformer(DenseTransformer):
 
         # vocab-sharded logits, gathered over the model axis
         w = pl["embed"].T if cfg.tie_embeddings else pl["lm_head"]
-        part = (x @ w).contiguous()                            # [b, Vp / tp]
-        full = part.new_empty((self.pc.tp * b, part.shape[1]))
-        dist.all_gather_into_tensor(full, part,
-                                    group=self.mesh.get_group(self.pc.tp_axis))
-        lg = full.reshape(self.pc.tp, b, -1).permute(1, 0, 2).reshape(b, -1)
+        lg = TP.gather(x @ w, self.mesh.get_group(self.pc.tp_axis)).contiguous()
         V, Vp = cfg.vocab_size, lg.shape[-1]
         if Vp > V:
             lg = lg.masked_fill(torch.arange(Vp, device=lg.device) >= V,

@@ -19,20 +19,39 @@ Caches keep the reference's layouts: global layers ``k_full``/``v_full``
 max_len). Where the reference returns updated KV caches or pools from a jit
 wrapper that donates them, the methods here write them in place and return
 the same dicts.
+
+On a mesh (``model.mesh``, a ``DeviceMesh`` whose model axis is
+``pc.tp_axis``), ``prefill``, ``decode_step``, ``forward_hidden`` and
+``train_loss`` given DTensor parameters placed by ``param_specs()`` run
+tensor-parallel on each rank's shards, where the reference leaves the
+partitioning to GSPMD: each rank takes its rows of the batch (its block on
+the DP axes), its Q and KV slots of the packed layout, its ``ff`` columns and
+its block of the padded vocab. Per layer the QKV projections are
+column-parallel and the o-projection row-parallel (one all-reduce), and so
+is the MLP (one all-reduce); the embedding is a masked lookup in the rank's
+vocab rows (one all-reduce), the logits an all-gather of vocab columns, the
+loss ``layers.chunked_softmax_xent`` in the region. Caches come back as DTensors
+placed by ``cache_specs()`` and logits batch-sharded over the DP axes; the
+gradients of the parameters are ``Partial`` over the DP axes (each rank's
+rows' part), to be reduced by the optimizer. The collectives are
+``tensor_parallel``'s, whose gradients are their own.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (
-    GQALayout, ParallelConfig, gqa_layout)
+    GQALayout, ParallelConfig, dp_rank, from_local, gqa_layout, local_tree)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.param_utils import (
@@ -48,6 +67,10 @@ class DenseTransformer(nn.Module):
 
     # kernels the model's paged path launches on CUDA
     KERNELS = ("paged_attention", "flash_prefill")
+    # a DeviceMesh: with DTensor parameters the steps run tensor-parallel
+    mesh = None
+    # the tensor-parallel region of the call in progress (none: one device)
+    _region = TP.NO_REGION
     # the dense cache is written at a row's position, not folded into a state
     RECURRENT_CACHE = False
     # prefill attention implementation: 'block' (plain blockwise attention)
@@ -209,6 +232,61 @@ class DenseTransformer(nn.Module):
         """Axis of each dense-cache entry that indexes the sequence (slot)."""
         return {name: 2 for name in self._kv_names()}
 
+    def cache_struct(self, batch: int, max_len: int):
+        """Shapes and dtypes of ``init_cache``'s tree (``meta`` tensors)."""
+        return self.init_cache(batch, max_len, device="meta")
+
+    @property
+    def scan_trip_count(self) -> int:
+        return self.n_groups
+
+    @property
+    def layers_per_scan_step(self) -> int:
+        return self.group
+
+    # ---------------------------------------------------------------- on a mesh
+    def _sharded(self, params) -> bool:
+        return self.mesh is not None and isinstance(params["embed"], DTensor)
+
+    @contextlib.contextmanager
+    def _in_region(self, region):
+        prev, self._region = self._region, region
+        try:
+            yield
+        finally:
+            self._region = prev
+
+    def _tp_region(self):
+        return self._in_region(TP.region_of(self.mesh, self.pc))
+
+    def _local_params(self, params):
+        """Each rank's shards; under autograd their gradients come back
+        ``Partial`` over the DP axes."""
+        def local(x):
+            if not isinstance(x, DTensor):
+                return x
+            if torch.is_grad_enabled() and x.requires_grad:
+                return x.to_local(grad_placements=TP.grad_placements(x, self.pc))
+            return x.to_local()
+        return {k: self._local_params(v) if isinstance(v, dict) else local(v)
+                for k, v in params.items()}
+
+    def _rows(self, x):
+        """This rank's rows of a batch-major input that every rank holds
+        whole: its block on the DP axes."""
+        if x is None:
+            return None
+        b = x.shape[0] // self.pc.dp
+        if b * self.pc.dp != x.shape[0]:
+            raise ValueError(f"batch {x.shape[0]} is not divisible by the "
+                             f"{self.pc.dp} data-parallel ranks")
+        r0 = dp_rank(self.mesh, self.pc) * b
+        return x[r0:r0 + b]
+
+    def _by_batch(self, x):
+        return from_local(x, self.mesh,
+                          self.pc.spec("batch", *([None] * (x.ndim - 1))))
+
     # ---------------------------------------------------------------- paged cache
     def supports_paged(self) -> bool:
         """Whether the block-paged KV path covers this arch: every layer must
@@ -304,6 +382,7 @@ class DenseTransformer(nn.Module):
         (``LOCAL_ROPE_THETA`` on the window layers of a local:global arch)."""
         cfg = self.cfg
         wq, wk, wv = pp["wq"][p], pp["wk"][p], pp["wv"][p]
+        x = self._region.enter(x)
         D = x.shape[-1]
         q = (x @ wq.reshape(D, -1)).reshape(*x.shape[:-1], *wq.shape[1:])
         k = (x @ wk.reshape(D, -1)).reshape(*x.shape[:-1], *wk.shape[1:])
@@ -312,9 +391,9 @@ class DenseTransformer(nn.Module):
             q = q + pp["bq"][p]
             k = k + pp["bk"][p]
             v = v + pp["bv"][p]
-        if cfg.qk_norm:
-            q = L.rmsnorm(q, pp["q_norm"][p], cfg.norm_eps)
-            k = L.rmsnorm(k, pp["k_norm"][p], cfg.norm_eps)
+        if cfg.qk_norm:   # replicated weights in the region: gradients summed
+            q = L.rmsnorm(q, self._region.enter(pp["q_norm"][p]), cfg.norm_eps)
+            k = L.rmsnorm(k, self._region.enter(pp["k_norm"][p]), cfg.norm_eps)
         theta = LOCAL_ROPE_THETA if (kind == "local"
                                      and cfg.attn_kind == "local_global") \
             else cfg.rope_theta
@@ -326,17 +405,19 @@ class DenseTransformer(nn.Module):
             k = L.apply_rope(k, positions[:, None], theta)
         return q, k, v
 
-    @staticmethod
-    def _attn_out(o, wo):
-        """o [..., G, Qp, hd] @ wo [G, Qp, hd, D] -> [..., D]."""
+    def _attn_out(self, o, wo):
+        """o [..., G, Qp, hd] @ wo [G, Qp, hd, D] -> [..., D] (row-parallel
+        on a mesh: the ranks' partial sums all-reduced)."""
         lead = o.shape[:-3]
-        return o.reshape(*lead, -1) @ wo.reshape(-1, wo.shape[-1])
+        return self._region.reduce(o.reshape(*lead, -1)
+                                   @ wo.reshape(-1, wo.shape[-1]))
 
     def _mlp(self, pp, p: int, x):
         """Layer ``p`` of the group's MLP -> (out, aux loss)."""
-        out = L.swiglu_mlp(x, pp["w_gate"][p], pp["w_up"][p], pp["w_down"][p],
-                           self.cfg.act)
-        return out, torch.zeros((), dtype=torch.float32, device=x.device)
+        out = L.swiglu_mlp(self._region.enter(x), pp["w_gate"][p],
+                           pp["w_up"][p], pp["w_down"][p], self.cfg.act)
+        return (self._region.reduce(out),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     def _mixer_seq(self, pp, p: int, x, positions, seq_lens, kind: str):
         """Sequence-mode attention of layer ``p``. Returns (out, (k, v))."""
@@ -362,6 +443,7 @@ class DenseTransformer(nn.Module):
             raise ValueError(f"unknown prefill attention impl {impl!r}")
         m = type(self)(self.cfg, self.pc)
         m.prefill_attn_impl = impl
+        m.mesh = self.mesh
         return m
 
     def _attn_decode_inplace(self, pp, p: int, x, positions, kind: str,
@@ -430,35 +512,64 @@ class DenseTransformer(nn.Module):
         """embeds: [B, S, D] -> (hidden [B, S, D], aux, cache | {}), caches
         stacked over groups. ``remat`` recomputes each group's activations
         in the backward pass (``torch.utils.checkpoint``), as the reference
-        wraps its layer scan's body in ``jax.checkpoint``."""
+        wraps its layer scan's body in ``jax.checkpoint``. On a mesh (DTensor
+        params) each rank runs its rows of ``embeds``, ``positions`` and
+        ``seq_lens`` and gets back its rows' hidden states and caches."""
+        if self._sharded(params):
+            with self._tp_region():
+                return self.forward_hidden(
+                    self._local_params(params), self._rows(embeds),
+                    self._rows(positions), self._rows(seq_lens),
+                    collect_cache=collect_cache, max_len=max_len, remat=remat)
         max_len = max_len or embeds.shape[1]
         x = embeds
         aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
         per_group = []
+        region = self._region
+
+        def group_seq(*args):   # the recomputation runs in the same region
+            with self._in_region(region):
+                return self._group_seq(*args)
+
         for pp in unstack(params["blocks"]):
             args = (pp, x, aux, positions, seq_lens, collect_cache, max_len)
             if remat:
-                x, aux, caches = checkpoint(self._group_seq, *args,
+                x, aux, caches = checkpoint(group_seq, *args,
                                             use_reentrant=False)
             else:
                 x, aux, caches = self._group_seq(*args)
             per_group.append(caches)
-        caches = {name: torch.stack([c[name] for c in per_group])
-                  for name in per_group[0]} if collect_cache else {}
+        if not collect_cache:
+            caches = {}
+        elif per_group:
+            caches = {name: torch.stack([c[name] for c in per_group])
+                      for name in per_group[0]}
+        else:             # no layer (a roofline's 0-layer variant)
+            caches = self.init_cache(x.shape[0], max_len, device=x.device)
         x = L.rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux, caches
 
     def embed_tokens(self, params, tokens):
-        e = params["embed"][tokens.long()]
+        emb = params["embed"]
+        if self._region.active:   # the rank's vocab rows: a masked lookup
+            n = emb.shape[0]
+            idx = tokens.long() - self._region.rank * n
+            hit = (idx >= 0) & (idx < n)
+            e = self._region.reduce(emb[idx.clamp(0, n - 1)]
+                                    * hit[..., None].to(emb.dtype))
+        else:
+            e = emb[tokens.long()]
         if self.embed_scale != 1.0:
             e = e * self.embed_scale
         return e.to(self.dtype)
 
     def logits(self, params, hidden):
+        hidden = self._region.enter(hidden)
         if self.cfg.tie_embeddings:
             lg = hidden @ params["embed"].T
         else:
             lg = hidden @ params["lm_head"]
+        lg = self._region.gather(lg, -1)      # the ranks' vocab columns
         V, Vp = self.cfg.vocab_size, lg.shape[-1]
         if Vp > V:   # vocab padded to the TP multiple: mask pad columns
             lg = lg.masked_fill(torch.arange(Vp, device=lg.device) >= V,
@@ -471,10 +582,17 @@ class DenseTransformer(nn.Module):
         'extra_embeds': optional [B, P, D] patch embeddings, prepended} ->
         (loss, metrics), differentiable in ``params``. Attention is the plain
         blockwise path whatever ``prefill_attn_impl`` says: the kernels are
-        forward-only, as the reference's Pallas kernels have no VJP."""
+        forward-only, as the reference's Pallas kernels have no VJP. On a
+        mesh each rank takes its rows of ``batch`` and the loss is the whole
+        batch's, on every rank."""
         if self.prefill_attn_impl != "block":
             return self.with_prefill_attn("block").train_loss(
                 params, batch, remat=remat)
+        if self._sharded(params):
+            with self._tp_region():
+                return self.train_loss(
+                    self._local_params(params),
+                    {k: self._rows(v) for k, v in batch.items()}, remat=remat)
         embeds = self.embed_tokens(params, batch["tokens"])
         if batch.get("extra_embeds") is not None:
             embeds = torch.cat([batch["extra_embeds"].to(self.dtype), embeds],
@@ -485,8 +603,16 @@ class DenseTransformer(nn.Module):
                                              remat=remat)
         w_vocab = (params["embed"].T if self.cfg.tie_embeddings
                    else params["lm_head"])
-        total, count = L.chunked_softmax_xent(hidden, w_vocab, batch["labels"],
-                                              vocab_valid=self.cfg.vocab_size)
+        region = self._region
+        total, count = L.chunked_softmax_xent(
+            hidden, w_vocab, batch["labels"], vocab_valid=self.cfg.vocab_size,
+            region=region)
+        if region.active:
+            total, count = region.reduce_dp(total), region.reduce_dp(count)
+            if self._aux_weight():
+                # the data shards' mean: the reference's gradient (its
+                # local-EP aux is each shard's own value; ROADMAP.md §3)
+                aux = region.reduce_dp(aux) / self.pc.dp
         xent = total / torch.clamp(count, min=1.0)
         loss = xent + self._aux_weight() * aux / max(1, self.cfg.num_layers)
         return loss, {"xent": xent, "aux": aux}
@@ -499,7 +625,18 @@ class DenseTransformer(nn.Module):
                 extra_embeds=None):
         """tokens [B, S] -> (last-token logits [B, V], cache). ``extra_embeds``
         [B, P, D] are patch embeddings prepended to the tokens' (the VLM stub
-        frontend); ``seq_lens`` and ``max_len`` then count them too."""
+        frontend); ``seq_lens`` and ``max_len`` then count them too. On a
+        mesh (DTensor params) the logits are a DTensor sharded on the batch
+        and the cache DTensors placed by ``cache_specs()``."""
+        if self._sharded(params):
+            with self._tp_region():
+                lg, caches = self.prefill(
+                    self._local_params(params), self._rows(tokens),
+                    seq_lens=self._rows(seq_lens), max_len=max_len,
+                    extra_embeds=self._rows(extra_embeds))
+            specs = self.cache_specs()
+            return self._by_batch(lg), {k: from_local(v, self.mesh, specs[k])
+                                        for k, v in caches.items()}
         B = tokens.shape[0]
         embeds = self.embed_tokens(params, tokens)
         if extra_embeds is not None:
@@ -519,7 +656,15 @@ class DenseTransformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
         """tokens: [B] int32, positions: [B] -> (logits [B, V], cache); each
-        layer's KV write goes into ``cache`` in place."""
+        layer's KV write goes into ``cache`` in place. On a mesh (DTensor
+        params and cache) each rank steps its rows and writes its cache
+        shard."""
+        if self._sharded(params):
+            with self._tp_region():
+                lg, _ = self.decode_step(
+                    self._local_params(params), local_tree(cache),
+                    self._rows(tokens), self._rows(positions))
+            return self._by_batch(lg), cache
         x = self.embed_tokens(params, tokens)
         blocks = params["blocks"]
         for g in range(self.n_groups):
@@ -545,4 +690,5 @@ class DenseTransformer(nn.Module):
         the prefill attention impl carries over."""
         m = type(self)(self.cfg.replace(num_layers=num_layers), self.pc)
         m.prefill_attn_impl = self.prefill_attn_impl
+        m.mesh = self.mesh
         return m

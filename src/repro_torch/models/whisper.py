@@ -28,7 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.param_utils import (
     abstract_params, count_params, init_params, param_shardings, param_specs,
     t, unstack)
-from repro_torch.models.transformer import _DTYPES, DenseTransformer
+from repro_torch.models.transformer import _DTYPES
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -154,6 +154,29 @@ class WhisperModel(nn.Module):
     def param_count(self) -> int:
         return count_params(self.templates())
 
+    def cache_struct(self, batch: int, max_len: int):
+        """Shapes and dtypes of ``prefill``'s cache (``meta`` tensors);
+        ``max_len`` is the encoder's length, the self-attention cache takes
+        ``max_target_len``."""
+        cfg = self.cfg
+        Ld, T = cfg.num_layers, cfg.max_target_len
+        kv = (self.layout.kv_slots, cfg.head_dim)
+
+        def meta(*shape, dtype=None):
+            return torch.empty(shape, dtype=dtype or self.dtype, device="meta")
+        return {"k_self": meta(Ld, batch, T, *kv), "v_self": meta(Ld, batch, T, *kv),
+                "k_cross": meta(Ld, batch, max_len, *kv),
+                "v_cross": meta(Ld, batch, max_len, *kv),
+                "frame_lens": meta(batch, dtype=torch.int32)}
+
+    @property
+    def scan_trip_count(self) -> int:
+        return self.n_groups
+
+    @property
+    def layers_per_scan_step(self) -> int:
+        return 1
+
     def cache_specs(self):
         kv = self.pc.spec(None, "batch", None, "kv_heads", None)
         return {"k_self": kv, "v_self": kv, "k_cross": kv, "v_cross": kv,
@@ -174,7 +197,9 @@ class WhisperModel(nn.Module):
                 self._proj_in(x, pp[f"{prefix}_wv"]) + pp[f"{prefix}_bv"])
 
     def _proj_out(self, pp, prefix, o):
-        return (DenseTransformer._attn_out(o, pp[f"{prefix}_wo"])
+        """o [..., G, Qp, hd] @ wo [G, Qp, hd, D] + bo -> [..., D]."""
+        wo = pp[f"{prefix}_wo"]
+        return (o.reshape(*o.shape[:-3], -1) @ wo.reshape(-1, wo.shape[-1])
                 + pp[f"{prefix}_bo"])
 
     def _enc_block(self, x, pp, frame_lens):

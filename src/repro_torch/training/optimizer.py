@@ -123,6 +123,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     rank updates its own shards; the parameters come back in the placements
     of ``params``."""
     step = state["step"] + 1
+    # each gradient to its state's shard first (ZeRO-1: from Partial, a
+    # reduce-scatter), so the norm sums shards, not whole gradients
+    grads = tree_map(lambda g, m: g.redistribute(m.device_mesh, m.placements)
+                     if isinstance(m, DTensor) else g, grads, state["m"])
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     stepf = step.float()

@@ -4,12 +4,20 @@ unrolled loop, accumulating in float32), remat through the model's layer
 loop, optional bf16 gradient compression with error feedback, AdamW on
 float32 masters. Gradients come from torch autograd on the explicit
 parameter tree.
+
+On a mesh the parameters are DTensors placed by ``param_specs()`` and the
+optimizer state by ``opt_state_specs()`` (ZeRO-1): the model runs
+tensor-parallel on each rank's rows and shards, each gradient comes back
+``Partial`` over the data-parallel axes, and ``adamw_update`` reduce-scatters
+it to the state's shard. The step's arithmetic on gradients is done on each
+rank's local tensors, so their placements carry through.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.param_utils import tree_flatten, tree_map, tree_unflatten
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
@@ -36,6 +44,19 @@ def loss_and_grads(model, params, batch, remat: bool):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def leafwise(fn):
+    """``fn`` on leaves' local tensors; the result keeps the first leaf's
+    DTensor placements (a ``Partial`` gradient stays one)."""
+    def apply(x, *rest):
+        if not isinstance(x, DTensor):
+            return fn(x, *rest)
+        out = fn(x.to_local(), *(r.to_local() for r in rest))
+        return DTensor.from_local(out, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return apply
+
+
 def make_train_step(model, tc: TrainConfig):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt,
     metrics)``; ``opt_state`` is updated in place (see ``adamw_update``)."""
@@ -44,22 +65,24 @@ def make_train_step(model, tc: TrainConfig):
         ga = tc.grad_accum
         acc_dtype = torch.bfloat16 if tc.compress_grads else torch.float32
 
+        cast = leafwise(lambda g: g.to(acc_dtype))
         if ga == 1:
             loss, grads = loss_and_grads(model, params, batch, tc.remat)
-            grads = tree_map(lambda g: g.to(acc_dtype), grads)
+            grads = tree_map(cast, grads)
         else:
             micro = {k: v.reshape(ga, v.shape[0] // ga, *v.shape[1:])
                      for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                                   device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_flatten(params)[1][0].device)
             for i in range(ga):
                 mb = {k: v[i] for k, v in micro.items()}
                 l_i, g_i = loss_and_grads(model, params, mb, tc.remat)
-                grads = tree_map(lambda a, g: a + g.to(acc_dtype), grads, g_i)
+                g_i = tree_map(cast, g_i)
+                # the first term is the sum's start: 0 + g is g
+                grads = g_i if i == 0 else tree_map(leafwise(torch.add),
+                                                    grads, g_i)
                 loss = loss + l_i
-            grads = tree_map(lambda g: g / ga, grads)
+            grads = tree_map(leafwise(lambda g: g / ga), grads)
             loss = loss / ga
 
         if tc.compress_grads:

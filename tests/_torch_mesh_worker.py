@@ -1,9 +1,10 @@
-"""One rank of the gloo world that tests/test_torch_layers.py spawns (8
-ranks, one process each, on the CPU): the port's multi-device modules on
-``DeviceMesh``es of ``("data", "model")`` (2, 4) and (4, 2) and
-``("pod", "data", "model")`` (2, 2, 2), against the JAX package's values at
-the same meshes (an npz that one JAX process with 8 host devices wrote) and
-against the port's own single-device path.
+"""One rank of the gloo worlds that tests/test_torch_layers.py spawns (8
+ranks, one process each, on the CPU): the port's multi-device modules on ``DeviceMesh``es of
+``("data", "model")`` (2, 4) and (4, 2) and ``("pod", "data", "model")``
+(2, 2, 2), against the JAX package's values at the same meshes (an npz that
+one JAX process with 8 host devices wrote) and against the port's own
+single-device path. ``main`` runs the PR-18 checks, ``main_tp`` the
+whole-model tensor-parallel cells (prefill, decode, train).
 
 This module imports torch, numpy and ``repro_torch`` only, never jax or
 ``repro`` (tests/test_torch_hygiene.py scans it), so the ranks run the port
@@ -26,6 +27,8 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.elastic import elastic_restore
 from repro_torch.distributed.fault_tolerance import load_checkpoint, save_checkpoint
 from repro_torch.distributed.sharding import (
@@ -38,6 +41,7 @@ from repro_torch.models.seq_parallel import (
 from repro_torch.models.transformer import DenseTransformer
 from repro_torch.training.optimizer import (
     AdamWConfig, adamw_update, init_opt_state, opt_state_specs, shard_opt_state)
+from repro_torch.training.train_step import loss_and_grads
 
 WORLD = 8
 MESHES = {"24": ((2, 4), ("data", "model")),
@@ -316,9 +320,146 @@ def run(rank: int, workdir: str, npz: str) -> dict:
     return out
 
 
-def main(rank: int, workdir: str, npz: str) -> None:
+# the whole-model TP cells: arch -> config changes (float32 throughout);
+# granite at capacity factor 1, so that slots drop
+TP_CASES = {"qwen3-1.7b": {"vocab_size": 254},
+            "gemma3-12b": {"vocab_size": 254},
+            "granite-moe-3b-a800m": {"vocab_size": 254,
+                                     "moe_capacity_factor": 1.0}}
+TP_S, TP_B = 16, 8      # every cell's sequence and batch (gemma3's window: 8)
+
+
+def tp_config(arch):
+    return get_smoke_config(arch).replace(dtype="float32", **TP_CASES[arch])
+
+
+def _cell(arch, shape, mesh):
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.cells import build_cell
+
+    base = get_shape(shape)
+    return build_cell(arch, shape, mesh, cfg_override=tp_config(arch),
+                      shape=ShapeConfig(base.name, base.kind, TP_S, TP_B))
+
+
+def _grad_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-12))
+
+
+def _counted_tp(fn):
+    TP.reset_collective_counts()
+    out = fn()
+    return out, TP.collective_counts()
+
+
+def _device_mean(ref, prefix) -> float:
+    """The mean of a scalar's values on the reference's devices."""
+    vals = [float(ref[k]) for k in ref.files if k.startswith(prefix + "/")]
+    return float(np.mean(vals))
+
+
+def tp_cells(ref, mesh, name) -> dict:
+    """The port's prefill, decode and train cells of each TP case on the JAX
+    weights and inputs, against the JAX cells' outputs at the same mesh."""
+    out = {}
+    coord = _coord(mesh)
+    for arch in TP_CASES:
+        cfg, key = tp_config(arch), f"{name}/{arch}"
+        V = cfg.vocab_size
+        t = lambda k: torch.from_numpy(ref[f"{key}/{k}"])  # noqa: E731
+        pre = _cell(arch, "prefill_32k", mesh)
+        params = shard_params(_tree(ref, f"{key}/params"), pre.model.templates(),
+                              pre.pc, mesh)
+        (lg, cache), c_pre = _counted_tp(lambda: pre.fn(params, t("toks"), t("lens")))
+        # the prefill's caches at each row's valid positions (rows past a
+        # prompt's length are never read; the two packages' prefills mask
+        # them differently: the reference by seq_lens, the port's
+        # flash_prefill path causally only)
+        valid = torch.arange(TP_S)[None, :] < t("lens")[:, None]     # [B, S]
+        cache_err = 0.0
+        for k, v in _tree(ref, f"{key}/cache").items():
+            got = cache[k].full_tensor()
+            if k.endswith("_full"):
+                m = valid[None, None, :, :, None, None]
+                got, v = got * m, v * m
+            cache_err = max(cache_err, _rel(got, v))
+        dec = _cell(arch, "decode_32k", mesh)
+        jcache = place_tree(_tree(ref, f"{key}/cache"), mesh, dec.model.cache_specs())
+        (dlg, _), c_dec = _counted_tp(lambda: dec.fn(params, jcache, t("nxt"), t("lens")))
+        hidden_err = None
+        if not arch.startswith("granite"):    # MoE capacity is per data shard
+            # forward_hidden on the rank's rows against the model on one
+            # device with the whole weights
+            full = _tree(ref, f"{key}/params")
+            one = build_model(cfg, pre.pc)
+            with torch.no_grad():
+                emb = one.embed_tokens(full, t("toks"))
+                pos = torch.arange(TP_S, dtype=torch.int32).expand(TP_B, TP_S)
+                want, _, _ = one.forward_hidden(full, emb, pos, t("lens"))
+                got, _, _ = pre.model.forward_hidden(params, emb, pos, t("lens"))
+            b = TP_B // pre.pc.dp
+            r0 = dp_rank(mesh, pre.pc) * b
+            hidden_err = _rel(got, want[r0:r0 + b])
+        tr = _cell(arch, "train_4k", mesh)
+        full = _tree(ref, f"{key}/params")
+        opt = shard_opt_state(init_opt_state(full), tr.model.param_specs(), full,
+                              tr.pc, mesh)
+        batch = {"tokens": t("toks"), "labels": t("labels")}
+        _, _, metrics = tr.fn(params, opt, batch)
+        (loss, grads), c_grad = _counted_tp(
+            lambda: loss_and_grads(tr.model, params, batch, False))
+        with torch.no_grad():
+            _, c_fwd = _counted_tp(lambda: tr.model.train_loss(params, batch,
+                                                               remat=False))
+        _, remat_grads = loss_and_grads(tr.model, params, batch, True)
+        paths, got = tree_flatten(grads)
+        want = _tree(ref, f"{key}/grads")
+        gerr = {p: _grad_rel(g.full_tensor(), w) for p, g, w in
+                zip(paths, got, tree_flatten(want)[1])}
+        remat_same = all(torch.equal(a.full_tensor(), b.full_tensor()) for a, b in
+                         zip(got, tree_flatten(remat_grads)[1]))
+        out[arch] = {
+            "prefill_err": _rel(lg.full_tensor(), t("lg"), V),
+            "decode_err": _rel(dlg.full_tensor(), t("dlg"), V),
+            "cache_err": cache_err, "hidden_err": hidden_err,
+            "loss": float(loss), "loss_jax": _device_mean(ref, f"{key}/loss"),
+            "loss_jax_own": float(ref[f"{key}/loss/{coord}"]),
+            "step_loss": float(metrics["loss"]),
+            "step_loss_jax": _device_mean(ref, f"{key}/step_loss"),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grad_norm_jax": float(ref[f"{key}/grad_norm"]),
+            "grad_err": gerr, "remat_same": remat_same,
+            "calls": {"prefill": c_pre, "decode": c_dec, "grads": c_grad,
+                      "forward": c_fwd},
+            "layers": cfg.num_layers, "qk_norm": cfg.qk_norm,
+            "chunks": 8, "dp_axes": len(tr.pc.dp_axes),
+            "local_kv_slots": params["blocks"]["wk"].to_local().shape[3],
+        }
+    return out
+
+
+def run_tp(rank: int, workdir: str, npz: str) -> dict:
+    ref = np.load(npz)
+    out = {}
+    for name in map(str, ref["meshes"]):
+        shape, names = MESHES[name]
+        out[name] = tp_cells(ref, init_device_mesh("cpu", shape,
+                                                   mesh_dim_names=names), name)
+    out["imported"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+def main_tp(rank: int, workdir: str, npz: str) -> None:
+    main(rank, workdir, npz, run_tp)
+
+
+def main(rank: int, workdir: str, npz: str, checks=None) -> None:
     """Spawned entry of rank ``rank``: a gloo process group over a file
-    store in ``workdir``, the checks, the readings to ``rank{rank}.json``."""
+    store in ``workdir``, the checks (``run`` by default), the readings to
+    ``rank{rank}.json``."""
+    checks = checks or run
     try:
         torch.set_num_threads(1)
         store = dist.FileStore(os.path.join(workdir, "store"), WORLD)
@@ -326,7 +467,7 @@ def main(rank: int, workdir: str, npz: str) -> None:
                                 world_size=WORLD,
                                 timeout=datetime.timedelta(seconds=120))
         try:
-            out = run(rank, workdir, npz)
+            out = checks(rank, workdir, npz)
         finally:
             dist.destroy_process_group()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
@@ -335,3 +476,201 @@ def main(rank: int, workdir: str, npz: str) -> None:
         with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def spawn(workdir, npz, entry, deadline_s: float) -> list:
+    """``WORLD`` spawned ranks running ``entry(rank, workdir, npz)``; every
+    rank must exit 0 before ``deadline_s`` (else all are killed and the
+    caller's assertion carries the first rank's traceback). Returns each
+    rank's readings."""
+    import time
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=entry, args=(r, str(workdir), str(npz)))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errs = [os.path.join(workdir, f"rank{r}.err") for r in range(WORLD)]
+    errs = [open(e).read() for e in errs if os.path.exists(e)]
+    assert not late, f"ranks {late} passed the {deadline_s} s deadline; {errs[:1]}"
+    assert all(p.exitcode == 0 for p in procs), errs[:1] or [p.exitcode for p in procs]
+    out = []
+    for r in range(WORLD):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+# The reference's cells (``repro.launch.cells.build_cell``, shrunk as in
+# tests/test_dryrun_small.py, jitted on meshes of 8 host devices) for
+# ``main_tp``, written by one JAX process: ``python -c TP_JAX_SCRIPT
+# <npz> <this module's path> <mesh name>...``. A string here: this module
+# itself imports no jax.
+TP_JAX_SCRIPT = r"""import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import sys
+sys.path.insert(0, os.path.dirname(sys.argv[2]))
+import numpy as np
+import jax
+import repro.configs as C
+from repro.configs import get_smoke_config
+from repro.configs.base import ShapeConfig
+from repro.launch.cells import build_cell
+from repro.launch.mesh import compat_make_mesh, compat_set_mesh
+from repro.training.optimizer import init_opt_state
+import _torch_mesh_worker as W
+
+out = {}
+
+
+def cell_of(arch, shape, mesh, cfg):
+    base = C.SHAPES_BY_NAME[shape]
+    C.SHAPES_BY_NAME[shape] = ShapeConfig(base.name, base.kind, W.TP_S, W.TP_B)
+    try:
+        return build_cell(arch, shape, mesh, cfg_override=cfg)
+    finally:
+        C.SHAPES_BY_NAME[shape] = base
+
+
+def flat(tree, prefix):
+    for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        yield prefix + "/" + "/".join(str(k.key) for k in path), np.asarray(x)
+
+
+def per_device(x, key, cm):
+    for sh in x.addressable_shards:
+        out[f"{key}/{cm[sh.device.id]}"] = np.asarray(sh.data)
+
+
+for name in sys.argv[3:]:
+    dims, names = W.MESHES[name]
+    mesh = compat_make_mesh(dims, names)
+    compat_set_mesh(mesh)
+    cm = {d.id: "_".join(map(str, i)) for i, d in np.ndenumerate(mesh.devices)}
+    for arch, kw in W.TP_CASES.items():
+        cfg = get_smoke_config(arch).replace(dtype="float32", **kw)
+        key = f"{name}/{arch}"
+        S, B = W.TP_S, W.TP_B
+        pre = cell_of(arch, "prefill_32k", mesh, cfg)
+        # numpy arguments: each jit places them by its own in_shardings
+        params = jax.tree.map(np.asarray, pre.model.init_params(jax.random.PRNGKey(0)))
+        rng = np.random.RandomState(0)
+        toks = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        lens = rng.randint(S // 2, S, (B,)).astype(np.int32)
+        nxt = rng.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
+        labels = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        labels[rng.rand(B, S) < 0.2] = -1
+        batch = {"tokens": toks, "labels": labels}
+        with mesh:
+            lg, cache = jax.jit(pre.fn, in_shardings=pre.in_shardings)(
+                params, toks, lens)
+            dec = cell_of(arch, "decode_32k", mesh, cfg)
+            dlg, _ = jax.jit(dec.fn, in_shardings=dec.in_shardings)(
+                params, jax.tree.map(np.asarray, cache), nxt, lens)
+            tr = cell_of(arch, "train_4k", mesh, cfg)
+            _, _, metrics = jax.jit(tr.fn, in_shardings=tr.in_shardings)(
+                params, jax.tree.map(np.asarray, init_opt_state(params)), batch)
+            loss_fn = lambda p, b: tr.model.train_loss(p, b)[0]
+            sh = (tr.in_shardings[0], tr.in_shardings[2])
+            loss, grads = jax.jit(jax.value_and_grad(loss_fn), in_shardings=sh)(
+                params, batch)
+        out.update(flat(params, key + "/params"))
+        out.update(flat(cache, key + "/cache"))
+        out.update(flat(grads, key + "/grads"))
+        out.update({key + "/toks": toks, key + "/lens": lens, key + "/nxt": nxt,
+                    key + "/labels": labels, key + "/lg": np.asarray(lg),
+                    key + "/dlg": np.asarray(dlg),
+                    key + "/grad_norm": np.asarray(metrics["grad_norm"])})
+        per_device(loss, key + "/loss", cm)
+        per_device(metrics["loss"], key + "/step_loss", cm)
+
+out["meshes"] = np.asarray(sys.argv[3:])
+np.savez(sys.argv[1], **out)
+print("WROTE", len(out))
+"""
+
+
+def tp_world(workdir, meshes, deadline_s: float) -> list:
+    """The JAX process's reference cells at ``meshes`` (names of
+    ``MESHES``), then the port's cells on them in a spawned world."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    npz = os.path.join(str(workdir), "ref.npz")
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(here), "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", TP_JAX_SCRIPT, npz,
+                           os.path.abspath(__file__), *meshes], env=env,
+                          capture_output=True, text=True, timeout=420)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return spawn(workdir, npz, main_tp, deadline_s)
+
+
+def check_tp_cells(ranks, arch, mesh):
+    """The port's prefill and decode cells, run tensor-parallel on DTensor
+    weights placed by param_specs, give the reference cells' logits to 1e-5
+    of the largest (16-token prompts: gemma3's past its 8-token window;
+    granite at capacity factor 1, where slots drop), the prefill's caches
+    too, and a dense model's ``forward_hidden`` on the rank's rows equals
+    the model on one device with the whole weights; the train cell's loss
+    (grad_accum as TRAIN_GRAD_ACCUM) and one loss's gradients (to 1e-4 of
+    each leaf's largest) and their norm equal the reference's.
+
+    The MoE loss: the reference's local-EP aux is each data shard's own
+    value, so its devices' losses differ by data shard, while its gradient
+    is that of the shards' mean aux (its shard_map transposes the
+    replicated aux's cotangent divided by the device count). The port's
+    loss is that mean, on every rank: it equals the mean of the
+    reference's device values, and the gradients equal the reference's
+    (ROADMAP.md §3)."""
+    for r in ranks:
+        got = r[mesh][arch]
+        assert got["prefill_err"] < 1e-5 and got["decode_err"] < 1e-5, got
+        assert got["cache_err"] < 1e-5, got
+        if not arch.startswith("granite"):
+            assert got["hidden_err"] < 1e-5, got
+        for a, b in (("loss", "loss_jax"), ("step_loss", "step_loss_jax"),
+                     ("grad_norm", "grad_norm_jax")):
+            assert abs(got[a] - got[b]) <= 1e-5 * abs(got[b]), (a, got)
+        assert max(got["grad_err"].values()) < 1e-4, got["grad_err"]
+        assert got["remat_same"]
+    own = {r[mesh][arch]["loss_jax_own"] for r in ranks}
+    if arch.startswith("granite"):
+        assert len(own) > 1, own           # by data shard in the reference
+    else:
+        assert len(own) == 1, own
+
+
+def check_tp_calls(ranks, arch, mesh):
+    """The port's collective calls per step, on every rank: a prefill or a
+    decode step issues one all-reduce per layer for the attention and one
+    for the MLP (the MoE dispatch: its output and its aux loss), one for the
+    embedding and one all-gather of the logits. A loss's forward adds three
+    per cross-entropy chunk (max, sum of exps, label logit) and two per DP
+    axis (total and count; MoE: and the aux loss); its backward issues one
+    all-reduce per ``enter`` (QKV input, q/k norms, MLP or MoE input and router, the
+    hidden state before the logits) and none per ``reduce``: an all-reduce
+    in the backward of ``reduce`` would multiply the gradients by tp."""
+    for r in ranks:
+        got = r[mesh][arch]
+        L, moe = got["layers"], arch.startswith("granite")
+        per_layer = 3 if moe else 2
+        step = {"all_reduce": per_layer * L + 1, "all_gather_into_tensor": 1}
+        assert got["calls"]["prefill"] == step, got["calls"]
+        assert got["calls"]["decode"] == step, got["calls"]
+        # (MoE: one more per DP axis, the aux loss's mean over them)
+        fwd = (per_layer * L + 1 + 3 * got["chunks"]
+               + (3 if moe else 2) * got["dp_axes"])
+        assert got["calls"]["forward"] == {"all_reduce": fwd}, got["calls"]
+        enters = L * (1 + 2 * got["qk_norm"] + (2 if moe else 1)) + 1
+        assert got["calls"]["grads"] == {"all_reduce": fwd + enters}, got["calls"]

@@ -808,3 +808,88 @@ def test_one_rank_nccl_mesh_on_the_card(card, tmp_path):
             assert float((got - want).abs().max() / want.abs().max()) < 1e-5
     finally:
         dist.destroy_process_group()
+
+
+def test_tp_forward_on_a_one_rank_nccl_mesh(card, tmp_path):
+    """The whole-model tensor-parallel forward (DTensor weights placed by
+    param_specs, flash_prefill on the rank's heads, every collective through
+    NCCL) against the single-device model at smoke size in float32: prefill
+    and decode logits to 1e-6 of the largest, the train loss to 1e-6 and its
+    gradients to 1e-5 of each leaf's largest, qwen3 and granite-moe."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.models.param_utils import shard_params, tree_flatten
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.train_step import loss_and_grads
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        pc = ParallelConfig.from_mesh(mesh)
+        rng = np.random.RandomState(0)
+        toks = torch.as_tensor(rng.randint(0, 256, (3, 16)), dtype=torch.int32,
+                               device=card)
+        lens = torch.tensor([16, 9, 4], dtype=torch.int32, device=card)
+        nxt = torch.as_tensor(rng.randint(0, 256, (3,)), dtype=torch.int32,
+                              device=card)
+        batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+        for arch in ("qwen3-1.7b", "granite-moe-3b-a800m"):
+            cfg = get_smoke_config(arch).replace(dtype="float32")
+            single = build_model(cfg, pc).with_prefill_attn("flash")
+            tp = build_model(cfg, pc).with_prefill_attn("flash")
+            tp.mesh = mesh
+            params = single.init_params(torch.Generator(device=card).manual_seed(0))
+            dparams = shard_params(params, tp.templates(), pc, mesh)
+            before = ops.launch_counts()["flash_prefill"]
+            lg_t, c_t = tp.prefill(dparams, toks, seq_lens=lens, max_len=20)
+            assert ops.launch_counts()["flash_prefill"] - before == cfg.num_layers
+            lg_s, c_s = single.prefill(params, toks, seq_lens=lens, max_len=20)
+            d_t, _ = tp.decode_step(dparams, c_t, nxt, lens)
+            d_s, _ = single.decode_step(params, c_s, nxt, lens)
+            for got, want in ((lg_t.full_tensor(), lg_s), (d_t.full_tensor(), d_s)):
+                assert float((got - want).abs().max() / want.abs().max()) < 1e-6
+            l_t, g_t = loss_and_grads(tp, dparams, batch, False)
+            l_s, g_s = loss_and_grads(single, params, batch, False)
+            assert abs(float(l_t) - float(l_s)) <= 1e-6 * abs(float(l_s))
+            for a, b in zip(tree_flatten(g_t)[1], tree_flatten(g_s)[1]):
+                a = a.full_tensor()
+                assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max().clamp(min=1e-30))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k", "train_4k"])
+def test_cells_run_on_the_card_at_smoke_size(card, shape_name):
+    """qwen3's three cells at smoke size (64 tokens x 4 rows), built by
+    launch/cells.py, materialised on the card and run through the kernels:
+    finite outputs of the cell's shapes; a prefill launches flash_prefill
+    once per layer; roofline_row's bound is positive."""
+    from repro_torch.configs import get_shape, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import build_cell, materialize, use_kernels
+    from repro_torch.launch.roofline import roofline_row
+
+    cfg = get_smoke_config("qwen3-1.7b")
+    base = get_shape(shape_name)
+    shape = ShapeConfig(base.name, base.kind, 64, 4)
+    cell = use_kernels(build_cell("qwen3-1.7b", shape_name, None,
+                                  cfg_override=cfg, shape=shape))
+    args = materialize(cell, card)
+    before = ops.launch_counts()["flash_prefill"]
+    out = cell.fn(*args)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["flash_prefill"] - before
+    if cell.kind == "train":
+        assert np.isfinite(float(out[2]["loss"])) and launched == 0
+    else:
+        lg = out[0]
+        assert tuple(lg.shape) == (4, cfg.vocab_size)
+        assert bool(torch.isfinite(lg.float()).all())
+        assert launched == (cfg.num_layers if cell.kind == "prefill" else 0)
+    row = roofline_row("qwen3-1.7b", shape_name, None, cfg_override=cfg, shape=shape)
+    assert row["step_time_bound_s"] > 0 and row["dot_flops_per_device"] > 0

@@ -35,7 +35,9 @@ def test_no_jax_or_repro_imports():
                 "training/__init__.py", "training/optimizer.py",
                 "training/train_step.py", "launch/train.py",
                 "models/seq_parallel.py", "distributed/elastic.py",
-                "distributed/sharding.py"):
+                "distributed/sharding.py", "distributed/tensor_parallel.py",
+                "launch/mesh.py", "launch/hlo_stats.py", "launch/cells.py",
+                "launch/dryrun.py", "launch/roofline.py"):
         assert PORT / mod in files, mod
     bad = []
     for f in files:
@@ -44,6 +46,28 @@ def test_no_jax_or_repro_imports():
             if root in ("jax", "jaxlib", "repro", "ml_dtypes"):
                 bad.append(f"{f.relative_to(REPO)}: {mod}")
     assert not bad, bad
+
+
+def test_torch_testing_internal_is_imported_inside_functions_only():
+    """``torch.testing._internal`` (the fake process group of the dry run)
+    is a private test package: the port imports it only inside the function
+    that needs it, never when a module is imported."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    inside, top = [], []
+    for f in files:
+        tree = ast.parse(f.read_text(encoding="utf-8"), filename=str(f))
+        funcs = [n for n in ast.walk(tree)
+                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        in_func = {id(x) for fn in funcs for x in ast.walk(fn)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if any(n.startswith("torch.testing._internal") for n in names):
+                (inside if id(node) in in_func else top).append(
+                    str(f.relative_to(REPO)))
+    assert not top, top
+    assert "src/repro_torch/launch/mesh.py" in inside
 
 
 def test_spawned_mesh_ranks_import_neither_jax_nor_repro():
@@ -137,7 +161,7 @@ def test_no_device_and_no_card_raises(monkeypatch):
 # Framework-free modules the port keeps as copies of the reference, with only
 # the imports rewritten from repro to repro_torch.
 VERBATIM = [
-    "configs/base.py", "configs/gemma3_12b.py", "configs/granite_moe_3b.py",
+    "configs/__init__.py", "configs/base.py", "configs/gemma3_12b.py", "configs/granite_moe_3b.py",
     "configs/hymba_1p5b.py", "configs/internvl2_26b.py",
     "configs/qwen2_0p5b.py", "configs/qwen2p5_32b.py", "configs/qwen3_1p7b.py",
     "configs/qwen3_moe_30b.py", "configs/rwkv6_7b.py",

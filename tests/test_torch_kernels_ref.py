@@ -417,3 +417,72 @@ def test_flash_prefill_tc_emulation_rounds_once(B, G, S, R, hd, T, causal,
                                    q_offset=qoff)
     lim = 2.0 ** -8 * want32.abs() + 2e-5
     assert bool(((out.float() - want32).abs() <= lim).all())
+
+
+# --------------------------------------------------------------------------
+# the plain compute of whole cells: the dot FLOPs that launch/cells.py's
+# trace counts against the reference's HLO dots (the analysis tooling's
+# other cases are in tests/test_torch_engine.py)
+# --------------------------------------------------------------------------
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch.cells import build_cell, trace_cell  # noqa: E402
+
+FLOP_ARCHS = ["qwen3-1.7b", "gemma3-12b", "granite-moe-3b-a800m"]
+SMALL = (64, 8)         # (seq_len, batch) of the shrunk cells
+
+
+def _small(shape_name):
+    from repro_torch.configs import get_shape
+    base = get_shape(shape_name)
+    return ShapeConfig(base.name, base.kind, *SMALL)
+
+
+def _port_flops(arch, shape_name, layers=None):
+    cfg = get_smoke_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    cell = build_cell(arch, shape_name, None, cfg_override=cfg,
+                      shape=_small(shape_name))
+    return trace_cell(cell, "cpu").dot_flops
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", FLOP_ARCHS)
+def test_dot_flops_equal_the_references_scan_corrected(arch, shape_name):
+    """One device, smoke configs, shapes shrunk to 64 tokens x 8 rows: the
+    port's traced dot FLOPs (FlopCounterMode's mm/bmm/addmm/baddbmm, remat's
+    recomputation and the backward included) equal the reference's
+    ``corrected_stats(...)["stats"]["dot_flops"]`` (its HLO's dots, the scan
+    body composed) to 1e-6, with no product on either side that the other
+    lacks."""
+    import repro.configs as RC
+    import repro.launch.cells as RCells
+    import repro.launch.roofline as RR
+    from repro.configs.base import ShapeConfig as JaxShape
+
+    smoke = jax_smoke_config(arch)
+    base = RC.SHAPES_BY_NAME[shape_name]
+    saved = RR.get_config, RCells.get_config
+    RC.SHAPES_BY_NAME[shape_name] = JaxShape(base.name, base.kind, *SMALL)
+    RR.get_config = RCells.get_config = lambda a: smoke
+    try:
+        want = RR.corrected_stats(arch, shape_name, None)["stats"]["dot_flops"]
+    finally:
+        RC.SHAPES_BY_NAME[shape_name] = base
+        RR.get_config, RCells.get_config = saved
+    assert _port_flops(arch, shape_name) == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b", "rwkv6-7b"])
+def test_traced_flops_are_linear_in_layers(arch):
+    """The counterpart of tests/test_roofline_accounting.py's scan
+    composition: a trace counts every layer, so a prefill's count at L
+    layers is count(0) + (L / g) (count(g) - count(0)), g the layer group."""
+    cfg = get_smoke_config(arch)
+    g = cfg.local_global_pattern + 1 if cfg.attn_kind == "local_global" else 1
+    f0, fg, fl = (_port_flops(arch, "prefill_32k", n)
+                  for n in (0, g, cfg.num_layers))
+    assert fg > f0 > 0
+    assert fl == pytest.approx(f0 + cfg.num_layers // g * (fg - f0), rel=1e-9)

@@ -710,34 +710,10 @@ WORLD_DEADLINE_S = 200     # under pytest.ini's 300 s per test
 
 
 def _run_world(workdir, npz):
-    """8 spawned ranks of tests/_torch_mesh_worker.py; every rank must exit
-    0 before the deadline (else all are killed and the test fails with the
-    first rank's traceback). Returns each rank's readings."""
-    import json
-    import time
-
+    """8 spawned ranks of tests/_torch_mesh_worker.py (``main``); see
+    ``_torch_mesh_worker.spawn``."""
     import _torch_mesh_worker as worker
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=worker.main, args=(r, str(workdir), str(npz)))
-             for r in range(worker.WORLD)]
-    for p in procs:
-        p.start()
-    end = time.monotonic() + WORLD_DEADLINE_S
-    try:
-        for p in procs:
-            p.join(max(0.0, end - time.monotonic()))
-    finally:
-        late = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    errs = [(workdir / f"rank{r}.err") for r in range(worker.WORLD)]
-    errs = [e.read_text() for e in errs if e.exists()]
-    assert not late, f"ranks {late} passed the {WORLD_DEADLINE_S} s deadline; {errs[:1]}"
-    assert all(p.exitcode == 0 for p in procs), errs[:1] or [p.exitcode for p in procs]
-    return [json.loads((workdir / f"rank{r}.json").read_text())
-            for r in range(worker.WORLD)]
+    return worker.spawn(workdir, npz, worker.main, WORLD_DEADLINE_S)
 
 
 @pytest.fixture(scope="module")
@@ -861,3 +837,40 @@ def test_elastic_restore_moves_a_checkpoint_between_gloo_meshes(mesh_world):
 def test_gloo_ranks_import_neither_jax_nor_repro(mesh_world):
     _, ranks = mesh_world
     assert all(r["imported"] == [] for r in ranks)
+
+
+# --------------------------------------------------------------------------
+# the whole-model tensor-parallel forward: the port's cells against the
+# reference's at (2, 4) and (2, 2, 2)
+# --------------------------------------------------------------------------
+import _torch_mesh_worker as worker  # noqa: E402
+
+TP_MESHES = ["24", "222"]
+
+
+@pytest.fixture(scope="module")
+def tp_world(tmp_path_factory):
+    """The reference's cells jitted on its (2, 4) and (2, 2, 2) meshes of 8
+    host devices in one JAX process, then the port's cells on the same
+    weights and inputs in an 8-rank gloo world (``main_tp``)."""
+    return worker.tp_world(tmp_path_factory.mktemp("tp_world"), TP_MESHES,
+                           WORLD_DEADLINE_S)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+@pytest.mark.parametrize("arch", worker.TP_CASES)
+def test_tp_cells_on_a_gloo_mesh_equal_the_reference_cells(tp_world, arch, mesh):
+    """See ``_torch_mesh_worker.check_tp_cells``."""
+    worker.check_tp_cells(tp_world, arch, mesh)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+@pytest.mark.parametrize("arch", worker.TP_CASES)
+def test_tp_collective_calls_per_step(tp_world, arch, mesh):
+    """At (2, 4) one DP axis, at (2, 2, 2) two: see
+    ``_torch_mesh_worker.check_tp_calls``."""
+    worker.check_tp_calls(tp_world, arch, mesh)
+
+
+def test_tp_ranks_import_neither_jax_nor_repro(tp_world):
+    assert all(r["imported"] == [] for r in tp_world)
