@@ -10,9 +10,13 @@ Every cell runs one of:
 On a mesh the parameters, the optimizer state and the caches are DTensors
 placed by ``param_specs()``, ``opt_state_specs()`` and ``cache_specs()`` (the
 ``in_shardings``, where the reference has ``NamedSharding``s), and the model
-runs tensor-parallel (``models/transformer.py``). The batch inputs are every
-rank's whole (``None`` in ``in_shardings``): each rank takes its rows, after
-the train step's microbatch split, as the reference splits the global batch.
+runs tensor-parallel (``distributed/tensor_parallel.py``). A train cell with
+``train_layout="fsdp"`` runs the fully sharded layout instead (``fsdp_pc``):
+every mesh axis carries the batch, the parameters are sharded by
+``zero1_spec`` over all of them and gathered per layer group. The batch
+inputs are every rank's whole (``None`` in ``in_shardings``): each rank
+takes its rows, after the train step's microbatch split, as the reference
+splits the global batch.
 
 ``trace_cell`` takes the place of ``lower_cell``: it runs the cell once on
 this rank under ``FakeTensorMode`` (no memory, no arithmetic), counting the
@@ -43,6 +47,7 @@ trace.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -59,7 +64,7 @@ from repro_torch.launch.hlo_stats import (
 from repro_torch.models.param_utils import tree_flatten, tree_map
 from repro_torch.models.registry import build_model
 from repro_torch.training.optimizer import (
-    abstract_opt_state, init_opt_state, opt_state_specs)
+    abstract_opt_state, init_opt_state, opt_state_specs, zero1_spec)
 from repro_torch.training.train_step import TrainConfig, make_train_step
 
 WHISPER_PROMPT_LEN = 64          # decoder prompt tokens at prefill
@@ -76,16 +81,21 @@ TRAIN_GRAD_ACCUM: Dict[str, int] = {
     "qwen3-1.7b": 2,
 }
 
-# the families whose whole-model forward runs on a mesh
-MESH_FAMILIES = ("dense", "vlm", "moe")
-
-
 def effective_pc(mesh, global_batch: int) -> ParallelConfig:
     """Drop DP batch sharding when the batch doesn't divide it (long_500k B=1)."""
     pc = ParallelConfig.from_mesh(mesh)
     if global_batch % max(pc.dp, 1) != 0:
         return ParallelConfig(dp_axes=(), tp_axis=pc.tp_axis, tp=pc.tp, dp=1)
     return pc
+
+
+def fsdp_pc(mesh) -> ParallelConfig:
+    """The fully sharded layout: every mesh axis carries the batch, no model
+    axis; parameters are sharded by ``zero1_spec`` over all axes and
+    gathered per layer group."""
+    names = tuple(mesh.mesh_dim_names)
+    return ParallelConfig(dp_axes=names, tp_axis=None, tp=1,
+                          dp=math.prod(mesh.shape))
 
 
 @dataclass
@@ -114,16 +124,16 @@ def build_cell(arch: str, shape_name: str, mesh=None,
     shape = shape or get_shape(shape_name)
     if not cfg.supports_shape(shape):
         raise ValueError(f"{arch} skips {shape_name} (see DESIGN.md §5)")
-    if mesh is not None and shape.kind == "train" and train_layout == "fsdp":
-        raise NotImplementedError(
-            "train_layout='fsdp' is not ported yet (ROADMAP.md §1, the next "
-            "slice after the TP forward of rwkv6, hymba and whisper)")
-    if mesh is not None and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{arch}: the {cfg.family} family's forward on a mesh is not "
-            f"ported yet (ROADMAP.md §1, next slice); it runs at mesh=None")
-    pc = ParallelConfig.single_device() if mesh is None \
-        else effective_pc(mesh, shape.global_batch)
+    fsdp = mesh is not None and shape.kind == "train" and train_layout == "fsdp"
+    if mesh is None:
+        pc = ParallelConfig.single_device()
+    elif fsdp:
+        pc = fsdp_pc(mesh)
+        if shape.global_batch % pc.dp:
+            raise ValueError(f"FSDP needs the batch ({shape.global_batch}) "
+                             f"divisible by the {pc.dp} devices")
+    else:
+        pc = effective_pc(mesh, shape.global_batch)
     model = build_model(cfg, pc)
     model.mesh = mesh
     B, S = shape.global_batch, shape.seq_len
@@ -132,9 +142,9 @@ def build_cell(arch: str, shape_name: str, mesh=None,
 
     if shape.kind == "train":
         ga = 1 if train_layout == "fsdp" else TRAIN_GRAD_ACCUM.get(arch, 1)
-        if compress_grads and mesh is not None:
-            raise NotImplementedError(
-                "compress_grads on a mesh is not ported yet (ROADMAP.md §1)")
+        if fsdp:
+            p_specs = tree_map(lambda sp, a: zero1_spec(sp, a.shape, pc),
+                               p_specs, params)
         tc = TrainConfig(grad_accum=ga, compress_grads=compress_grads)
         step = make_train_step(model, tc)
         opt = abstract_opt_state(params)

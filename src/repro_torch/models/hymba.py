@@ -19,6 +19,15 @@ Caches: the window rings, ``conv [G, B, d_inner, ssm_conv - 1]`` (the last
 [G, B, d_inner, ssm_state]`` (float32). Both Mamba entries fold every decode
 step into the row (``RECURRENT_CACHE``), so the dense executor keeps
 off-batch rows as they were.
+
+On a mesh the attention half runs as ``DenseTransformer``'s, and the Mamba
+branch on the rank's ``d_inner`` channels: its block of ``m_conv_w``,
+``m_alog``, ``m_bdt``, ``m_dskip``, the columns of ``m_wdt`` and the rows of
+``m_wx`` and ``m_out`` (each row-parallel product reduced), with the
+``conv`` and ``ssm`` caches sharded on ``d_inner``. ``m_in`` keeps the
+reference's placement, ``Shard`` on its 2·d_inner columns, so a rank's block
+of ``x @ m_in`` holds columns of ``x_m`` or of ``z``, not its own of both:
+``_mamba_proj`` gathers it and takes the rank's block of each half.
 """
 from __future__ import annotations
 
@@ -130,14 +139,28 @@ class HymbaModel(DenseTransformer):
 
     # ---------------------------------------------------------------- mamba branch
     def _mamba_proj(self, pp, p, x):
-        xz = x @ pp["m_in"][p]
-        return torch.chunk(xz, 2, dim=-1)  # x_m, z each [..., Di]
+        """x -> (x_m, z), each the rank's [..., Di/tp] channels: ``xz`` is
+        gathered whole (``gather_scatter``: each rank's gradient of it is
+        its own channels' part) before the halves are cut."""
+        region = self._region
+        xz = region.gather_scatter(region.enter(x) @ pp["m_in"][p])
+        x_m, z = torch.chunk(xz, 2, dim=-1)
+        return region.cols(x_m), region.cols(z)
 
-    def _mamba_ssm_inputs(self, pp, p, x_conv, seq_lens=None, offset: int = 0):
-        """x_conv: [..., Di] post-conv post-silu -> (dA, dBx, C), float32."""
+    def _mamba_xp(self, pp, p, x_conv):
+        """x_conv [..., Di] @ m_wx -> [..., dt_rank + 2N]. m_wx is
+        row-parallel: the partial sums are reduced; every rank then uses the
+        sum on its own channels, so its gradient is reduced too. Over the
+        whole sequence at once: one all-reduce per layer, not per chunk."""
+        region = self._region
+        return region.enter(region.reduce(x_conv @ pp["m_wx"][p]))
+
+    def _mamba_ssm_inputs(self, pp, p, x_conv, xp, seq_lens=None,
+                          offset: int = 0):
+        """x_conv: [..., Di] post-conv post-silu, xp its ``_mamba_xp`` ->
+        (dA, dBx, C), float32."""
         cfg = self.cfg
         N, dtr = cfg.ssm_state, self.dt_rank
-        xp = x_conv @ pp["m_wx"][p]
         dt = F.softplus((xp[..., :dtr] @ pp["m_wdt"][p]).float()
                         + pp["m_bdt"][p].float())                 # [..., Di]
         if seq_lens is not None:
@@ -161,14 +184,16 @@ class HymbaModel(DenseTransformer):
         w = pp["m_conv_w"][p]
         conv = sum(pad[:, i:i + S] * w[:, i] for i in range(ck))
         x_conv = F.silu((conv + pp["m_conv_b"][p]).float()).to(x.dtype)
-        h0 = torch.zeros((B, self.d_inner, cfg.ssm_state), dtype=torch.float32,
+        h0 = torch.zeros((B, x_m.shape[-1], cfg.ssm_state), dtype=torch.float32,
                          device=x.device)
+        xp = self._mamba_xp(pp, p, x_conv)
         y, hS = selective_scan_chunked(
-            lambda xc, off: self._mamba_ssm_inputs(pp, p, xc, seq_lens=seq_lens,
-                                                   offset=off),
+            lambda xc, off: self._mamba_ssm_inputs(
+                pp, p, xc, xp[:, off:off + xc.shape[1]], seq_lens=seq_lens,
+                offset=off),
             x_conv, h0)
         y = y + pp["m_dskip"][p].float() * x_conv.float()
-        out = (y.to(x.dtype) * F.silu(z)) @ pp["m_out"][p]
+        out = self._region.reduce((y.to(x.dtype) * F.silu(z)) @ pp["m_out"][p])
         if seq_lens is None:
             if S >= ck - 1:
                 conv_tail = x_m[:, S - (ck - 1):].transpose(1, 2)
@@ -191,11 +216,12 @@ class HymbaModel(DenseTransformer):
         conv = torch.einsum("bdk,dk->bd", window.float(),
                             pp["m_conv_w"][p].float())
         x_conv = F.silu(conv + pp["m_conv_b"][p].float()).to(x.dtype)
-        dA, dBx, Ct = self._mamba_ssm_inputs(pp, p, x_conv)
+        dA, dBx, Ct = self._mamba_ssm_inputs(pp, p, x_conv,
+                                             self._mamba_xp(pp, p, x_conv))
         h_new = dA * h + dBx                                       # [B, Di, N]
         y = torch.einsum("bdn,bn->bd", h_new, Ct)
         y = y + pp["m_dskip"][p].float() * x_conv.float()
-        out = (y.to(x.dtype) * F.silu(z)) @ pp["m_out"][p]
+        out = self._region.reduce((y.to(x.dtype) * F.silu(z)) @ pp["m_out"][p])
         return out, window[..., 1:].to(self.dtype), h_new
 
     # ---------------------------------------------------------------- fused layers

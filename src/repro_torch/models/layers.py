@@ -233,9 +233,23 @@ def swiglu_mlp(x, w_gate, w_up, w_down, act="silu"):
     return h @ w_down
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out):
-    h = F.gelu(x @ w_in + b_in, approximate="tanh")
-    return h @ w_out + b_out
+def gelu_mlp(x, w_in, b_in, w_out, b_out, region: Region = NO_REGION):
+    """In a tensor-parallel ``region`` ``w_in``/``b_in`` are the rank's
+    columns and ``w_out`` its rows: the partial sums are reduced before the
+    replicated ``b_out`` is added, once."""
+    h = F.gelu(region.enter(x) @ w_in + b_in, approximate="tanh")
+    return region.reduce(h @ w_out) + b_out
+
+
+def vocab_logits(hidden, w, vocab_size: int, region: Region = NO_REGION):
+    """``hidden @ w`` over the padded vocab, pad columns masked to
+    ``NEG_INF``. In a tensor-parallel ``region`` ``w`` is the rank's block
+    of vocab columns, and the ranks' logits are gathered."""
+    lg = region.gather(region.enter(hidden) @ w, -1)
+    if lg.shape[-1] > vocab_size:
+        lg = lg.masked_fill(torch.arange(lg.shape[-1], device=lg.device)
+                            >= vocab_size, NEG_INF)
+    return lg
 
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.distributed.sharding import round_up
+from repro_torch.distributed.sharding import dp_rank, round_up
 from repro_torch.models import layers as L
 from repro_torch.models.param_utils import map_templates, t
 from repro_torch.models.transformer import DenseTransformer
@@ -249,8 +249,20 @@ class MoETransformer(DenseTransformer):
                 capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
                 mesh=self.mesh, pc=self.pc)
             return out.reshape(x.shape), aux
+        tokens = x.reshape(-1, cfg.d_model)
+        n = tokens.shape[0]
+        region = self._region
+        # the fully sharded layout: the reference routes the whole batch
+        # (capacity from all its tokens, in row order), so each rank routes
+        # every rank's tokens and keeps its own rows' outputs
+        fsdp = bool(region.dp_groups) and not region.active
+        if fsdp:
+            for g in reversed(region.dp_groups):
+                tokens = TP.gather_scatter(tokens, g, 0)
         out, aux = moe_dispatch(
-            x.reshape(-1, cfg.d_model), pp["router"][p], pp["w_gate"][p],
+            tokens, pp["router"][p], pp["w_gate"][p],
             pp["w_up"][p], pp["w_down"][p], top_k=cfg.num_experts_per_tok,
             capacity_factor=cfg.moe_capacity_factor, act=cfg.act)
+        if fsdp:
+            out = out.narrow(0, dp_rank(self.mesh, self.pc) * n, n)
         return out.reshape(x.shape), aux

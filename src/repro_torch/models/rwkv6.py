@@ -20,6 +20,21 @@ reference's layouts: ``state [L, B, H, K, V]`` in float32 and ``tm_shift`` /
 reference's: products of model-dtype operands, the decay and the bonus in
 float32, the WKV output and its group norm in float32, cast back to the model
 dtype before the gate.
+
+On a mesh (``model.mesh``; ``TP.MeshModel``) ``prefill``, ``decode_step``
+and ``train_loss`` given DTensor parameters placed by ``param_specs()`` run
+tensor-parallel, where the reference leaves the partitioning to GSPMD: each
+rank takes its rows of the batch and its ``ff`` columns of ``w_r``, ``w_k``,
+``w_v`` and ``w_g``, so its H/tp whole WKV heads, on which the recurrence
+(``rwkv6_chunk`` on CUDA) and the per-head group norm run; ``w_o`` is
+row-parallel (one all-reduce). The ddlerp and decay weights are replicated
+and enter the region (their gradients summed over the model axis); each rank
+takes its heads' columns of the decay, ``bonus`` and ``gn``. In the channel
+mix ``wc_k`` and ``wc_r`` are column-parallel and ``wc_v`` row-parallel: the
+gate's columns are all-gathered and the partial sum over the ``ff`` columns
+all-reduced before their product. The embedding, logits and loss are the
+dense family's vocab-parallel ones; the state cache comes back sharded on
+its heads.
 """
 from __future__ import annotations
 
@@ -31,7 +46,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParallelConfig
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import ParallelConfig, from_local, local_tree
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.rwkv6_chunk import CHUNKS
 from repro_torch.models import layers as L
@@ -92,7 +108,7 @@ def wkv6_decode(r, k, v, logw, u, state):
     return out, new_state
 
 
-class RWKV6Model(nn.Module):
+class RWKV6Model(TP.MeshModel, nn.Module):
     """Inference model over an explicit parameter tree."""
 
     # kernels the model's sequence path launches on CUDA
@@ -224,26 +240,68 @@ class RWKV6Model(nn.Module):
         return False
 
     # ------------------------------------------------------------- internals
+    def _replicated(self, pp, *names):
+        """Replicated weights used in the region: their gradients summed over
+        the model axis (each rank's reaches only its own columns)."""
+        return [self._region.enter(pp[n]) for n in names]
+
     def _ddlerp(self, pp, x, x_prev):
         """Data-dependent token-shift interpolation -> dict of mixed inputs."""
+        mu_base, mu, lora_a, lora_b = self._replicated(
+            pp, "mu_base", "mu", "lora_a", "lora_b")
         dx = x_prev - x
-        base = x + dx * pp["mu_base"]
-        lora = torch.tanh(base @ pp["lora_a"])
+        base = x + dx * mu_base
+        lora = torch.tanh(base @ lora_a)
         mlo = self.cfg.rwkv_mix_lora
         mixed = {}
         for i, name in enumerate(MIX_NAMES):
-            delta = lora[..., i * mlo:(i + 1) * mlo] @ pp["lora_b"][i]
-            mixed[name] = x + dx * (pp["mu"][i] + delta)
+            delta = lora[..., i * mlo:(i + 1) * mlo] @ lora_b[i]
+            mixed[name] = x + dx * (mu[i] + delta)
         return mixed
 
     def _decay(self, pp, mix_w):
-        dw = pp["w0"].float() + (
-            torch.tanh(mix_w @ pp["wd1"]) @ pp["wd2"]).float()
+        """The log decay of the rank's channels."""
+        cols = self._region.cols
+        w0, wd1, wd2 = self._replicated(pp, "w0", "wd1", "wd2")
+        dw = cols(w0).float() + (torch.tanh(mix_w @ wd1) @ cols(wd2)).float()
         # log decay in [-~20, -1e-9]: w = exp(-exp(dw))
         return -torch.exp(torch.clamp(dw, -20.0, 10.0))
 
     def _heads(self, x):
-        return x.reshape(*x.shape[:-1], self.n_heads, self.cfg.rwkv_head_dim)
+        return x.reshape(*x.shape[:-1], -1, self.cfg.rwkv_head_dim)
+
+    def _time_mix_in(self, pp, m):
+        """The mixed inputs -> r, k, v, logw of the rank's heads [..., H/tp,
+        K], the gate g [..., D/tp] and the bonus u [H/tp, K] in float32."""
+        r = self._heads(m["r"] @ pp["w_r"])
+        k = self._heads(m["k"] @ pp["w_k"])
+        v = self._heads(m["v"] @ pp["w_v"])
+        g = m["g"] @ pp["w_g"]
+        logw = self._heads(self._decay(pp, m["w"]))
+        (bonus,) = self._replicated(pp, "bonus")
+        u = self._heads(self._region.cols(bonus).float())
+        return r, k, v, logw, g, u
+
+    def _time_mix_out(self, pp, o, g):
+        """The WKV output o [..., H/tp, V] (float32) normalized per head,
+        gated and projected by the row-parallel ``w_o`` (reduced)."""
+        (gn,) = self._replicated(pp, "gn")
+        o = L.groupnorm_heads(o, o.new_ones(())).reshape(g.shape)
+        o = (o * self._region.cols(gn).float()).to(self.dtype)
+        o = o * F.silu(g.float()).to(self.dtype)
+        return self._region.reduce(o @ pp["w_o"])
+
+    def _channel_mix(self, pp, x, x_prev):
+        """x has entered the region. ``wc_r`` is column-parallel like
+        ``wc_k``: the rank's gate columns are gathered and the partial sum
+        over its ``ff`` columns reduced before their product."""
+        mu_ck, mu_cr = self._replicated(pp, "mu_ck", "mu_cr")
+        mk = x + (x_prev - x) * mu_ck
+        mr = x + (x_prev - x) * mu_cr
+        kk = torch.square(F.relu(mk @ pp["wc_k"]))
+        region = self._region
+        return (region.gather(torch.sigmoid(mr @ pp["wc_r"]), -1)
+                * region.reduce(kk @ pp["wc_v"]))
 
     def _wkv(self, r, k, v, logw, u, state, *, chunk):
         """The recurrence over the whole sequence in chunks of ``chunk``
@@ -265,36 +323,27 @@ class RWKV6Model(nn.Module):
         (k := 0 kills their contribution, log w := 0 freezes decay)."""
         B, S, D = x.shape
         K = self.cfg.rwkv_head_dim
+        x = self._region.enter(x)
         x_prev = torch.cat([boundary[:, None], x[:, :-1]], dim=1)
-        m = self._ddlerp(pp, x, x_prev)
-        r = self._heads(m["r"] @ pp["w_r"])
-        k = self._heads(m["k"] @ pp["w_k"])
-        v = self._heads(m["v"] @ pp["w_v"])
-        g = m["g"] @ pp["w_g"]
-        logw = self._heads(self._decay(pp, m["w"]))
+        r, k, v, logw, g, u = self._time_mix_in(pp, self._ddlerp(pp, x, x_prev))
         if valid is not None:
             vm = valid[:, :, None, None]
             k = k * vm.to(k.dtype)
             logw = logw * vm
-        u = self._heads(pp["bonus"].float())
         c = _chunk_size(S)
-        state = torch.zeros((B, self.n_heads, K, K), dtype=torch.float32,
+        state = torch.zeros((B, r.shape[2], K, K), dtype=torch.float32,
                             device=x.device)
         o, state = self._wkv(r, k, v, logw, u, state, chunk=c)
-        o = L.groupnorm_heads(o, o.new_ones(())).reshape(B, S, D)
-        o = (o * pp["gn"].float()).to(self.dtype)
-        o = o * F.silu(g.float()).to(self.dtype)
-        return o @ pp["w_o"], state, x[:, -1]
+        return self._time_mix_out(pp, o, g), state, x[:, -1]
 
     def _channel_mix_seq(self, pp, x, boundary):
+        x = self._region.enter(x)
         x_prev = torch.cat([boundary[:, None], x[:, :-1]], dim=1)
-        mk = x + (x_prev - x) * pp["mu_ck"]
-        mr = x + (x_prev - x) * pp["mu_cr"]
-        kk = torch.square(F.relu(mk @ pp["wc_k"]))
-        return torch.sigmoid(mr @ pp["wc_r"]) * (kk @ pp["wc_v"]), x[:, -1]
+        return self._channel_mix(pp, x, x_prev), x[:, -1]
 
     def _block_seq(self, x, pp, collect: bool, seq_lens=None):
         cfg = self.cfg
+        pp = self._region.gather_group("blocks", pp)
         B, S = x.shape[:2]
         valid = None
         if seq_lens is not None:
@@ -324,9 +373,15 @@ class RWKV6Model(nn.Module):
         cfg = self.cfg
         x = L.layernorm(embeds, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
         per_layer = []
+        region = self._region
+
+        def block_seq(*args):   # the recomputation runs in the same region
+            with self._in_region(region):
+                return self._block_seq(*args)
+
         for pp in unstack(params["blocks"]):
             if remat:
-                x, caches = checkpoint(self._block_seq, x, pp, collect_cache,
+                x, caches = checkpoint(block_seq, x, pp, collect_cache,
                                        seq_lens, use_reentrant=False)
             else:
                 x, caches = self._block_seq(x, pp, collect_cache, seq_lens)
@@ -340,36 +395,51 @@ class RWKV6Model(nn.Module):
                    for name in CACHE_NAMES}
 
     def embed_tokens(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.dtype)
+        return self._region.lookup(params["embed"], tokens).to(self.dtype)
 
     def logits(self, params, hidden):
-        lg = hidden @ params["lm_head"]
-        V, Vp = self.cfg.vocab_size, lg.shape[-1]
-        if Vp > V:
-            lg = torch.where(torch.arange(Vp, device=lg.device) < V, lg,
-                             L.NEG_INF)
-        return lg
+        return L.vocab_logits(hidden, params["lm_head"], self.cfg.vocab_size,
+                              self._region)
 
     def train_loss(self, params, batch, *, remat=True):
         """batch: {'tokens': [B, S], 'labels': [B, S] (-1 pad)} -> (loss,
         metrics), differentiable in ``params``. The WKV runs the plain chunk
         loop at ``_chunk_size(S)``, what the reference trains through: the
-        kernel is forward-only."""
+        kernel is forward-only. On a mesh each rank takes its rows of
+        ``batch`` and the loss is the whole batch's, on every rank."""
         if self.wkv_impl != "plain":
             return self.with_wkv_impl("plain").train_loss(params, batch,
                                                           remat=remat)
+        if self._sharded(params):
+            with self._tp_region():
+                return self.train_loss(
+                    self._local_params(params),
+                    {k: self._rows(v) for k, v in batch.items()}, remat=remat)
         embeds = self.embed_tokens(params, batch["tokens"])
         hidden, _ = self.forward_hidden(params, embeds, remat=remat)
+        region = self._region
         total, count = L.chunked_softmax_xent(hidden, params["lm_head"],
                                               batch["labels"],
-                                              vocab_valid=self.cfg.vocab_size)
+                                              vocab_valid=self.cfg.vocab_size,
+                                              region=region)
+        total, count = region.reduce_dp(total), region.reduce_dp(count)
         loss = total / torch.clamp(count, min=1.0)
         return loss, {"xent": loss}
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, seq_lens=None, max_len: int = 0):
         """tokens [B, S] -> (last-token logits [B, V], caches). ``seq_lens``
-        masks pad tokens out of the recurrence; ``max_len`` is unused."""
+        masks pad tokens out of the recurrence; ``max_len`` is unused. On a
+        mesh (DTensor params) the logits are a DTensor sharded on the batch
+        and the caches DTensors placed by ``cache_specs()``."""
+        if self._sharded(params):
+            with self._tp_region():
+                lg, caches = self.prefill(self._local_params(params),
+                                          self._rows(tokens),
+                                          seq_lens=self._rows(seq_lens))
+            specs = self.cache_specs()
+            return self._by_batch(lg), {k: from_local(v, self.mesh, specs[k])
+                                        for k, v in caches.items()}
         B = tokens.shape[0]
         embeds = self.embed_tokens(params, tokens)
         hidden, caches = self.forward_hidden(params, embeds, collect_cache=True,
@@ -384,31 +454,27 @@ class RWKV6Model(nn.Module):
     def _block_decode(self, x, pp, cache):
         cfg = self.cfg
         h = L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
-        m = self._ddlerp(pp, h, cache["tm_shift"])
-        r = self._heads(m["r"] @ pp["w_r"])
-        k = self._heads(m["k"] @ pp["w_k"])
-        v = self._heads(m["v"] @ pp["w_v"])
-        g = m["g"] @ pp["w_g"]
-        logw = self._heads(self._decay(pp, m["w"]))
-        u = self._heads(pp["bonus"].float())
+        r, k, v, logw, g, u = self._time_mix_in(
+            pp, self._ddlerp(pp, h, cache["tm_shift"]))
         o, new_state = wkv6_decode(r, k, v, logw, u, cache["state"])
-        o = L.groupnorm_heads(o, o.new_ones(())).reshape(x.shape)
-        o = (o * pp["gn"].float()).to(self.dtype)
-        o = o * F.silu(g.float()).to(self.dtype)
-        x = x + o @ pp["w_o"]
-
+        x = x + self._time_mix_out(pp, o, g)
         h2 = L.layernorm(x, pp["ln2_s"], pp["ln2_b"], cfg.norm_eps)
-        mk = h2 + (cache["cm_shift"] - h2) * pp["mu_ck"]
-        mr = h2 + (cache["cm_shift"] - h2) * pp["mu_cr"]
-        kk = torch.square(F.relu(mk @ pp["wc_k"]))
-        x = x + torch.sigmoid(mr @ pp["wc_r"]) * (kk @ pp["wc_v"])
+        x = x + self._channel_mix(pp, h2, cache["cm_shift"])
         return x, {"state": new_state, "tm_shift": h, "cm_shift": h2}
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
         """tokens: [B] int32 -> (logits [B, V], cache). Every row advances one
         token; each layer's state and shifts are written into ``cache`` in
-        place. ``positions`` is unused: the recurrence has no positions."""
+        place. ``positions`` is unused: the recurrence has no positions. On
+        a mesh (DTensor params and cache) each rank steps its rows on its
+        heads and writes its cache shard."""
+        if self._sharded(params):
+            with self._tp_region():
+                lg, _ = self.decode_step(self._local_params(params),
+                                         local_tree(cache), self._rows(tokens),
+                                         positions)
+            return self._by_batch(lg), cache
         x = self.embed_tokens(params, tokens)
         x = L.layernorm(x, params["ln0_s"], params["ln0_b"], self.cfg.norm_eps)
         blocks = params["blocks"]
@@ -424,6 +490,7 @@ class RWKV6Model(nn.Module):
     def _sibling(self, cfg: ModelConfig, wkv_impl: str) -> "RWKV6Model":
         m = type(self)(cfg, self.pc)
         m.wkv_impl = wkv_impl
+        m.mesh = self.mesh
         return m
 
     def with_layers(self, num_layers: int) -> "RWKV6Model":

@@ -34,24 +34,26 @@ loss ``layers.chunked_softmax_xent`` in the region. Caches come back as DTensors
 placed by ``cache_specs()`` and logits batch-sharded over the DP axes; the
 gradients of the parameters are ``Partial`` over the DP axes (each rank's
 rows' part), to be reduced by the optimizer. The collectives are
-``tensor_parallel``'s, whose gradients are their own.
+``tensor_parallel``'s, whose gradients are their own. At the fully sharded
+layout's ``ParallelConfig`` (``launch/cells.py::fsdp_pc``: no model axis,
+every mesh axis on the batch) ``train_loss`` runs each rank's rows on
+whole weights, each layer group's leaves gathered inside the group's step
+(``Region.gather_group``), their gradients reduce-scattered back.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (
-    GQALayout, ParallelConfig, dp_rank, from_local, gqa_layout, local_tree)
+    GQALayout, ParallelConfig, from_local, gqa_layout, local_tree)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.param_utils import (
@@ -62,15 +64,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOCAL_ROPE_THETA = 10_000.0  # gemma3 uses short-rope on sliding-window layers
 
 
-class DenseTransformer(nn.Module):
+class DenseTransformer(TP.MeshModel, nn.Module):
     """Inference model over an explicit parameter tree."""
 
     # kernels the model's paged path launches on CUDA
     KERNELS = ("paged_attention", "flash_prefill")
-    # a DeviceMesh: with DTensor parameters the steps run tensor-parallel
-    mesh = None
-    # the tensor-parallel region of the call in progress (none: one device)
-    _region = TP.NO_REGION
     # the dense cache is written at a row's position, not folded into a state
     RECURRENT_CACHE = False
     # prefill attention implementation: 'block' (plain blockwise attention)
@@ -243,49 +241,6 @@ class DenseTransformer(nn.Module):
     @property
     def layers_per_scan_step(self) -> int:
         return self.group
-
-    # ---------------------------------------------------------------- on a mesh
-    def _sharded(self, params) -> bool:
-        return self.mesh is not None and isinstance(params["embed"], DTensor)
-
-    @contextlib.contextmanager
-    def _in_region(self, region):
-        prev, self._region = self._region, region
-        try:
-            yield
-        finally:
-            self._region = prev
-
-    def _tp_region(self):
-        return self._in_region(TP.region_of(self.mesh, self.pc))
-
-    def _local_params(self, params):
-        """Each rank's shards; under autograd their gradients come back
-        ``Partial`` over the DP axes."""
-        def local(x):
-            if not isinstance(x, DTensor):
-                return x
-            if torch.is_grad_enabled() and x.requires_grad:
-                return x.to_local(grad_placements=TP.grad_placements(x, self.pc))
-            return x.to_local()
-        return {k: self._local_params(v) if isinstance(v, dict) else local(v)
-                for k, v in params.items()}
-
-    def _rows(self, x):
-        """This rank's rows of a batch-major input that every rank holds
-        whole: its block on the DP axes."""
-        if x is None:
-            return None
-        b = x.shape[0] // self.pc.dp
-        if b * self.pc.dp != x.shape[0]:
-            raise ValueError(f"batch {x.shape[0]} is not divisible by the "
-                             f"{self.pc.dp} data-parallel ranks")
-        r0 = dp_rank(self.mesh, self.pc) * b
-        return x[r0:r0 + b]
-
-    def _by_batch(self, x):
-        return from_local(x, self.mesh,
-                          self.pc.spec("batch", *([None] * (x.ndim - 1))))
 
     # ---------------------------------------------------------------- paged cache
     def supports_paged(self) -> bool:
@@ -479,6 +434,7 @@ class DenseTransformer(nn.Module):
         """One group of layers -> (x, aux, this group's caches): k/v_full
         ``[n_full, B, max_len, KVs, hd]``, the rings k/v_win ``[n_win, B, W,
         KVs, hd]``, and each extra entry of the group's one layer."""
+        pp = self._region.gather_group("blocks", pp)
         S = x.shape[1]
         W = self._window(max_len)
         full, win, extra = ([], []), ([], []), {}
@@ -550,31 +506,14 @@ class DenseTransformer(nn.Module):
         return x, aux, caches
 
     def embed_tokens(self, params, tokens):
-        emb = params["embed"]
-        if self._region.active:   # the rank's vocab rows: a masked lookup
-            n = emb.shape[0]
-            idx = tokens.long() - self._region.rank * n
-            hit = (idx >= 0) & (idx < n)
-            e = self._region.reduce(emb[idx.clamp(0, n - 1)]
-                                    * hit[..., None].to(emb.dtype))
-        else:
-            e = emb[tokens.long()]
+        e = self._region.lookup(params["embed"], tokens)
         if self.embed_scale != 1.0:
             e = e * self.embed_scale
         return e.to(self.dtype)
 
     def logits(self, params, hidden):
-        hidden = self._region.enter(hidden)
-        if self.cfg.tie_embeddings:
-            lg = hidden @ params["embed"].T
-        else:
-            lg = hidden @ params["lm_head"]
-        lg = self._region.gather(lg, -1)      # the ranks' vocab columns
-        V, Vp = self.cfg.vocab_size, lg.shape[-1]
-        if Vp > V:   # vocab padded to the TP multiple: mask pad columns
-            lg = lg.masked_fill(torch.arange(Vp, device=lg.device) >= V,
-                                L.NEG_INF)
-        return lg
+        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return L.vocab_logits(hidden, w, self.cfg.vocab_size, self._region)
 
     # ------------------------------------------------------------- public steps
     def train_loss(self, params, batch, *, remat=True):
@@ -607,7 +546,7 @@ class DenseTransformer(nn.Module):
         total, count = L.chunked_softmax_xent(
             hidden, w_vocab, batch["labels"], vocab_valid=self.cfg.vocab_size,
             region=region)
-        if region.active:
+        if region.dp_groups:
             total, count = region.reduce_dp(total), region.reduce_dp(count)
             if self._aux_weight():
                 # the data shards' mean: the reference's gradient (its

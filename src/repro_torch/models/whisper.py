@@ -13,6 +13,15 @@ layout: ``k_self``/``v_self [Ld, B, T, KVs, hd]`` with T = max_target_len,
 
 There is no engine path, as in the reference: the executors call
 ``prefill`` without frames, and ``prefill`` refuses to run on none.
+
+On a mesh (``model.mesh``; ``TP.MeshModel``) ``prefill``, ``decode_step``
+and ``train_loss`` given DTensor parameters placed by ``param_specs()`` run
+tensor-parallel: self- and cross-attention on the rank's kv slots of the
+packed layout (``bq``, ``bv`` sharded with them), the MLP on its ``ff``
+columns (``b_in`` too), each output projection row-parallel and reduced
+before its replicated bias (``bo``, ``b_out``) is added, once. The
+embedding is a vocab-parallel lookup and the tied logits an all-gather of
+the ranks' vocab columns; the caches come back sharded on their kv slots.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParallelConfig, gqa_layout
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import (
+    ParallelConfig, from_local, gqa_layout, local_tree)
 from repro_torch.models import layers as L
 from repro_torch.models.param_utils import (
     abstract_params, count_params, init_params, param_shardings, param_specs,
@@ -41,7 +52,7 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
-class WhisperModel(nn.Module):
+class WhisperModel(TP.MeshModel, nn.Module):
     """Encoder-decoder model over an explicit parameter tree."""
 
     KERNELS = ()
@@ -190,6 +201,7 @@ class WhisperModel(nn.Module):
         return (x @ w.reshape(D, -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
     def _q(self, pp, prefix, x):
+        """x (entered the region) -> the rank's q slots."""
         return self._proj_in(x, pp[f"{prefix}_wq"]) + pp[f"{prefix}_bq"]
 
     def _kv(self, pp, prefix, x):
@@ -197,20 +209,27 @@ class WhisperModel(nn.Module):
                 self._proj_in(x, pp[f"{prefix}_wv"]) + pp[f"{prefix}_bv"])
 
     def _proj_out(self, pp, prefix, o):
-        """o [..., G, Qp, hd] @ wo [G, Qp, hd, D] + bo -> [..., D]."""
+        """o [..., G, Qp, hd] @ wo [G, Qp, hd, D] (reduced over the ranks'
+        slots) + bo -> [..., D]."""
         wo = pp[f"{prefix}_wo"]
-        return (o.reshape(*o.shape[:-3], -1) @ wo.reshape(-1, wo.shape[-1])
+        return (self._region.reduce(o.reshape(*o.shape[:-3], -1)
+                                    @ wo.reshape(-1, wo.shape[-1]))
                 + pp[f"{prefix}_bo"])
+
+    def _mlp(self, pp, h):
+        return L.gelu_mlp(h, pp["w_in"], pp["b_in"], pp["w_out"], pp["b_out"],
+                          self._region)
 
     def _enc_block(self, x, pp, frame_lens):
         cfg = self.cfg
-        h = L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
+        pp = self._region.gather_group("enc", pp)
+        h = self._region.enter(L.layernorm(x, pp["ln1_s"], pp["ln1_b"],
+                                           cfg.norm_eps))
         q, (k, v) = self._q(pp, "sa", h), self._kv(pp, "sa", h)
         o = L.block_attention(q, k, v, causal=False, seq_lens=frame_lens)
         x = x + self._proj_out(pp, "sa", o)
         h = L.layernorm(x, pp["ln2_s"], pp["ln2_b"], cfg.norm_eps)
-        return x + L.gelu_mlp(h, pp["w_in"], pp["b_in"], pp["w_out"],
-                              pp["b_out"])
+        return x + self._mlp(pp, h)
 
     def encode(self, params, frames, frame_lens=None):
         """frames: [B, S, D] stub frontend embeddings -> encoder hidden."""
@@ -225,23 +244,25 @@ class WhisperModel(nn.Module):
 
     def _dec_block_seq(self, x, pp, enc_out, frame_lens):
         cfg = self.cfg
-        h = L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
+        enter = self._region.enter
+        pp = self._region.gather_group("dec", pp)
+        h = enter(L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps))
         q, (k, v) = self._q(pp, "sa", h), self._kv(pp, "sa", h)
         o = L.block_attention(q, k, v, causal=True)
         x = x + self._proj_out(pp, "sa", o)
         h = L.layernorm(x, pp["ln2_s"], pp["ln2_b"], cfg.norm_eps)
-        qx, (kx, vx) = self._q(pp, "xa", h), self._kv(pp, "xa", enc_out)
+        qx = self._q(pp, "xa", enter(h))
+        kx, vx = self._kv(pp, "xa", enter(enc_out))
         ox = L.block_attention(qx, kx, vx, causal=False, seq_lens=frame_lens)
         x = x + self._proj_out(pp, "xa", ox)
         h = L.layernorm(x, pp["ln3_s"], pp["ln3_b"], cfg.norm_eps)
-        x = x + L.gelu_mlp(h, pp["w_in"], pp["b_in"], pp["w_out"], pp["b_out"])
-        return x, (k, v, kx, vx)
+        return x + self._mlp(pp, h), (k, v, kx, vx)
 
     def _decode_tokens(self, params, tokens, enc_out, frame_lens):
         """Decoder over the whole prompt -> (hidden, per-layer (k, v, k_cross,
         v_cross) stacked ``[Ld, ...]``)."""
         T = tokens.shape[1]
-        x = params["embed"][tokens.long()].to(self.dtype)
+        x = self._region.lookup(params["embed"], tokens).to(self.dtype)
         x = x + params["pos_dec"][:T][None]
         caches = []
         for pp in unstack(params["dec"]):
@@ -252,24 +273,30 @@ class WhisperModel(nn.Module):
         return x, tuple(torch.stack(c) for c in zip(*caches))
 
     def logits(self, params, hidden):
-        lg = hidden @ params["embed"].T
-        V, Vp = self.cfg.vocab_size, lg.shape[-1]
-        if Vp > V:
-            lg = torch.where(torch.arange(Vp, device=lg.device) < V, lg, -1e30)
-        return lg
+        return L.vocab_logits(hidden, params["embed"].T, self.cfg.vocab_size,
+                              self._region)
 
     # ---------------------------------------------------------------- steps
     def train_loss(self, params, batch, *, remat=True):
         """batch: {'frames': [B, S, D], 'tokens': [B, T], 'labels': [B, T],
         'frame_lens': optional [B]} -> (loss, metrics), differentiable in
-        ``params``. ``remat`` is taken and unused, as in the reference."""
+        ``params``. ``remat`` is taken and unused, as in the reference. On a
+        mesh each rank takes its rows of ``batch`` and the loss is the whole
+        batch's, on every rank."""
+        if self._sharded(params):
+            with self._tp_region():
+                return self.train_loss(
+                    self._local_params(params),
+                    {k: self._rows(v) for k, v in batch.items()}, remat=remat)
         frame_lens = batch.get("frame_lens")
         enc_out = self.encode(params, batch["frames"], frame_lens)
         hidden, _ = self._decode_tokens(params, batch["tokens"], enc_out,
                                         frame_lens)
+        region = self._region
         total, count = L.chunked_softmax_xent(
             hidden, params["embed"].T, batch["labels"], num_chunks=4,
-            vocab_valid=self.cfg.vocab_size)
+            vocab_valid=self.cfg.vocab_size, region=region)
+        total, count = region.reduce_dp(total), region.reduce_dp(count)
         loss = total / torch.clamp(count, min=1.0)
         return loss, {"xent": loss}
 
@@ -278,11 +305,22 @@ class WhisperModel(nn.Module):
                 max_len: int = 0, extra_embeds=None):
         """tokens: decoder prompt [B, Tp]; frames (or extra_embeds): encoder
         frame embeddings [B, S, D]; seq_lens: valid frames per row ->
-        (last-token logits [B, V], cache). ``max_len`` is unused."""
+        (last-token logits [B, V], cache). ``max_len`` is unused. On a mesh
+        (DTensor params) the logits are a DTensor sharded on the batch and
+        the cache DTensors placed by ``cache_specs()``."""
         frames = frames if frames is not None else extra_embeds
         if frames is None:
             raise ValueError(f"{self.cfg.name}: prefill needs encoder frames "
                              f"[B, S, D]")
+        if self._sharded(params):
+            with self._tp_region():
+                lg, cache = self.prefill(self._local_params(params),
+                                         self._rows(tokens),
+                                         frames=self._rows(frames),
+                                         seq_lens=self._rows(seq_lens))
+            specs = self.cache_specs()
+            return self._by_batch(lg), {k: from_local(v, self.mesh, specs[k])
+                                        for k, v in cache.items()}
         B, Tp = tokens.shape
         enc_out = self.encode(params, frames, seq_lens)
         hidden, (k_self, v_self, k_cross, v_cross) = self._decode_tokens(
@@ -300,27 +338,35 @@ class WhisperModel(nn.Module):
 
     def _dec_block_step(self, x, pp, cache, g, positions):
         cfg = self.cfg
-        h = L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps)
+        enter = self._region.enter
+        h = enter(L.layernorm(x, pp["ln1_s"], pp["ln1_b"], cfg.norm_eps))
         q, (k, v) = self._q(pp, "sa", h), self._kv(pp, "sa", h)
         kc = L.cache_write(cache["k_self"][g], k, positions)
         vc = L.cache_write(cache["v_self"][g], v, positions)
         o = L.decode_attention(q, kc, vc, positions)
         x = x + self._proj_out(pp, "sa", o)
         h = L.layernorm(x, pp["ln2_s"], pp["ln2_b"], cfg.norm_eps)
-        qx = self._q(pp, "xa", h)
+        qx = self._q(pp, "xa", enter(h))
         ox = L.decode_attention(qx, cache["k_cross"][g], cache["v_cross"][g],
                                 cache["frame_lens"] - 1)
         x = x + self._proj_out(pp, "xa", ox)
         h = L.layernorm(x, pp["ln3_s"], pp["ln3_b"], cfg.norm_eps)
-        return x + L.gelu_mlp(h, pp["w_in"], pp["b_in"], pp["w_out"],
-                              pp["b_out"])
+        return x + self._mlp(pp, h)
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
         """tokens/positions: [B]; positions index the *decoder* sequence ->
-        (logits [B, V], cache), the self-attention K/V written in place."""
+        (logits [B, V], cache), the self-attention K/V written in place. On a
+        mesh (DTensor params and cache) each rank steps its rows and writes
+        its cache shard."""
+        if self._sharded(params):
+            with self._tp_region():
+                lg, _ = self.decode_step(self._local_params(params),
+                                         local_tree(cache), self._rows(tokens),
+                                         self._rows(positions))
+            return self._by_batch(lg), cache
         T = self.cfg.max_target_len
-        x = params["embed"][tokens.long()].to(self.dtype)
+        x = self._region.lookup(params["embed"], tokens).to(self.dtype)
         x = x + params["pos_dec"][positions.long().clamp(max=T - 1)]
         for g, pp in enumerate(unstack(params["dec"])):
             x = self._dec_block_step(x, pp, cache, g, positions)

@@ -10,7 +10,11 @@ optimizer state by ``opt_state_specs()`` (ZeRO-1): the model runs
 tensor-parallel on each rank's rows and shards, each gradient comes back
 ``Partial`` over the data-parallel axes, and ``adamw_update`` reduce-scatters
 it to the state's shard. The step's arithmetic on gradients is done on each
-rank's local tensors, so their placements carry through.
+rank's local tensors, so their placements carry through. With
+``compress_grads`` each microbatch's gradient is reduce-scattered to that
+shard first, then rounded to bf16: the reference rounds its logical
+gradient, the sum over the data-parallel ranks, not each rank's part of it;
+the error feedback ``err`` lies on the same shards.
 """
 from __future__ import annotations
 
@@ -65,10 +69,14 @@ def make_train_step(model, tc: TrainConfig):
         ga = tc.grad_accum
         acc_dtype = torch.bfloat16 if tc.compress_grads else torch.float32
 
-        cast = leafwise(lambda g: g.to(acc_dtype))
+        def cast(g, m):
+            if tc.compress_grads and isinstance(m, DTensor):
+                g = g.redistribute(m.device_mesh, m.placements)
+            return leafwise(lambda x: x.to(acc_dtype))(g)
+
         if ga == 1:
             loss, grads = loss_and_grads(model, params, batch, tc.remat)
-            grads = tree_map(cast, grads)
+            grads = tree_map(cast, grads, opt_state["m"])
         else:
             micro = {k: v.reshape(ga, v.shape[0] // ga, *v.shape[1:])
                      for k, v in batch.items()}
@@ -77,7 +85,7 @@ def make_train_step(model, tc: TrainConfig):
             for i in range(ga):
                 mb = {k: v[i] for k, v in micro.items()}
                 l_i, g_i = loss_and_grads(model, params, mb, tc.remat)
-                g_i = tree_map(cast, g_i)
+                g_i = tree_map(cast, g_i, opt_state["m"])
                 # the first term is the sum's start: 0 + g is g
                 grads = g_i if i == 0 else tree_map(leafwise(torch.add),
                                                     grads, g_i)
@@ -90,11 +98,11 @@ def make_train_step(model, tc: TrainConfig):
             # instead of vanishing
             err = opt_state.get("err")
             if err is None:
-                err = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                                     device=g.device), grads)
-            g32 = tree_map(lambda g, e: g.float() + e, grads, err)
-            gq = tree_map(lambda g: g.to(torch.bfloat16), g32)
-            new_err = tree_map(lambda g, q: g - q.float(), g32, gq)
+                err = tree_map(leafwise(lambda g: torch.zeros(
+                    g.shape, dtype=torch.float32, device=g.device)), grads)
+            g32 = tree_map(leafwise(lambda g, e: g.float() + e), grads, err)
+            gq = tree_map(leafwise(lambda g: g.to(torch.bfloat16)), g32)
+            new_err = tree_map(leafwise(lambda g, q: g - q.float()), g32, gq)
             grads = gq
             opt_state = dict(opt_state, err=new_err)
 

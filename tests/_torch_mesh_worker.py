@@ -33,6 +33,7 @@ from repro_torch.distributed.elastic import elastic_restore
 from repro_torch.distributed.fault_tolerance import load_checkpoint, save_checkpoint
 from repro_torch.distributed.sharding import (
     ParallelConfig, dp_rank, local_tree, place, place_tree)
+from repro_torch.launch.cells import TRAIN_GRAD_ACCUM, WHISPER_PROMPT_LEN
 from repro_torch.models.moe import MoETransformer, moe_dispatch_local_ep, moe_route
 from repro_torch.models.param_utils import shard_params, tree_flatten, tree_map
 from repro_torch.models.registry import build_model
@@ -326,25 +327,113 @@ TP_CASES = {"qwen3-1.7b": {"vocab_size": 254},
             "gemma3-12b": {"vocab_size": 254},
             "granite-moe-3b-a800m": {"vocab_size": 254,
                                      "moe_capacity_factor": 1.0}}
+# the second world ("families"): the other families' TP cells (hymba
+# past its 8-token window; whisper's decoder long enough for the prefill
+# cell's 64-token prompt), the fully sharded train cells of FSDP_ARCHS and
+# one train cell with compressed gradients
+FAMILY_CASES = {"rwkv6-7b": {"vocab_size": 254},
+                "hymba-1.5b": {"vocab_size": 254},
+                "whisper-base": {"vocab_size": 254, "max_target_len": 64}}
+FSDP_ARCHS = ("qwen3-1.7b", "rwkv6-7b", "granite-moe-3b-a800m")
+COMPRESS_ARCH, COMPRESS_MESH = "qwen3-1.7b", "24"
+WORLDS = {"tp": TP_CASES, "families": FAMILY_CASES}
+CONFIGS = {**TP_CASES, **FAMILY_CASES}
 TP_S, TP_B = 16, 8      # every cell's sequence and batch (gemma3's window: 8)
 
 
 def tp_config(arch):
-    return get_smoke_config(arch).replace(dtype="float32", **TP_CASES[arch])
+    return get_smoke_config(arch).replace(dtype="float32", **CONFIGS[arch])
 
 
-def _cell(arch, shape, mesh):
+def cell_inputs(cfg) -> dict:
+    """The cells' inputs from seed 0 (numpy; either package's config):
+    tokens, prompt lengths (whisper: frame lengths), the decode step's
+    tokens, labels with a fifth padded; whisper also 64-token prompts and
+    labels and float32 frames."""
+    rng = np.random.RandomState(0)
+    S, B, V = TP_S, TP_B, cfg.vocab_size
+    x = {"toks": rng.randint(0, V, (B, S)).astype(np.int32),
+         "lens": rng.randint(S // 2, S, (B,)).astype(np.int32),
+         "nxt": rng.randint(0, V, (B,)).astype(np.int32)}
+    labels = rng.randint(0, V, (B, S)).astype(np.int32)
+    labels[rng.rand(B, S) < 0.2] = -1
+    x["labels"] = labels
+    if cfg.is_encoder_decoder:
+        T = WHISPER_PROMPT_LEN      # the prefill cell's prompt, in both packages
+        x["toks"] = rng.randint(0, V, (B, T)).astype(np.int32)
+        labels = rng.randint(0, V, (B, T)).astype(np.int32)
+        labels[rng.rand(B, T) < 0.2] = -1
+        x["labels"] = labels
+        x["frames"] = rng.randn(B, S, cfg.d_model).astype(np.float32)
+    return x
+
+
+def prefill_args(cfg, x) -> tuple:
+    if cfg.is_encoder_decoder:
+        return x["toks"], x["frames"], x["lens"]
+    return x["toks"], x["lens"]
+
+
+def train_batch(cfg, x) -> dict:
+    out = {"tokens": x["toks"], "labels": x["labels"]}
+    if cfg.is_encoder_decoder:
+        out["frames"] = x["frames"]
+    return out
+
+
+def _cell(arch, shape, mesh, **kw):
     from repro_torch.configs import get_shape
     from repro_torch.launch.cells import build_cell
 
     base = get_shape(shape)
     return build_cell(arch, shape, mesh, cfg_override=tp_config(arch),
-                      shape=ShapeConfig(base.name, base.kind, TP_S, TP_B))
+                      shape=ShapeConfig(base.name, base.kind, TP_S, TP_B), **kw)
 
 
 def _grad_rel(got, want) -> float:
     got, want = got.double(), want.double()
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-12))
+
+
+def _tree_rel(got, want) -> dict:
+    """``_grad_rel`` of each leaf of a DTensor tree against a tree of
+    tensors, by path."""
+    paths, leaves = tree_flatten(got)
+    return {p: _grad_rel(g.full_tensor(), w) for p, g, w in
+            zip(paths, leaves, tree_flatten(want)[1])}
+
+
+def _adam_rel(new, want, grads) -> tuple:
+    """``_tree_rel`` of one AdamW step's new parameters at the elements
+    where the step is well conditioned, and the share of the others. The
+    first step moves an element by lr·g/(|g| + eps), whose error for a
+    gradient error d is lr·eps·d/(|g| + eps)²: within 1e-4 of lr for d at
+    the gradients' own tolerance (1e-4 of the leaf's largest |g|) where
+    g² >= eps·max|g|. Below that the step's size (and sign) comes from
+    digits that the gradients' tolerance leaves open."""
+    eps = AdamWConfig().eps
+    rel, others, total = {}, 0, 0
+    paths, leaves = tree_flatten(new)
+    for p, x, w, g in zip(paths, leaves, tree_flatten(want)[1],
+                          tree_flatten(grads)[1]):
+        g = g.double().abs()
+        well = g * g >= eps * g.max()
+        others, total = others + int((~well).sum()), total + well.numel()
+        d = (x.full_tensor().double() - w.double()).abs() * well
+        rel[p] = float(d.max() / w.double().abs().max().clamp(min=1e-12))
+    return rel, others / total
+
+
+def _miss_share(got, want) -> dict:
+    """Per leaf of a DTensor tree, the share of its elements that differ
+    from the reference's by more than 1e-4 of the leaf's largest."""
+    out = {}
+    paths, leaves = tree_flatten(got)
+    for p, x, w in zip(paths, leaves, tree_flatten(want)[1]):
+        w = w.double()
+        miss = (x.full_tensor().double() - w).abs() > 1e-4 * w.abs().max()
+        out[p] = float(miss.double().mean())
+    return out
 
 
 def _counted_tp(fn):
@@ -359,24 +448,37 @@ def _device_mean(ref, prefix) -> float:
     return float(np.mean(vals))
 
 
-def tp_cells(ref, mesh, name) -> dict:
-    """The port's prefill, decode and train cells of each TP case on the JAX
+def _inputs(ref, key, cfg) -> dict:
+    return {k: torch.from_numpy(ref[f"{key}/{k}"]) for k in cell_inputs(cfg)}
+
+
+def _placed(cell, full, mesh):
+    """The cell's parameters and optimizer state placed by its in_shardings
+    (the fully sharded layout's specs, or param_specs and ZeRO-1)."""
+    specs = cell.in_shardings[0]
+    return (place_tree(full, mesh, specs),
+            shard_opt_state(init_opt_state(full), specs, full, cell.pc, mesh))
+
+
+def tp_cells(ref, mesh, name, cases) -> dict:
+    """The port's prefill, decode and train cells of each case on the JAX
     weights and inputs, against the JAX cells' outputs at the same mesh."""
     out = {}
     coord = _coord(mesh)
-    for arch in TP_CASES:
+    for arch in cases:
         cfg, key = tp_config(arch), f"{name}/{arch}"
         V = cfg.vocab_size
-        t = lambda k: torch.from_numpy(ref[f"{key}/{k}"])  # noqa: E731
+        x = _inputs(ref, key, cfg)
         pre = _cell(arch, "prefill_32k", mesh)
-        params = shard_params(_tree(ref, f"{key}/params"), pre.model.templates(),
-                              pre.pc, mesh)
-        (lg, cache), c_pre = _counted_tp(lambda: pre.fn(params, t("toks"), t("lens")))
-        # the prefill's caches at each row's valid positions (rows past a
-        # prompt's length are never read; the two packages' prefills mask
-        # them differently: the reference by seq_lens, the port's
-        # flash_prefill path causally only)
-        valid = torch.arange(TP_S)[None, :] < t("lens")[:, None]     # [B, S]
+        full = _tree(ref, f"{key}/params")
+        params = shard_params(full, pre.model.templates(), pre.pc, mesh)
+        (lg, cache), c_pre = _counted_tp(
+            lambda: pre.fn(params, *prefill_args(cfg, x)))
+        # the prefill's attention caches at each row's valid positions
+        # (rows past a prompt's length are never read; the two packages'
+        # prefills mask them differently: the reference by seq_lens, the
+        # port's flash_prefill path causally only)
+        valid = torch.arange(TP_S)[None, :] < x["lens"][:, None]     # [B, S]
         cache_err = 0.0
         for k, v in _tree(ref, f"{key}/cache").items():
             got = cache[k].full_tensor()
@@ -386,26 +488,25 @@ def tp_cells(ref, mesh, name) -> dict:
             cache_err = max(cache_err, _rel(got, v))
         dec = _cell(arch, "decode_32k", mesh)
         jcache = place_tree(_tree(ref, f"{key}/cache"), mesh, dec.model.cache_specs())
-        (dlg, _), c_dec = _counted_tp(lambda: dec.fn(params, jcache, t("nxt"), t("lens")))
+        (dlg, _), c_dec = _counted_tp(lambda: dec.fn(params, jcache, x["nxt"],
+                                                      x["lens"]))
         hidden_err = None
-        if not arch.startswith("granite"):    # MoE capacity is per data shard
+        if cfg.family == "dense":     # MoE capacity is per data shard
             # forward_hidden on the rank's rows against the model on one
             # device with the whole weights
-            full = _tree(ref, f"{key}/params")
             one = build_model(cfg, pre.pc)
             with torch.no_grad():
-                emb = one.embed_tokens(full, t("toks"))
+                emb = one.embed_tokens(full, x["toks"])
                 pos = torch.arange(TP_S, dtype=torch.int32).expand(TP_B, TP_S)
-                want, _, _ = one.forward_hidden(full, emb, pos, t("lens"))
-                got, _, _ = pre.model.forward_hidden(params, emb, pos, t("lens"))
+                want, _, _ = one.forward_hidden(full, emb, pos, x["lens"])
+                got, _, _ = pre.model.forward_hidden(params, emb, pos, x["lens"])
             b = TP_B // pre.pc.dp
             r0 = dp_rank(mesh, pre.pc) * b
             hidden_err = _rel(got, want[r0:r0 + b])
         tr = _cell(arch, "train_4k", mesh)
-        full = _tree(ref, f"{key}/params")
         opt = shard_opt_state(init_opt_state(full), tr.model.param_specs(), full,
                               tr.pc, mesh)
-        batch = {"tokens": t("toks"), "labels": t("labels")}
+        batch = train_batch(cfg, x)
         _, _, metrics = tr.fn(params, opt, batch)
         (loss, grads), c_grad = _counted_tp(
             lambda: loss_and_grads(tr.model, params, batch, False))
@@ -413,15 +514,12 @@ def tp_cells(ref, mesh, name) -> dict:
             _, c_fwd = _counted_tp(lambda: tr.model.train_loss(params, batch,
                                                                remat=False))
         _, remat_grads = loss_and_grads(tr.model, params, batch, True)
-        paths, got = tree_flatten(grads)
-        want = _tree(ref, f"{key}/grads")
-        gerr = {p: _grad_rel(g.full_tensor(), w) for p, g, w in
-                zip(paths, got, tree_flatten(want)[1])}
+        got = tree_flatten(grads)[1]
         remat_same = all(torch.equal(a.full_tensor(), b.full_tensor()) for a, b in
                          zip(got, tree_flatten(remat_grads)[1]))
         out[arch] = {
-            "prefill_err": _rel(lg.full_tensor(), t("lg"), V),
-            "decode_err": _rel(dlg.full_tensor(), t("dlg"), V),
+            "prefill_err": _rel(lg.full_tensor(), torch.from_numpy(ref[f"{key}/lg"]), V),
+            "decode_err": _rel(dlg.full_tensor(), torch.from_numpy(ref[f"{key}/dlg"]), V),
             "cache_err": cache_err, "hidden_err": hidden_err,
             "loss": float(loss), "loss_jax": _device_mean(ref, f"{key}/loss"),
             "loss_jax_own": float(ref[f"{key}/loss/{coord}"]),
@@ -429,23 +527,101 @@ def tp_cells(ref, mesh, name) -> dict:
             "step_loss_jax": _device_mean(ref, f"{key}/step_loss"),
             "grad_norm": float(metrics["grad_norm"]),
             "grad_norm_jax": float(ref[f"{key}/grad_norm"]),
-            "grad_err": gerr, "remat_same": remat_same,
+            "grad_err": _tree_rel(grads, _tree(ref, f"{key}/grads")),
+            "remat_same": remat_same,
             "calls": {"prefill": c_pre, "decode": c_dec, "grads": c_grad,
                       "forward": c_fwd},
-            "layers": cfg.num_layers, "qk_norm": cfg.qk_norm,
-            "chunks": 8, "dp_axes": len(tr.pc.dp_axes),
-            "local_kv_slots": params["blocks"]["wk"].to_local().shape[3],
+            "layers": cfg.num_layers, "enc_layers": cfg.num_encoder_layers,
+            "family": cfg.family, "qk_norm": cfg.qk_norm,
+            "chunks": 4 if cfg.is_encoder_decoder else 8,
+            "dp_axes": len(tr.pc.dp_axes),
+            "local": {k: (list(v.to_local().shape), list(v.shape))
+                      for k, v in cache.items()},
         }
     return out
 
 
+def fsdp_cell(ref, mesh, name, arch) -> dict:
+    """The fully sharded train cell (``train_layout="fsdp"``): one step's
+    loss, gradient norm, new parameters and moments, and one loss's
+    gradients, against the reference's fsdp cell on the same mesh; the
+    collectives of a forward, of its gradients and of its gradients under
+    remat."""
+    cfg, key = tp_config(arch), f"{name}/fsdp/{arch}"
+    x = _inputs(ref, key, cfg)
+    tr = _cell(arch, "train_4k", mesh, train_layout="fsdp")
+    full = _tree(ref, f"{key}/params")
+    params, opt = _placed(tr, full, mesh)
+    batch = train_batch(cfg, x)
+    new, new_opt, metrics = tr.fn(params, opt, batch)
+    (loss, grads), c_grad = _counted_tp(
+        lambda: loss_and_grads(tr.model, params, batch, False))
+    with torch.no_grad():
+        _, c_fwd = _counted_tp(lambda: tr.model.train_loss(params, batch,
+                                                           remat=False))
+    _, c_remat = _counted_tp(lambda: loss_and_grads(tr.model, params, batch, True))
+    leaves = tree_flatten(params)[1]
+    params_err, ill = _adam_rel(new, _tree(ref, f"{key}/new"),
+                                _tree(ref, f"{key}/grads"))
+    blocks = [k for k in params if isinstance(params[k], dict)]
+    by_layer = sum(any(isinstance(p, Shard) and p.dim > 0 for p in x.placements)
+                   for b in blocks for x in params[b].values())
+    return {"loss": float(loss), "loss_jax": _device_mean(ref, f"{key}/loss"),
+            "step_loss": float(metrics["loss"]),
+            "step_loss_jax": _device_mean(ref, f"{key}/step_loss"),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grad_norm_jax": float(ref[f"{key}/grad_norm"]),
+            "grad_err": _tree_rel(grads, _tree(ref, f"{key}/grads")),
+            "params_err": params_err, "ill_share": ill,
+            "m_err": _tree_rel(new_opt["m"], _tree(ref, f"{key}/m")),
+            "v_err": _tree_rel(new_opt["v"], _tree(ref, f"{key}/v")),
+            "calls": {"forward": c_fwd, "grads": c_grad, "remat": c_remat},
+            "dp_axes": len(tr.pc.dp_axes), "tp": tr.pc.tp,
+            "groups": tr.model.n_groups, "by_layer": by_layer,
+            "moe_layers": cfg.num_layers if cfg.family == "moe" else 0,
+            "sharded": sum(any(isinstance(p, Shard) for p in x.placements)
+                           for x in leaves),
+            "leaves": len(leaves)}
+
+
+def compress_cell(ref, mesh, name) -> dict:
+    """The train cell with compressed gradients (tensor-parallel layout,
+    grad_accum as TRAIN_GRAD_ACCUM): new parameters, m, v and err against
+    the reference's cell."""
+    arch, key = COMPRESS_ARCH, f"{name}/compress"
+    cfg = tp_config(arch)
+    x = _inputs(ref, key, cfg)
+    tr = _cell(arch, "train_4k", mesh, compress_grads=True)
+    params, opt = _placed(tr, _tree(ref, f"{key}/params"), mesh)
+    new, new_opt, metrics = tr.fn(params, opt, train_batch(cfg, x))
+    err = new_opt["err"]
+    return {"params_err": _tree_rel(new, _tree(ref, f"{key}/new")),
+            "m_miss": _miss_share(new_opt["m"], _tree(ref, f"{key}/m")),
+            "v_miss": _miss_share(new_opt["v"], _tree(ref, f"{key}/v")),
+            "err_max": max(float(e.full_tensor().abs().max())
+                           for e in tree_flatten(err)[1]),
+            "err_max_jax": max(float(np.abs(ref[k]).max()) for k in ref.files
+                               if k.startswith(f"{key}/err/")),
+            "err_placed": all(e.placements == m.placements for e, m in zip(
+                tree_flatten(err)[1], tree_flatten(new_opt["m"])[1])),
+            "step_loss": float(metrics["loss"]),
+            "step_loss_jax": _device_mean(ref, f"{key}/step_loss"),
+            "grad_accum": TRAIN_GRAD_ACCUM[arch]}
+
+
 def run_tp(rank: int, workdir: str, npz: str) -> dict:
     ref = np.load(npz)
+    world = str(ref["world"])
     out = {}
     for name in map(str, ref["meshes"]):
         shape, names = MESHES[name]
-        out[name] = tp_cells(ref, init_device_mesh("cpu", shape,
-                                                   mesh_dim_names=names), name)
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        out[name] = tp_cells(ref, mesh, name, WORLDS[world])
+        if world == "families":
+            out[name]["fsdp"] = {a: fsdp_cell(ref, mesh, name, a)
+                                 for a in FSDP_ARCHS}
+            if name == COMPRESS_MESH:
+                out[name]["compress"] = compress_cell(ref, mesh, name)
     out["imported"] = sorted(m for m in sys.modules
                              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     return out
@@ -513,11 +689,14 @@ def spawn(workdir, npz, entry, deadline_s: float) -> list:
 
 # The reference's cells (``repro.launch.cells.build_cell``, shrunk as in
 # tests/test_dryrun_small.py, jitted on meshes of 8 host devices) for
-# ``main_tp``, written by one JAX process: ``python -c TP_JAX_SCRIPT
-# <npz> <this module's path> <mesh name>...``. A string here: this module
+# ``main_tp``, written by a JAX process: ``python -c TP_JAX_SCRIPT <npz>
+# <this module's path> <world> <mesh name>...``. A string here: this module
 # itself imports no jax.
 TP_JAX_SCRIPT = r"""import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+# LLVM's cheaper passes: the same programs compile in ~0.6 of the time
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_llvm_disable_expensive_passes=true")
 import sys
 sys.path.insert(0, os.path.dirname(sys.argv[2]))
 import numpy as np
@@ -533,11 +712,11 @@ import _torch_mesh_worker as W
 out = {}
 
 
-def cell_of(arch, shape, mesh, cfg):
+def cell_of(arch, shape, mesh, cfg, **kw):
     base = C.SHAPES_BY_NAME[shape]
     C.SHAPES_BY_NAME[shape] = ShapeConfig(base.name, base.kind, W.TP_S, W.TP_B)
     try:
-        return build_cell(arch, shape, mesh, cfg_override=cfg)
+        return build_cell(arch, shape, mesh, cfg_override=cfg, **kw)
     finally:
         C.SHAPES_BY_NAME[shape] = base
 
@@ -552,67 +731,119 @@ def per_device(x, key, cm):
         out[f"{key}/{cm[sh.device.id]}"] = np.asarray(sh.data)
 
 
-for name in sys.argv[3:]:
+def inputs(key, cfg):
+    x = W.cell_inputs(cfg)
+    out.update({f"{key}/{k}": v for k, v in x.items()})
+    return x, W.train_batch(cfg, x)
+
+
+def grads_of(tr, params, batch):
+    loss_fn = lambda p, b: tr.model.train_loss(p, b)[0]
+    sh = (tr.in_shardings[0], tr.in_shardings[2])
+    return jax.jit(jax.value_and_grad(loss_fn), in_shardings=sh)(params, batch)
+
+
+def step(key, tr, params, batch, cm):
+    new, opt, metrics = jax.jit(tr.fn, in_shardings=tr.in_shardings)(
+        params, jax.tree.map(np.asarray, init_opt_state(params)), batch)
+    per_device(metrics["loss"], key + "/step_loss", cm)
+    out[key + "/grad_norm"] = np.asarray(metrics["grad_norm"])
+    return new, opt
+
+
+world, meshes = sys.argv[3], sys.argv[4:]
+for name in meshes:
     dims, names = W.MESHES[name]
     mesh = compat_make_mesh(dims, names)
     compat_set_mesh(mesh)
     cm = {d.id: "_".join(map(str, i)) for i, d in np.ndenumerate(mesh.devices)}
-    for arch, kw in W.TP_CASES.items():
+    for arch, kw in W.WORLDS[world].items():
         cfg = get_smoke_config(arch).replace(dtype="float32", **kw)
         key = f"{name}/{arch}"
-        S, B = W.TP_S, W.TP_B
         pre = cell_of(arch, "prefill_32k", mesh, cfg)
         # numpy arguments: each jit places them by its own in_shardings
         params = jax.tree.map(np.asarray, pre.model.init_params(jax.random.PRNGKey(0)))
-        rng = np.random.RandomState(0)
-        toks = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
-        lens = rng.randint(S // 2, S, (B,)).astype(np.int32)
-        nxt = rng.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
-        labels = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
-        labels[rng.rand(B, S) < 0.2] = -1
-        batch = {"tokens": toks, "labels": labels}
+        if world == "families":
+            # no leaf left at its constant init (zero biases and decays, unit
+            # scales), where a rank taking the wrong columns of a replicated
+            # leaf, or adding a replicated bias once per rank, would not show
+            noise = np.random.RandomState(1)
+            params = jax.tree.map(lambda a: (a + 0.05 * noise.standard_normal(
+                a.shape)).astype(a.dtype), params)
+        x, batch = inputs(key, cfg)
         with mesh:
             lg, cache = jax.jit(pre.fn, in_shardings=pre.in_shardings)(
-                params, toks, lens)
+                params, *W.prefill_args(cfg, x))
             dec = cell_of(arch, "decode_32k", mesh, cfg)
             dlg, _ = jax.jit(dec.fn, in_shardings=dec.in_shardings)(
-                params, jax.tree.map(np.asarray, cache), nxt, lens)
+                params, jax.tree.map(np.asarray, cache), x["nxt"], x["lens"])
             tr = cell_of(arch, "train_4k", mesh, cfg)
-            _, _, metrics = jax.jit(tr.fn, in_shardings=tr.in_shardings)(
-                params, jax.tree.map(np.asarray, init_opt_state(params)), batch)
-            loss_fn = lambda p, b: tr.model.train_loss(p, b)[0]
-            sh = (tr.in_shardings[0], tr.in_shardings[2])
-            loss, grads = jax.jit(jax.value_and_grad(loss_fn), in_shardings=sh)(
-                params, batch)
+            step(key, tr, params, batch, cm)
+            loss, grads = grads_of(tr, params, batch)
         out.update(flat(params, key + "/params"))
         out.update(flat(cache, key + "/cache"))
         out.update(flat(grads, key + "/grads"))
-        out.update({key + "/toks": toks, key + "/lens": lens, key + "/nxt": nxt,
-                    key + "/labels": labels, key + "/lg": np.asarray(lg),
-                    key + "/dlg": np.asarray(dlg),
-                    key + "/grad_norm": np.asarray(metrics["grad_norm"])})
+        out.update({key + "/lg": np.asarray(lg), key + "/dlg": np.asarray(dlg)})
         per_device(loss, key + "/loss", cm)
-        per_device(metrics["loss"], key + "/step_loss", cm)
+    if world != "families":
+        continue
+    # the fully sharded train cells, and compressed gradients
+    cells = [(f"{name}/fsdp/{a}", a, dict(train_layout="fsdp")) for a in W.FSDP_ARCHS]
+    if name == W.COMPRESS_MESH:
+        cells.append((f"{name}/compress", W.COMPRESS_ARCH, dict(compress_grads=True)))
+    for key, arch, kw in cells:
+        cfg = get_smoke_config(arch).replace(dtype="float32", **W.CONFIGS[arch])
+        tr = cell_of(arch, "train_4k", mesh, cfg, **kw)
+        params = jax.tree.map(np.asarray, tr.model.init_params(jax.random.PRNGKey(0)))
+        x, batch = inputs(key, cfg)
+        with mesh:
+            new, opt = step(key, tr, params, batch, cm)
+            loss, grads = grads_of(tr, params, batch)
+        out.update(flat(params, key + "/params"))
+        out.update(flat(new, key + "/new"))
+        out.update(flat(grads, key + "/grads"))
+        for k in ("m", "v", "err"):
+            if opt.get(k) is not None:
+                out.update(flat(opt[k], f"{key}/{k}"))
+        per_device(loss, key + "/loss", cm)
 
-out["meshes"] = np.asarray(sys.argv[3:])
+out["meshes"] = np.asarray(meshes)
+out["world"] = np.asarray(world)
 np.savez(sys.argv[1], **out)
 print("WROTE", len(out))
 """
 
 
-def tp_world(workdir, meshes, deadline_s: float) -> list:
-    """The JAX process's reference cells at ``meshes`` (names of
-    ``MESHES``), then the port's cells on them in a spawned world."""
+def tp_world(workdir, meshes, deadline_s: float, world: str = "tp") -> list:
+    """The reference's cells of ``world`` (a key of ``WORLDS``) at
+    ``meshes`` (names of ``MESHES``), one JAX process per mesh side by side,
+    then the port's cells on them in a spawned world."""
     import subprocess
 
     here = os.path.dirname(os.path.abspath(__file__))
     npz = os.path.join(str(workdir), "ref.npz")
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(here), "src"),
                JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", TP_JAX_SCRIPT, npz,
-                           os.path.abspath(__file__), *meshes], env=env,
-                          capture_output=True, text=True, timeout=420)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    procs = {m: subprocess.Popen([sys.executable, "-c", TP_JAX_SCRIPT,
+                                  f"{npz}.{m}.npz", os.path.abspath(__file__),
+                                  world, m], env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for m in meshes}
+    try:
+        for p in procs.values():
+            _, err = p.communicate(timeout=420)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ref = {}
+    for m in meshes:
+        with np.load(f"{npz}.{m}.npz") as z:
+            ref.update({k: z[k] for k in z.files})
+    ref["meshes"] = np.asarray(meshes)
+    np.savez(npz, **ref)
     return spawn(workdir, npz, main_tp, deadline_s)
 
 
@@ -674,3 +905,137 @@ def check_tp_calls(ranks, arch, mesh):
         assert got["calls"]["forward"] == {"all_reduce": fwd}, got["calls"]
         enters = L * (1 + 2 * got["qk_norm"] + (2 if moe else 1)) + 1
         assert got["calls"]["grads"] == {"all_reduce": fwd + enters}, got["calls"]
+
+
+def check_family_cells(ranks, arch, mesh):
+    """rwkv6, hymba and whisper run tensor-parallel on DTensor weights
+    placed by param_specs: their prefill and decode cells give the reference
+    cells' logits and the prefill's caches to 1e-5 of the largest (hymba's
+    rings past its 8-token window; whisper over ragged frames), the train
+    cell's loss and gradient norm to 1e-5 and one loss's gradients to 1e-4
+    of each leaf's largest, with and without remat alike. Each cache comes
+    back on the rank's rows and, where ``cache_specs`` shards it, on its
+    heads: rwkv6's WKV state, hymba's conv and SSM state on ``d_inner``,
+    whisper's K/V on its kv slots."""
+    tp, dp = (4, 2) if mesh == "24" else (2, 4)
+    for r in ranks:
+        got = r[mesh][arch]
+        assert got["prefill_err"] < 1e-5 and got["decode_err"] < 1e-5, got
+        assert got["cache_err"] < 1e-5, got
+        for a, b in (("loss", "loss_jax"), ("step_loss", "step_loss_jax"),
+                     ("grad_norm", "grad_norm_jax")):
+            assert abs(got[a] - got[b]) <= 1e-5 * abs(got[b]), (a, got)
+        assert max(got["grad_err"].values()) < 1e-4, got["grad_err"]
+        assert got["remat_same"]
+        for k, (local, full) in got["local"].items():
+            by_heads = k not in ("tm_shift", "cm_shift", "frame_lens")
+            assert np.prod(full) == np.prod(local) * dp * (tp if by_heads else 1), (k, local, full)
+    assert len({r[mesh][arch]["loss_jax_own"] for r in ranks}) == 1
+
+
+def check_family_calls(ranks, arch, mesh):
+    """The collective calls per step on every rank (L decoder layers, Le
+    encoder layers; S = 16 is one chunk of hymba's scan):
+
+    - rwkv6: a prefill or decode step all-reduces the time mix's ``w_o`` and
+      the channel mix's ``wc_v`` products and all-gathers its gate columns
+      per layer, plus the embedding's all-reduce and the logits' gather;
+    - hymba: the attention's and the MLP's all-reduce, the Mamba branch's
+      ``m_wx`` and ``m_out`` all-reduces and ``m_in``'s all-gather per layer;
+    - whisper: one all-reduce per attention and per MLP (encoder 2 per
+      layer, decoder 3), the embedding's and the logits' gather.
+
+    A loss's forward adds three per cross-entropy chunk and two per DP axis
+    and leaves out the logits' gather. Its backward issues one all-reduce
+    per ``enter``: rwkv6 13 per layer (the time mix's input and its nine
+    replicated weights, the channel mix's input and two), hymba 4 (the
+    attention's, MLP's and ``m_in``'s input, ``m_wx``'s reduced product),
+    whisper 2 per encoder layer and 4 per decoder layer (cross attention's
+    query and encoder states), plus the hidden state before the loss; and
+    hymba's ``m_in`` gather a reduce-scatter per layer."""
+    for r in ranks:
+        got = r[mesh][arch]
+        L, Le, fam = got["layers"], got["enc_layers"], got["family"]
+        per_chunk = 3 * got["chunks"] + 2 * got["dp_axes"]
+        if fam == "ssm":
+            pre = dec = {"all_reduce": 2 * L + 1, "all_gather_into_tensor": L + 1}
+            enters, gathers, scatters = 13 * L + 1, L, 0
+        elif fam == "hybrid":
+            pre = dec = {"all_reduce": 4 * L + 1, "all_gather_into_tensor": L + 1}
+            enters, gathers, scatters = 4 * L + 1, L, L
+        else:
+            pre = {"all_reduce": 2 * Le + 3 * L + 1, "all_gather_into_tensor": 1}
+            dec = {"all_reduce": 3 * L + 1, "all_gather_into_tensor": 1}
+            enters, gathers, scatters = 2 * Le + 4 * L + 1, 0, 0
+        assert got["calls"]["prefill"] == pre, got["calls"]
+        assert got["calls"]["decode"] == dec, got["calls"]
+        fwd = {"all_reduce": pre["all_reduce"] + per_chunk}
+        if gathers:
+            fwd["all_gather_into_tensor"] = gathers
+        assert got["calls"]["forward"] == fwd, got["calls"]
+        grads = dict(fwd, all_reduce=fwd["all_reduce"] + enters)
+        if scatters:
+            grads["reduce_scatter_tensor"] = scatters
+        assert got["calls"]["grads"] == grads, got["calls"]
+
+
+def check_fsdp(ranks, arch, mesh):
+    """The fully sharded train cell (every mesh axis on the batch, no model
+    axis; every leaf sharded by ``zero1_spec`` over all axes; granite at
+    capacity factor 1, slots dropping from the whole batch's route): its
+    loss and gradient norm to 1e-5 of the reference's, one loss's gradients
+    and the step's moments to 1e-4 of each leaf's largest, and its new
+    parameters to 1e-4 wherever Adam's first step is well conditioned
+    (``_adam_rel``: at least 80% of the elements)."""
+    for r in ranks:
+        got = r[mesh]["fsdp"][arch]
+        for a, b in (("loss", "loss_jax"), ("step_loss", "step_loss_jax"),
+                     ("grad_norm", "grad_norm_jax")):
+            assert abs(got[a] - got[b]) <= 1e-5 * abs(got[b]), (a, got)
+        for k in ("grad_err", "m_err", "v_err", "params_err"):
+            assert max(got[k].values()) < 1e-4, (k, got[k])
+        assert got["ill_share"] <= 0.2, got["ill_share"]
+        assert got["tp"] == 1 and got["dp_axes"] == len(mesh)
+        assert got["sharded"] == got["leaves"], got
+
+
+def check_fsdp_calls(ranks, arch, mesh):
+    """The fully sharded layout's collectives: each sharded leaf is
+    all-gathered over every mesh axis (innermost first), a stacked leaf once
+    per layer group inside the group's step, the others once; an MoE layer
+    gathers every rank's tokens too (the reference routes the whole batch)
+    and its loss takes the aux loss's mean; a forward adds the loss's two
+    all-reduces per axis; the backward reduce-scatters each gather; remat
+    gathers each group's leaves and tokens again."""
+    for r in ranks:
+        got = r[mesh]["fsdp"][arch]
+        n, G, by_layer = got["dp_axes"], got["groups"], got["by_layer"]
+        moe = got["moe_layers"]
+        gathers = n * (by_layer * G + got["sharded"] - by_layer + moe)
+        fwd = {"all_gather_into_tensor": gathers,
+               "all_reduce": (3 if moe else 2) * n}
+        assert got["calls"]["forward"] == fwd, got["calls"]
+        assert got["calls"]["grads"] == dict(fwd, reduce_scatter_tensor=gathers)
+        assert got["calls"]["remat"] == dict(
+            fwd, reduce_scatter_tensor=gathers,
+            all_gather_into_tensor=gathers + n * (by_layer * G + moe)), got["calls"]
+
+
+def check_compress(ranks):
+    """qwen3's train cell with compressed gradients at (2, 4), grad_accum 2:
+    each microbatch's gradient reduce-scattered to its ZeRO-1 shard, then
+    rounded to bf16. The new parameters equal the reference's to 1e-4 of
+    each leaf's largest, and so do m and v at all but at most 1e-3 of each
+    leaf's elements: there the two packages' f32 sums (in other orders) fall
+    on either side of a bf16 rounding boundary. Rounding each rank's part
+    before the sum moves most elements. ``err`` lies on m's shards and is
+    zero in both packages: the gradients are bf16 already when the error
+    term is added, so the reference's feedback carries nothing."""
+    for r in ranks:
+        got = r[COMPRESS_MESH]["compress"]
+        assert max(got["params_err"].values()) < 1e-4, got["params_err"]
+        for k in ("m_miss", "v_miss"):
+            assert max(got[k].values()) <= 1e-3, (k, got[k])
+        assert got["err_max"] == got["err_max_jax"] == 0.0 and got["err_placed"]
+        assert abs(got["step_loss"] - got["step_loss_jax"]) <= 1e-5 * got["step_loss_jax"]
+        assert got["grad_accum"] == 2

@@ -1418,10 +1418,9 @@ print("FULL " + json.dumps(full))
 def test_small_mesh_dryrun_on_a_fake_world():
     """The counterpart of tests/test_dryrun_small.py: ``dryrun.run_cell`` on
     a fake world of 8 ranks as (2, 2, 2), smoke configs at 5 layers, at
-    train_4k and decode_32k shrunk to 64 tokens x 8 rows. The dense and MoE
-    rows are ok, with dot FLOPs and collectives, a peak and the XLA-only
-    keys null; rwkv6-7b's rows fail with NotImplementedError naming the
-    ROADMAP (its forward on a mesh is the next slice). qwen3's rows are
+    train_4k and decode_32k shrunk to 64 tokens x 8 rows. Every row (dense,
+    MoE, rwkv6) is ok, with dot FLOPs and collectives, a peak and the
+    XLA-only keys null. qwen3's rows are
     ``trace_composed``'s, from 2 and 3 layers, which equals ``trace_cell``
     of all 5 in FLOPs and collectives, and in peak for decode; the train
     step's composed peak is an estimate (0.978 of the full trace's here)."""
@@ -1439,10 +1438,6 @@ def test_small_mesh_dryrun_on_a_fake_world():
     assert len(rows) == 6
     for r in rows:
         assert r["mesh"] == "2x2x2" and r["kind"] in ("train", "decode")
-        if r["arch"] == "rwkv6-7b":
-            assert r["status"] == "failed", r
-            assert r["error"].startswith("NotImplementedError") and "ROADMAP" in r["error"]
-            continue
         assert r["status"] == "ok", r.get("traceback")
         assert r["dot_flops_per_device"] > 0 and r["peak_bytes_per_device"] > 0
         assert sum(r["collective_counts"].values()) > 0, r

@@ -863,6 +863,52 @@ def test_tp_forward_on_a_one_rank_nccl_mesh(card, tmp_path):
         dist.destroy_process_group()
 
 
+def test_rwkv6_tp_prefill_on_a_one_rank_nccl_mesh(card, tmp_path):
+    """rwkv6's tensor-parallel prefill (DTensor weights placed by
+    param_specs, rwkv6_chunk on the rank's WKV heads, every collective
+    through NCCL) against the single-device kernel path at smoke size in
+    float32: one launch per layer, the logits and the state cache to 1e-6 of
+    the largest, and a decode step after it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.models.param_utils import shard_params
+    from repro_torch.models.registry import build_model
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        pc = ParallelConfig.from_mesh(mesh)
+        cfg = get_smoke_config("rwkv6-7b").replace(dtype="float32")
+        single, tp = build_model(cfg, pc), build_model(cfg, pc)
+        tp.mesh = mesh
+        params = single.init_params(torch.Generator(device=card).manual_seed(0))
+        dparams = shard_params(params, tp.templates(), pc, mesh)
+        rng = np.random.RandomState(0)
+        toks = torch.as_tensor(rng.randint(0, 256, (3, 64)), dtype=torch.int32,
+                               device=card)
+        lens = torch.tensor([64, 41, 17], dtype=torch.int32, device=card)
+        nxt = torch.as_tensor(rng.randint(0, 256, (3,)), dtype=torch.int32,
+                              device=card)
+        before = ops.launch_counts()["rwkv6_chunk"]
+        lg_t, c_t = tp.prefill(dparams, toks, seq_lens=lens)
+        assert ops.launch_counts()["rwkv6_chunk"] - before == cfg.num_layers
+        lg_s, c_s = single.prefill(params, toks, seq_lens=lens)
+        assert ops.launch_counts()["rwkv6_chunk"] - before == 2 * cfg.num_layers
+        pairs = [(lg_t.full_tensor(), lg_s)] + [(c_t[k].full_tensor(), c_s[k])
+                                                for k in c_s]
+        d_t, _ = tp.decode_step(dparams, c_t, nxt, lens)
+        d_s, _ = single.decode_step(params, c_s, nxt, lens)
+        for got, want in pairs + [(d_t.full_tensor(), d_s)]:
+            assert float((got - want).abs().max() / want.abs().max()) < 1e-6
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k", "train_4k"])
 def test_cells_run_on_the_card_at_smoke_size(card, shape_name):
     """qwen3's three cells at smoke size (64 tokens x 4 rows), built by

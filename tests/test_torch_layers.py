@@ -851,8 +851,8 @@ TP_MESHES = ["24", "222"]
 @pytest.fixture(scope="module")
 def tp_world(tmp_path_factory):
     """The reference's cells jitted on its (2, 4) and (2, 2, 2) meshes of 8
-    host devices in one JAX process, then the port's cells on the same
-    weights and inputs in an 8-rank gloo world (``main_tp``)."""
+    host devices (one JAX process per mesh), then the port's cells on the
+    same weights and inputs in an 8-rank gloo world (``main_tp``)."""
     return worker.tp_world(tmp_path_factory.mktemp("tp_world"), TP_MESHES,
                            WORLD_DEADLINE_S)
 
@@ -874,3 +874,130 @@ def test_tp_collective_calls_per_step(tp_world, arch, mesh):
 
 def test_tp_ranks_import_neither_jax_nor_repro(tp_world):
     assert all(r["imported"] == [] for r in tp_world)
+
+
+# --------------------------------------------------------------------------
+# the other families' TP forward, the fully sharded train cells and
+# compressed gradients: a second world, so that each stays inside its limits
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def families_world(tmp_path_factory):
+    """The reference's cells of ``FAMILY_CASES``, its fsdp cells and its
+    compressed-gradient cell jitted (one JAX process per mesh), then the
+    port's in an 8-rank gloo world (``_torch_mesh_worker.tp_world``)."""
+    return worker.tp_world(tmp_path_factory.mktemp("families_world"), TP_MESHES,
+                           WORLD_DEADLINE_S, world="families")
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+@pytest.mark.parametrize("arch", worker.FAMILY_CASES)
+def test_family_tp_cells_on_a_gloo_mesh_equal_the_reference_cells(families_world,
+                                                                  arch, mesh):
+    """See ``_torch_mesh_worker.check_family_cells``."""
+    worker.check_family_cells(families_world, arch, mesh)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+@pytest.mark.parametrize("arch", worker.FAMILY_CASES)
+def test_family_tp_collective_calls_per_step(families_world, arch, mesh):
+    """See ``_torch_mesh_worker.check_family_calls``."""
+    worker.check_family_calls(families_world, arch, mesh)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+@pytest.mark.parametrize("arch", worker.FSDP_ARCHS)
+def test_fsdp_train_cells_on_a_gloo_mesh_equal_the_reference_cells(families_world,
+                                                                   arch, mesh):
+    """See ``_torch_mesh_worker.check_fsdp``."""
+    worker.check_fsdp(families_world, arch, mesh)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+@pytest.mark.parametrize("arch", worker.FSDP_ARCHS)
+def test_fsdp_collective_calls_per_step(families_world, arch, mesh):
+    """See ``_torch_mesh_worker.check_fsdp_calls``."""
+    worker.check_fsdp_calls(families_world, arch, mesh)
+
+
+def test_compressed_gradients_on_a_gloo_mesh_equal_the_reference_cell(families_world):
+    """See ``_torch_mesh_worker.check_compress``."""
+    worker.check_compress(families_world)
+
+
+def test_family_ranks_import_neither_jax_nor_repro(families_world):
+    assert all(r["imported"] == [] for r in families_world)
+
+
+_BUILD_EVERY_CELL = r"""
+import json
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import ALL_SHAPES
+from repro_torch.launch.cells import abstract_args, build_cell
+from repro_torch.launch.mesh import fake_world
+
+built, skipped = [], []
+with fake_world(8):
+    meshes = {"1": None,
+              "2x4": init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model")),
+              "2x2x2": init_device_mesh("cpu", (2, 2, 2),
+                                        mesh_dim_names=("pod", "data", "model"))}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in ALL_SHAPES:
+            if not cfg.supports_shape(shape):
+                skipped.append([arch, shape.name])
+                continue
+            opts = ([("tp", False), ("tp", True), ("fsdp", False), ("fsdp", True)]
+                    if shape.kind == "train" else [("tp", False)])
+            for name, mesh in meshes.items():
+                for layout, compress in opts:
+                    cell = build_cell(arch, shape.name, mesh, train_layout=layout,
+                                      compress_grads=compress)
+                    # every argument placed: no uneven shard anywhere
+                    with FakeTensorMode(allow_non_fake_inputs=True):
+                        abstract_args(cell, "cpu")
+                    built.append([arch, shape.name, name, layout, compress,
+                                  cell.pc.tp, cell.pc.dp])
+print("BUILT " + json.dumps({"built": built, "skipped": skipped}))
+"""
+
+
+def test_build_cell_builds_every_cell_on_both_meshes_in_both_layouts():
+    """``build_cell`` builds every arch at every shape it supports at full
+    size, at mesh None and on fake (2, 4) and (2, 2, 2) worlds, a train
+    shape with ``train_layout`` "tp" and "fsdp" and ``compress_grads`` off
+    and on, as the reference's does, and places each cell's arguments. The
+    fsdp cells put every mesh axis on the batch; the others the model axis
+    on the heads (long_500k's one row: no data axis)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import ALL_SHAPES
+
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    proc = subprocess.run([sys.executable, "-c", _BUILD_EVERY_CELL],
+                          capture_output=True, text=True, timeout=240,
+                          env=dict(os.environ, PYTHONPATH=src))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("BUILT")][0]
+    out = json.loads(line.split(" ", 1)[1])
+    supported = [(a, s.name, s.kind) for a in ARCH_IDS for s in ALL_SHAPES
+                 if get_config(a).supports_shape(s)]
+    assert len(supported) + len(out["skipped"]) == 4 * len(ARCH_IDS)
+    assert all(s == "long_500k" for _, s in out["skipped"])
+    assert len(out["built"]) == 3 * sum(4 if k == "train" else 1
+                                        for _, _, k in supported)
+    for arch, shape, mesh, layout, _, tp, dp in out["built"]:
+        if mesh == "1":
+            assert (tp, dp) == (1, 1)
+        elif layout == "fsdp":
+            assert (tp, dp) == (1, 8)
+        else:
+            assert tp == (4 if mesh == "2x4" else 2)
+            assert dp == (1 if shape == "long_500k" else 8 // tp)
