@@ -2699,7 +2699,8 @@ class DryRun:
     start (the rwkv6 and hymba train rows take minutes of host time);
     ``finish`` (phase 23, before the cells, whose steps are timed on the
     host) waits for them and holds every row ok, or skipped where
-    supports_shape says so."""
+    supports_shape says so, and every ok row's peak positive and no lower
+    than either of its two traced peaks."""
 
     def __init__(self):
         self.tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
@@ -2749,9 +2750,16 @@ class DryRun:
                       f"{arch} {r['shape']} {r['mesh']}: {r['status']} "
                       f"{r.get('error')}")
                 if r["status"] == "ok":
+                    peak, traced = (r["peak_bytes_per_device"],
+                                    r["traced_peak_bytes"] or [])
+                    check(peak > 0 and peak >= max(traced, default=0),
+                          f"{arch} {r['shape']} {r['mesh']}: peak {peak} B "
+                          f"below its traced peaks {traced}")
                     log(f"[dryrun] {arch} {r['shape']} {r['mesh']}: peak "
-                        f"{r['peak_bytes_per_device'] / 1e9:.2f} GB/device "
-                        f"({r['trace']}), dot FLOPs "
+                        f"{peak / 1e9:.2f} GB/device ({r['trace']}"
+                        + "".join(f"; {n} layers {b / 1e9:.2f} GB" for n, b in
+                                  zip(r["composed_from"] or [], traced))
+                        + "), dot FLOPs "
                         f"{r['dot_flops_per_device']:.4e}/device, collectives "
                         f"{r['collective_counts']}, wire bytes "
                         f"{sum(r['collective_wire_bytes'].values()):.4e}, "

@@ -31,27 +31,48 @@ launches ``flash_prefill``.
 
 A fake-tensor trace costs host time per operator, so a full-depth cell at
 production shapes takes minutes. ``trace_composed`` traces the cell at two
-and three layer groups and composes the full depth from the third group's
-increment: exact for the FLOPs and the collectives, which a trace counts
-layer by layer, and for the peak where every group past the second adds
-the same bytes. On a (2, 2, 2) mesh at smoke size (tests/test_torch_engine.py)
-the composed peak equals a full trace's for decode and is 0.978 of it for a
-ZeRO-1 train step, whose peak moves from the head's backward toward the
-optimizer as layers are added; composed from one and two groups it had
-come out 0.76-1.10 (the first group's increment differs: a prefill's
-stacked caches, that train step). These are a process's first traces of
-each shape, as in a dry run. Traced again in the same process, that train
-step's 3- and 5-layer cells read 5.1% and 5.7% lower peaks (the same
-operators run; the cause is not found), and composed 0.934 of the full
-trace.
+and three layer groups and composes the full depth: the FLOPs and the
+collectives from the third group's increment (exact: a trace counts them
+layer by layer), the peak point by point (``composed_peak``). Each trace
+keeps the step's timeline: after every operator, the operator, whether it
+ran in the backward, and the bytes then held. ``match_steps`` lines the two
+timelines up: each run of forward operators, and each of backward ones, at
+three groups is the run at two with one group's block inserted, so every
+operator at two groups has its counterpart at three, the same point of the
+step. At each point the bytes held grow by the three-group trace's
+increment per further group; the composed peak is the largest of those,
+and never below either traced peak. Two peaks alone do not compose: a
+ZeRO-1 train step peaks in the backward at two groups and at the end of
+the forward at three. For qwen3-1.7b's train, prefill and decode cells, on
+a (2, 2, 2) mesh at smoke size (tests/test_torch_kernels_ref.py) and at
+production size on (16, 16) and (2, 16, 16) (PERF.md §6), the composed
+peak equals a trace of every layer.
+
+DTensor's sharding propagation stays out of the bytes held. On a miss of
+its cache it runs an operator once more at its global shape, under the
+active ``FakeTensorMode``, to find the output's shape
+(``ShardingPropagator._propagate_tensor_meta_non_cached``). Under a trace
+that mode is the trace's own, so ``MemTracker`` would count those
+global-shape inputs and outputs as held (torch 2.11 counts every operator;
+2.13 leaves out those run under another fake mode than the one active
+when it was entered, and the propagation reuses that one). A process's
+first trace of a shape misses most, so its peak would depend on what the
+process traced before: at smoke size on (2, 2, 2) up to 5.7% more than a
+later trace of the same shape, and on a 512-rank mesh an operator's global
+shape is 512 ranks' worth. Left out, as ``_propagation_untracked`` does,
+every trace reads what the card would hold, where the propagation runs on
+a fake mode of its own and holds no device memory.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+from array import array
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
@@ -304,6 +325,10 @@ class CellTrace:
     peak_bytes: int                  # MemTracker's peak on the device
     seconds: float
     composed_from: Optional[Tuple[int, int]] = None   # layers of the two traces
+    traced_peaks: Optional[Tuple[int, int]] = None    # the two traces' peaks
+    # the step's timeline (``_step_tracker``): (op, in the backward) of each
+    # operator and the bytes held after it; None on a composed trace
+    timeline: Optional[Tuple[list, array]] = None
 
 
 def _leaves(args):
@@ -314,12 +339,65 @@ def _leaves(args):
     return out
 
 
+def _step_tracker():
+    """A ``MemTracker`` that leaves DTensor's sharding propagation out
+    (``_propagation_untracked``) and keeps the step's timeline: ``ops``,
+    each operator it tracks as ``(op, in the backward)``, and ``held``, the
+    bytes held after it. Metadata queries (``prim``) stay out of the
+    timeline: a stacked tensor's ``unbind`` asks one per layer."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class StepTracker(MemTracker):
+        def __init__(self):
+            super().__init__()
+            self.ops: list = []
+            self.held = array("q")
+            self.propagating = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if self.propagating:
+                return func(*args, **(kwargs or {}))
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented and func.namespace != "prim":
+                bw = torch._C._current_graph_task_id() != -1
+                self.ops.append((func, bw))
+                self.held.append(sum(s["Total"] for s in
+                                     self._curr_mem_snap.values()))
+            return out
+
+    return StepTracker()
+
+
+@contextlib.contextmanager
+def _propagation_untracked(tracker):
+    """While inside, the ops that DTensor's sharding propagation runs to
+    find an output's global shape pass ``tracker`` by. On a cache miss they
+    run at the global shape under the active ``FakeTensorMode``, the trace's
+    own, so a tracker would count their inputs and outputs as held (the
+    module's docstring)."""
+    sp = DTensor._op_dispatcher.sharding_propagator
+    name = "_propagate_tensor_meta_non_cached"
+    inner = getattr(sp, name)
+
+    def propagate(op_schema):
+        tracker.propagating += 1
+        try:
+            return inner(op_schema)
+        finally:
+            tracker.propagating -= 1
+
+    setattr(sp, name, propagate)
+    try:
+        yield
+    finally:
+        delattr(sp, name)
+
+
 def trace_cell(cell: Cell, device=None) -> CellTrace:
     """Run ``cell.fn`` once on this rank on fake tensors; ``device`` is the
     fake tensors' (default: the card where there is one, else the CPU; on a
     mesh, the mesh's device type)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     mesh = cell.model.mesh
@@ -334,11 +412,11 @@ def trace_cell(cell: Cell, device=None) -> CellTrace:
     try:
         with FakeTensorMode(allow_non_fake_inputs=True):
             args = abstract_args(cell, device)
-            tracker = MemTracker()
+            tracker = _step_tracker()
             tracker.track_external(*_leaves(args))
             flops = FlopCounterMode(display=False)
             rec = CollectiveRecorder()
-            with tracker, flops, rec:
+            with _propagation_untracked(tracker), tracker, flops, rec:
                 cell.fn(*args)
             peak = tracker.get_tracker_snapshot("peak")
     finally:
@@ -349,7 +427,8 @@ def trace_cell(cell: Cell, device=None) -> CellTrace:
     dev_peak = peak.get(device, {}) or next(iter(peak.values()), {})
     return CellTrace(dot_flops(flops), counts, collective_stats(rec.records),
                      rec.records, int(dev_peak.get("Total", 0)),
-                     time.perf_counter() - t0)
+                     time.perf_counter() - t0,
+                     timeline=(tracker.ops, tracker.held))
 
 
 def _by_group(records) -> Dict[tuple, list]:
@@ -361,10 +440,80 @@ def _by_group(records) -> Dict[tuple, list]:
     return out
 
 
+def _phases(ops) -> list:
+    """``(start, end)`` of each run of forward or of backward operators."""
+    cuts = [0] + [q for q in range(1, len(ops)) if ops[q][1] != ops[q - 1][1]]
+    return list(zip(cuts, cuts[1:] + [len(ops)]))
+
+
+def _common(a: np.ndarray, b: np.ndarray) -> int:
+    n = min(len(a), len(b))
+    diff = np.flatnonzero(a[:n] != b[:n])
+    return int(diff[0]) if len(diff) else n
+
+
+def match_steps(ops_a: list, ops_b: list):
+    """Align step ``ops_a`` (n layer groups) with step ``ops_b`` (n + 1),
+    operators given as ``(op, backward)``. Each run of forward operators,
+    and each of backward ones, of ``b`` must be ``a``'s with one block
+    inserted that repeats a block beside it (one layer group's forward, or
+    its recomputation and backward), so that it can sit at any of at least
+    ``len(block) + 1`` places. Of them the middle one is taken, where
+    ``a``'s first group meets ``b``'s first and ``a``'s last ``b``'s last.
+    Returns runs ``(i, j, n)`` with ``a[i:i+n] == b[j:j+n]`` that cover all
+    of ``a``. Raises ``ValueError`` where the steps do not align so."""
+    ids: Dict[tuple, int] = {}
+    a, b = (np.fromiter((ids.setdefault(op, len(ids)) for op in ops),
+                        dtype=np.int64, count=len(ops)) for ops in (ops_a, ops_b))
+    pa, pb = _phases(ops_a), _phases(ops_b)
+    if [ops_a[p][1] for p, _ in pa] != [ops_b[p][1] for p, _ in pb]:
+        raise ValueError(f"the forward and backward phases differ: "
+                         f"{len(pa)} and {len(pb)}")
+    runs = []
+    for (ia, ea), (jb, eb) in zip(pa, pb):
+        x, y = a[ia:ea], b[jb:eb]
+        g = len(y) - len(x)
+        head = _common(x, y)
+        tail = _common(x[::-1], y[::-1])
+        if g < 0 or head + tail < len(x):
+            raise ValueError(f"the phase at operator {ia} is not the deeper "
+                             f"step's with one block inserted")
+        if g == 0:
+            runs.append((ia, jb, len(x)))
+            continue
+        lo, hi = len(x) - tail, head          # the splits x[:s] | x[s:]
+        if hi - lo < g:      # one group's copy in x lets it slide g places
+            raise ValueError(f"the {g} operators inserted at {jb + lo} "
+                             f"repeat no block of the shallower step: not "
+                             f"one layer group")
+        s = (lo + hi) // 2
+        runs += [(ia, jb, s), (ia + s, jb + s + g, len(x) - s)]
+    return runs
+
+
+def composed_peak(t1: CellTrace, t2: CellTrace, k: int) -> int:
+    """The peak of the step ``k`` layer groups deeper than ``t2``, from the
+    timelines of ``t1`` and ``t2`` (n and n + 1 groups): at each operator
+    of ``t1`` and its counterpart in ``t2`` (``match_steps``), the bytes
+    held grow by ``t2``'s increment over ``t1`` per group; the largest.
+    Raises ``ValueError`` where the steps do not align, or where that
+    largest is below either trace's own peak."""
+    va = np.frombuffer(t1.timeline[1], dtype=np.int64)
+    vb = np.frombuffer(t2.timeline[1], dtype=np.int64)
+    runs = match_steps(t1.timeline[0], t2.timeline[0])
+    peak = max((int((vb[j:j + n] + k * (vb[j:j + n] - va[i:i + n])).max())
+                for i, j, n in runs if n), default=0)
+    if peak < max(t1.peak_bytes, t2.peak_bytes):
+        raise ValueError(f"the composed peak {peak} B is below a traced "
+                         f"one ({t1.peak_bytes}, {t2.peak_bytes} B)")
+    return peak
+
+
 def compose(t1: CellTrace, t2: CellTrace, k: int) -> CellTrace:
     """``t2`` plus ``k`` times its increment over ``t1`` (the traces of a
     cell at n and n + 1 layer groups; ``k`` more groups). The collectives
-    compose per kind and group: calls and output bytes."""
+    compose per kind and group: calls and output bytes; the peak by
+    ``composed_peak``."""
     a1, a2 = _by_group(t1.records), _by_group(t2.records)
     if set(a1) - set(a2):
         raise ValueError("a group's collectives are not a superset: the "
@@ -379,26 +528,32 @@ def compose(t1: CellTrace, t2: CellTrace, k: int) -> CellTrace:
              for op, n in t2.flop_counts.items()}
     return CellTrace(t2.dot_flops + k * (t2.dot_flops - t1.dot_flops), flops,
                      collective_stats(records), records,
-                     t2.peak_bytes + k * (t2.peak_bytes - t1.peak_bytes),
-                     t1.seconds + t2.seconds)
+                     composed_peak(t1, t2, k), t1.seconds + t2.seconds,
+                     traced_peaks=(t1.peak_bytes, t2.peak_bytes))
 
 
 def trace_composed(arch: str, shape_name: str, mesh=None,
                    cfg_override: Optional[ModelConfig] = None, *,
-                   shape: Optional[ShapeConfig] = None, device=None) -> CellTrace:
+                   shape: Optional[ShapeConfig] = None, device=None,
+                   whole: bool = False) -> CellTrace:
     """The cell's trace at full depth, composed from traces at two and three
-    layer groups (``compose``; ``composed_from`` gives their layers); a
-    model of at most three groups is traced whole. The one trace behind
-    ``roofline.roofline_row`` and ``dryrun.run_cell``."""
+    layer groups (``compose``; ``composed_from`` gives their layers,
+    ``traced_peaks`` their peaks); a model of at most three groups, or any
+    with ``whole``, is traced whole. The one trace behind
+    ``roofline.roofline_row`` and ``dryrun.run_cell``. Raises
+    ``ValueError``, naming the cell, where the two traces do not compose."""
     cfg = cfg_override or get_config(arch)
     cell = build_cell(arch, shape_name, mesh, cfg_override=cfg, shape=shape)
     g = cell.model.layers_per_scan_step
     groups = cfg.num_layers // g
-    if groups <= 3:
+    if groups <= 3 or whole:
         return trace_cell(cell, device)
     t2, t3 = (trace_cell(build_cell(arch, shape_name, mesh, shape=shape,
                                     cfg_override=cfg.replace(num_layers=n * g)),
                          device) for n in (2, 3))
-    out = compose(t2, t3, groups - 3)
+    try:
+        out = compose(t2, t3, groups - 3)
+    except ValueError as e:
+        raise ValueError(f"{arch} x {shape_name}: {e}") from None
     out.composed_from = (2 * g, 3 * g)
     return out

@@ -6,14 +6,20 @@ Each mesh lives on a fake process group of 256 or 512 ranks, set up and torn
 down per cell (``launch/mesh.py::fake_world``); this process is rank 0 and
 traces its own program: at two and three layer groups, the full depth
 composed from them (``launch/cells.py::trace_composed``; a trace of every
-layer takes minutes per train cell at these shapes).
-The keys that only XLA's compile gives (``hlo_flops_per_device``,
-``hlo_bytes_per_device`` and the argument / output / temp / alias split of
-the peak) are ``null``.
+layer, ``--whole``, takes minutes per train cell at these shapes). The
+FLOPs and collectives compose exactly; the peak point by point over the
+two step timelines, with DTensor's sharding propagation left out of the
+bytes held (``launch/cells.py``'s docstring says why). It reads what a
+trace of every layer reads (equal in every cell checked, PERF.md §6) and
+never less than the two traced peaks (``traced_peak_bytes``); a cell whose
+traces do not compose is a ``failed`` row. The keys that only XLA's
+compile gives (``hlo_flops_per_device``, ``hlo_bytes_per_device`` and the
+argument / output / temp / alias split of the peak) are ``null``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --both-meshes
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --whole
 Results merge into experiments/dryrun_results_torch.json (``--out``).
 """
 from __future__ import annotations
@@ -40,10 +46,11 @@ RESULTS_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
              *, cfg_override: Optional[ModelConfig] = None,
              shape: Optional[ShapeConfig] = None, mesh_shape=None,
-             device_type: Optional[str] = None) -> Dict:
+             device_type: Optional[str] = None, whole: bool = False) -> Dict:
     """One row. ``cfg_override``, ``shape`` and ``mesh_shape`` (dims and
     names) shrink the cell for a small run; ``device_type`` is the fake
-    tensors' (default: ``cuda`` where there is a card)."""
+    tensors' (default: ``cuda`` where there is a card); ``whole`` traces
+    every layer instead of composing (``trace_composed``)."""
     cfg = cfg_override or get_config(arch)
     shape = shape or get_shape(shape_name)
     dims, names = mesh_shape or production_shape(multi_pod)
@@ -62,7 +69,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
             else:
                 from torch.distributed.device_mesh import init_device_mesh
                 mesh = init_device_mesh(device_type, dims, mesh_dim_names=names)
-            trace = trace_composed(arch, shape_name, mesh, cfg, shape=shape)
+            trace = trace_composed(arch, shape_name, mesh, cfg, shape=shape,
+                                   whole=whole)
         stats = stats_of(trace)
         colls = trace.collectives
         row.update({
@@ -71,6 +79,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
                       f"{trace.composed_from[1]} layers"
                       if trace.composed_from else "full"),
             "composed_from": list(trace.composed_from or ()) or None,
+            "traced_peak_bytes": list(trace.traced_peaks or ()) or None,
             "lower_s": round(trace.seconds, 2),
             "compile_s": None,
             "argument_bytes_per_device": None,
@@ -121,6 +130,9 @@ def main() -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--resume", action="store_true",
                     help="skip cells already ok/skipped in the results file")
+    ap.add_argument("--whole", action="store_true",
+                    help="trace every layer (minutes per train cell) instead "
+                         "of composing from two and three layer groups")
     ap.add_argument("--out", default=RESULTS_PATH)
     args = ap.parse_args()
 
@@ -146,7 +158,7 @@ def main() -> None:
                     continue
                 tag = f"{arch} x {shape} x {mesh_name}"
                 print(f"[dryrun] {tag}", flush=True)
-                row = run_cell(arch, shape, mp)
+                row = run_cell(arch, shape, mp, whole=args.whole)
                 rows.append(row)
                 if row["status"] == "failed":
                     n_fail += 1

@@ -1246,17 +1246,10 @@ def test_serve_cli_plans_a_real_serve_on_cpu(monkeypatch, capsys):
 # the analysis tooling: launch/{cells,hlo_stats,roofline,dryrun,mesh}.py
 # --------------------------------------------------------------------------
 from repro_torch.configs import ARCH_IDS, all_cells, get_config  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed.sharding import ParallelConfig  # noqa: E402
 from repro_torch.launch import hlo_stats as HS  # noqa: E402
 from repro_torch.launch import roofline as RL  # noqa: E402
 from repro_torch.models.registry import build_model as torch_build_model  # noqa: E402
-
-def _small(shape_name):
-    """A cell's shape shrunk to 64 tokens x 8 rows."""
-    from repro_torch.configs import get_shape
-    base = get_shape(shape_name)
-    return ShapeConfig(base.name, base.kind, 64, 8)
 
 
 def _production_pcs(shape):
@@ -1374,107 +1367,3 @@ def test_collective_recorder_counts_in_place_and_functional_calls():
         {"kind": "reduce-scatter", "out_bytes": 2 * 64 * 4, "group_size": 2, "intra_node": False, "calls": 1},
         {"kind": "all-gather", "out_bytes": 4 * 64 * 4, "group_size": 2, "intra_node": False, "calls": 1},
     ]
-
-
-_DRYRUN_SMALL = r"""
-import json
-import sys
-from torch.distributed.device_mesh import init_device_mesh
-from repro_torch.configs import get_smoke_config, get_shape
-from repro_torch.configs.base import ShapeConfig
-from repro_torch.launch.cells import build_cell, trace_cell, trace_composed
-from repro_torch.launch.dryrun import run_cell
-from repro_torch.launch.mesh import fake_world
-
-MESH = ((2, 2, 2), ("pod", "data", "model"))
-rows, full = [], []
-for arch in ("qwen3-1.7b", "qwen3-moe-30b-a3b", "rwkv6-7b"):
-    for shape in ("train_4k", "decode_32k"):
-        base = get_shape(shape)
-        kw = dict(cfg_override=get_smoke_config(arch).replace(num_layers=5),
-                  shape=ShapeConfig(base.name, base.kind, 64, 8))
-        if arch == "qwen3-1.7b":
-            # before the row: a process's first trace of a shape can read a
-            # higher peak than a later one, so both traces are firsts here
-            with fake_world(8):
-                mesh = init_device_mesh("cpu", MESH[0], mesh_dim_names=MESH[1])
-                composed = trace_composed(arch, shape, mesh, kw["cfg_override"],
-                                          shape=kw["shape"])
-                whole = trace_cell(build_cell(arch, shape, mesh, **kw))
-            full.append([{"dot_flops": t.dot_flops, "peak": t.peak_bytes,
-                          "counts": dict(t.collectives.counts),
-                          "wire": {k: round(v) for k, v in
-                                   t.collectives.wire_bytes.items()},
-                          "out": dict(t.collectives.out_bytes),
-                          "composed_from": t.composed_from, "kind": base.kind}
-                         for t in (composed, whole)])
-        rows.append(run_cell(arch, shape, False, verbose=False, mesh_shape=MESH,
-                             device_type="cpu", **kw))
-print("ROWS " + json.dumps(rows))
-print("FULL " + json.dumps(full))
-"""
-
-
-def test_small_mesh_dryrun_on_a_fake_world():
-    """The counterpart of tests/test_dryrun_small.py: ``dryrun.run_cell`` on
-    a fake world of 8 ranks as (2, 2, 2), smoke configs at 5 layers, at
-    train_4k and decode_32k shrunk to 64 tokens x 8 rows. Every row (dense,
-    MoE, rwkv6) is ok, with dot FLOPs and collectives, a peak and the
-    XLA-only keys null. qwen3's rows are
-    ``trace_composed``'s, from 2 and 3 layers, which equals ``trace_cell``
-    of all 5 in FLOPs and collectives, and in peak for decode; the train
-    step's composed peak is an estimate (0.978 of the full trace's here)."""
-    import os
-    import subprocess
-    from pathlib import Path
-
-    src = str(Path(__file__).resolve().parent.parent / "src")
-    proc = subprocess.run([sys.executable, "-c", _DRYRUN_SMALL],
-                          capture_output=True, text=True, timeout=240,
-                          env=dict(os.environ, PYTHONPATH=src))
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("ROWS")][0]
-    rows = json.loads(line.split(" ", 1)[1])
-    assert len(rows) == 6
-    for r in rows:
-        assert r["mesh"] == "2x2x2" and r["kind"] in ("train", "decode")
-        assert r["status"] == "ok", r.get("traceback")
-        assert r["dot_flops_per_device"] > 0 and r["peak_bytes_per_device"] > 0
-        assert sum(r["collective_counts"].values()) > 0, r
-        assert r["num_devices"] == 8
-        for k in ("hlo_bytes_per_device", "hlo_flops_per_device",
-                  "argument_bytes_per_device", "temp_bytes_per_device",
-                  "alias_bytes_per_device"):
-            assert r[k] is None, k
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("FULL")][0]
-    full = json.loads(line.split(" ", 1)[1])
-    for row, (composed, whole) in zip(rows[:2], full):
-        assert composed["composed_from"] == [2, 3] and whole["composed_from"] is None
-        assert row["trace"] == "composed from 2 and 3 layers"
-        assert row["dot_flops_per_device"] == composed["dot_flops"]
-        assert row["collective_counts"] == composed["counts"]
-        for k in ("dot_flops", "counts", "wire", "out"):
-            assert composed[k] == whole[k], (k, composed[k], whole[k])
-        ratio = composed["peak"] / whole["peak"]
-        assert ratio == 1.0 if whole["kind"] == "decode" else 0.95 <= ratio <= 1.0, ratio
-
-
-def test_roofline_row_has_the_references_keys():
-    """``roofline_row`` at one device on a traced smoke cell: the
-    reference's keys; the compute term is the dot FLOPs over the H100's
-    989 TFLOP/s, no collective, and the bound is the largest term."""
-    import inspect
-
-    import repro.launch.roofline as RR
-    shape = _small("prefill_32k")
-    cfg = get_smoke_config("qwen3-1.7b")
-    row = RL.roofline_row("qwen3-1.7b", "prefill_32k", None, cfg_override=cfg,
-                          shape=shape)
-    src = inspect.getsource(RR.roofline_row)
-    keys = set(re.findall(r'"(\w+)":', src[src.index("return {"):]))
-    assert set(row) == keys
-    assert row["compute_term_s"] == row["dot_flops_per_device"] / 989e12
-    assert row["collective_term_s"] == 0.0 and row["mesh"] == "1"
-    assert row["step_time_bound_s"] == max(row["compute_term_s"],
-                                           row["memory_term_s"], 0.0)
-    assert row["xla_flops_per_device"] is None and not row["scan_corrected"]

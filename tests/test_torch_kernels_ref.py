@@ -15,6 +15,12 @@ rounding into every output, so at c = 64 both sides lie ~1e-4 (absolute, on
 outputs up to ~70) from the float64 result. Against the sequential oracle
 to 5e-4, and over a 4-chunk chain to 1e-3, the tolerances of
 tests/test_kernels.py.
+
+The end of the file holds the analysis tooling's traced cells: dot FLOPs
+against the reference's HLO dots, the small-mesh dry run, the composed
+peak against a trace of every layer (within 2%, equal for decode), its
+independence of what the process traced before, and the roofline row's
+keys.
 """
 import numpy as np
 import pytest
@@ -421,8 +427,9 @@ def test_flash_prefill_tc_emulation_rounds_once(B, G, S, R, hd, T, causal,
 
 # --------------------------------------------------------------------------
 # the plain compute of whole cells: the dot FLOPs that launch/cells.py's
-# trace counts against the reference's HLO dots (the analysis tooling's
-# other cases are in tests/test_torch_engine.py)
+# trace counts against the reference's HLO dots (the dry run's and the
+# roofline row's cases are at the end of this file, the analytic terms' and
+# the collectives' in tests/test_torch_engine.py)
 # --------------------------------------------------------------------------
 from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -486,3 +493,194 @@ def test_traced_flops_are_linear_in_layers(arch):
                   for n in (0, g, cfg.num_layers))
     assert fg > f0 > 0
     assert fl == pytest.approx(f0 + cfg.num_layers // g * (fg - f0), rel=1e-9)
+
+
+# --------------------------------------------------------------------------
+# the dry run and the roofline row (launch/{cells,dryrun,roofline}.py)
+# --------------------------------------------------------------------------
+_DRYRUN_SMALL = r"""
+import json
+from repro_torch.configs import get_smoke_config, get_shape
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import run_cell
+
+MESH = ((2, 2, 2), ("pod", "data", "model"))
+
+
+def row(arch, shape, whole=False, **cfg):
+    base = get_shape(shape)
+    return run_cell(arch, shape, False, verbose=False, mesh_shape=MESH,
+                    device_type="cpu", whole=whole,
+                    cfg_override=get_smoke_config(arch).replace(num_layers=5,
+                                                                **cfg),
+                    shape=ShapeConfig(base.name, base.kind, 64, 8))
+
+
+out = {"rows": [row(arch, shape)
+                for arch in ("qwen3-1.7b", "qwen3-moe-30b-a3b", "rwkv6-7b")
+                for shape in ("train_4k", "decode_32k")]}
+out["prefill"] = row("qwen3-1.7b", "prefill_32k")
+out["whole"] = {s: row("qwen3-1.7b", s, whole=True)
+                for s in ("train_4k", "prefill_32k", "decode_32k")}
+# the first row again, after every other trace of the process
+out["again"] = row("qwen3-1.7b", "train_4k")
+# a vocabulary of 32768: the head's operators at their global shape (8 x
+# the rank's) had read as held where DTensor's propagation missed its cache
+out["wide"] = [row("qwen3-1.7b", "train_4k", whole, vocab_size=32768)
+               for whole in (False, True)]
+print("OUT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def small_dryrun():
+    """``dryrun.run_cell`` on a fake world of 8 ranks as (2, 2, 2), smoke
+    configs at 5 layers, shapes shrunk to 64 tokens x 8 rows, in one fresh
+    process (a process group of its own)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN_SMALL],
+                          capture_output=True, text=True, timeout=400,
+                          env=dict(os.environ, PYTHONPATH=src))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("OUT ")][0]
+    return json.loads(line[4:])
+
+
+def _ratio(composed, whole):
+    return composed["peak_bytes_per_device"] / whole["peak_bytes_per_device"]
+
+
+def test_small_mesh_dryrun_on_a_fake_world(small_dryrun):
+    """The counterpart of tests/test_dryrun_small.py: every row (dense,
+    MoE, rwkv6; train and decode) is ok, with dot FLOPs and collectives, a
+    peak and the XLA-only keys null. qwen3's rows are ``trace_composed``'s,
+    from 2 and 3 layers, which equals ``trace_cell`` of all 5 in FLOPs and
+    collectives, and in peak to 2% (equal for decode)."""
+    rows = small_dryrun["rows"]
+    assert len(rows) == 6
+    for r in rows:
+        assert r["mesh"] == "2x2x2" and r["kind"] in ("train", "decode")
+        assert r["status"] == "ok", r.get("traceback")
+        assert r["dot_flops_per_device"] > 0 and r["peak_bytes_per_device"] > 0
+        assert sum(r["collective_counts"].values()) > 0, r
+        assert r["num_devices"] == 8
+        for k in ("hlo_bytes_per_device", "hlo_flops_per_device",
+                  "argument_bytes_per_device", "temp_bytes_per_device",
+                  "alias_bytes_per_device"):
+            assert r[k] is None, k
+    for composed in rows[:2]:
+        whole = small_dryrun["whole"][composed["shape"]]
+        assert composed["composed_from"] == [2, 3] and whole["composed_from"] is None
+        assert composed["trace"] == "composed from 2 and 3 layers"
+        assert whole["trace"] == "full"
+        for k in ("dot_flops_per_device", "collective_counts",
+                  "collective_wire_bytes", "collective_out_bytes"):
+            assert composed[k] == whole[k], (k, composed[k], whole[k])
+        ratio = _ratio(composed, whole)
+        assert ratio == 1.0 if whole["kind"] == "decode" else 0.98 <= ratio <= 1.02, ratio
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k", "decode_32k"])
+def test_composed_peak_matches_a_whole_trace(small_dryrun, shape_name):
+    """qwen3-1.7b at 5 layers on the (2, 2, 2) mesh: the peak composed from
+    the step timelines at 2 and 3 layers is within 2% of a trace of all 5
+    layers for train and prefill, and equal for decode."""
+    whole = small_dryrun["whole"][shape_name]
+    composed = (small_dryrun["prefill"] if shape_name == "prefill_32k" else
+                small_dryrun["rows"][0 if shape_name == "train_4k" else 1])
+    assert composed["shape"] == shape_name and composed["status"] == "ok"
+    assert composed["composed_from"] == [2, 3]
+    ratio = _ratio(composed, whole)
+    assert ratio == 1.0 if shape_name == "decode_32k" else 0.98 <= ratio <= 1.02, ratio
+
+
+def test_composed_peak_does_not_depend_on_trace_order(small_dryrun):
+    """The ZeRO-1 train row of qwen3-1.7b on the (2, 2, 2) mesh composed
+    again after every other trace of the process reads the same peak as
+    the process's first trace of it: DTensor's sharding propagation, which
+    runs its operators at their global shape on a cache miss only, is not
+    counted as held."""
+    first, again = small_dryrun["rows"][0], small_dryrun["again"]
+    assert (first["shape"], again["shape"]) == ("train_4k", "train_4k")
+    assert again["traced_peak_bytes"] == first["traced_peak_bytes"]
+    assert again["peak_bytes_per_device"] == first["peak_bytes_per_device"]
+
+
+def test_composed_peak_is_never_below_a_traced_peak(small_dryrun):
+    """Every composed row's peak is at least the larger of its two traced
+    peaks: a deeper step cannot peak lower. With a vocabulary of 32768 the
+    train row had composed below its traces; it is within 2% of the whole
+    trace."""
+    wide, wide_whole = small_dryrun["wide"]
+    composed = (small_dryrun["rows"]
+                + [small_dryrun["prefill"], small_dryrun["again"], wide])
+    for r in composed:
+        assert r["status"] == "ok", r.get("traceback")
+        p2, p3 = r["traced_peak_bytes"]
+        assert 0 < p2 <= p3 <= r["peak_bytes_per_device"], (r["arch"], r["shape"])
+    assert 0.98 <= _ratio(wide, wide_whole) <= 1.02
+
+
+def _step(groups, block="abc", head="xy", tail="z"):
+    """A step's operators as ``match_steps`` takes them: a forward of
+    ``head``, ``groups`` blocks and ``tail``, then its backward in
+    reverse."""
+    fw = head + block * groups + tail
+    return [(c, False) for c in fw] + [(c.upper(), True) for c in fw[::-1]]
+
+
+@pytest.mark.parametrize("deeper,error", [
+    (_step(3), None),
+    (_step(3, head="xqy"), "not the deeper step"),      # two insertions
+    (_step(2)[:8] + [(c, False) for c in "pqr"] + _step(2)[8:],
+     "repeat no block"),
+    (_step(2) + [("q", False)], "phases differ"),
+])
+def test_match_steps_pairs_each_operator_with_its_counterpart(deeper, error):
+    """Two groups against three: each operator of the shallower step is
+    paired with the same operator of the deeper one, the forward's first
+    group with the first and its last with the last (the backward's
+    likewise); two insertions in one phase, a block that repeats no group
+    and a phase too many raise."""
+    from repro_torch.launch.cells import match_steps
+    a = _step(2)
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            match_steps(a, deeper)
+        return
+    runs = match_steps(a, deeper)
+    pairs = [(i + d, j + d) for i, j, n in runs for d in range(n)]
+    assert [i for i, _ in pairs] == list(range(len(a)))
+    assert all(a[i] == deeper[j] for i, j in pairs)
+    # forward: x y | abc abc | z  ->  x y | abc [abc] abc | z
+    assert pairs[:5] == [(q, q) for q in range(5)]
+    assert pairs[5:9] == [(q, q + 3) for q in range(5, 9)]
+
+
+def test_roofline_row_has_the_references_keys():
+    """``roofline_row`` at one device on a traced smoke cell: the
+    reference's keys; the compute term is the dot FLOPs over the H100's
+    989 TFLOP/s, no collective, and the bound is the largest term."""
+    import inspect
+    import re
+
+    import repro.launch.roofline as RR
+    from repro_torch.launch import roofline as RL
+    shape = _small("prefill_32k")
+    cfg = get_smoke_config("qwen3-1.7b")
+    row = RL.roofline_row("qwen3-1.7b", "prefill_32k", None, cfg_override=cfg,
+                          shape=shape)
+    src = inspect.getsource(RR.roofline_row)
+    keys = set(re.findall(r'"(\w+)":', src[src.index("return {"):]))
+    assert set(row) == keys
+    assert row["compute_term_s"] == row["dot_flops_per_device"] / 989e12
+    assert row["collective_term_s"] == 0.0 and row["mesh"] == "1"
+    assert row["step_time_bound_s"] == max(row["compute_term_s"],
+                                           row["memory_term_s"], 0.0)
+    assert row["xla_flops_per_device"] is None and not row["scan_corrected"]
