@@ -24,9 +24,9 @@ Phases (each raises on failure; none catches its own):
                projections, f32) against the chained plain version and
                against chained one-chunk launches; 4 chunks, chained and
                in one launch, against the sequential oracle. Both attention
-               kernels also at the MoE models' shapes (granite-moe: 3 q rows
-               per kv slot, head_dim 64; qwen3-moe: 8 rows, head_dim 128),
-               and rwkv6-7b's WKV call through the model at S 1000 and
+               kernels also at the other paged models' shapes (granite-moe:
+               3 q rows per kv slot, head_dim 64; qwen3-moe: 8 rows,
+               qwen2.5-32b: 5, internvl2-26b: 6, head_dim 128), and rwkv6-7b's WKV call through the model at S 1000 and
                12288, whose reference chunk lengths (8, 96) the kernel does
                not take (the model pads to, or picks, one it takes)
   The paths follow, each serve driven with the launch counters set to 0 just
@@ -75,7 +75,21 @@ Phases (each raises on failure; none catches its own):
  14. qwen3   — qwen3-moe-30b-a3b at full width cut to 4 layers (128 experts):
      moe       prefill and paged decode, kernels vs plain in float32; in
                bf16 against the float32 model and with routes replayed, as
-               granite-moe
+               granite-moe; then at all 48 layers in bf16, its weights drawn
+               one layer at a time (init_params' by_layer; each init logs
+               its peak memory): kernels vs plain with the plain path's
+               routes replayed, and the paged serve in both loops (the
+               share of rows whose streams agree reported), 16 slots
+ 14a. qwen2.5 — qwen2.5-32b (64 layers, d_model 5120, 40 q / 8 kv heads of
+      32b       128: 5 q rows per kv slot, QKV bias), drawn by layer: kernels
+               vs plain in float32 at 4 layers (full rows, beside the
+               PERTURB witness) and in bf16 at 64; the paged serve in both
+               loops, 16 slots (the serve gate of phase 5; peak memory
+               logged); one more serial serve, a window of its batches
+               profiled as in phase 6
+ 14b. intern- — the internvl2-26b backbone (48 layers, d_model 6144, 48 / 8
+      vl2       heads of 128: 6 rows per slot), as phase 14a without the
+               profile
  15. gemma3  — gemma3-12b (5 window layers : 1 global, window 1024): a prefill
                past the window and 4 decode steps against one pass over the
                extended sequence, in float32 at one 6-layer group and bf16
@@ -283,6 +297,17 @@ MOE_F32_REL_TOL = 1e-5
 MOE_TRUTH_REL_TOL = 3e-2
 MOE_BF16_LAYERS = 4
 QWEN3_MOE_LAYERS = 4
+# The paper's model scale (phases 14-14b): qwen3-moe-30b-a3b at all 48
+# layers, qwen2.5-32b at 64 and the internvl2-26b backbone at 48, full width,
+# their weights drawn one layer group at a time (init_params' by_layer: the
+# whole draw holds a 19-39 GB leaf in float32 beside the bf16 tree). Their
+# float32 models do not fit the card at full depth (qwen2.5-32b 131 GB,
+# qwen3-moe 122 GB): the two dense ones are held in float32 at
+# LARGE_F32_LAYERS layers (full rows, beside the PERTURB witness) to
+# MOE_F32_REL_TOL, the f32 limit of every model check of this script, and
+# in bf16 at full depth to MODEL_REL_TOL; qwen3-moe in bf16 at 48 layers
+# kernel vs plain with the plain path's routes replayed (MODEL_REL_TOL).
+LARGE_F32_LAYERS = 4
 # gemma3-12b: a prefill past the 1024-token window, then decode steps, against
 # one pass over the extended sequence, held in float32 at one 6-layer
 # local:global group and reported in bf16 at full depth. GEMMA_PREFILL (the
@@ -607,7 +632,8 @@ def phase_device() -> None:
     name = torch.cuda.get_device_name(0)
     check(cap >= (9, 0), f"{name} has compute capability {cap}; need >= 9.0")
     log(f"[device] {name}  capability {cap}  count {torch.cuda.device_count()}  "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
+        f"torch {torch.__version__} cuda {torch.version.cuda}  memory "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
     log(f"[device] nvidia-smi: {nvidia_smi_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -692,26 +718,32 @@ def phase_kernels() -> dict:
         out = ops.flash_prefill(qs, ks, vs, causal=True)
         want = ref.flash_prefill_ref(q, k, v, causal=True)
         assert_close("flash_prefill", out, want, dtype, "strided views")
-    moe_kernel_checks()
+    shape_kernel_checks()
     errs["rwkv6_chunk"] = rwkv_kernel_checks()
     rwkv_chunking_checks()
     return errs
 
 
-# the MoE models' attention shapes: (label, kv slots, q rows per slot, head_dim)
-MOE_SHAPES = [("granite-moe KV 8 Qp 3 hd 64", 8, 3, 64),
-              ("qwen3-moe KV 4 Qp 8 hd 128", 4, 8, 128)]
+# the other paged models' attention shapes: (label, kv slots, q rows per
+# slot, head_dim)
+ATTN_SHAPES = [("granite-moe KV 8 Qp 3 hd 64", 8, 3, 64),
+               ("qwen3-moe KV 4 Qp 8 hd 128", 4, 8, 128),
+               ("qwen2.5-32b KV 8 Qp 5 hd 128", 8, 5, 128),
+               ("internvl2-26b KV 8 Qp 6 hd 128", 8, 6, 128)]
 
 
-def moe_kernel_checks() -> None:
-    """Both attention kernels at the MoE models' shapes, which no earlier
-    path runs: granite-moe's 3 q rows per kv slot at head_dim 64 (the paged
-    kernel's 4-row path with a pad row; prefill tiles that end inside a
-    position) and qwen3-moe's 8 rows at head_dim 128; decode over the serve's
+def shape_kernel_checks() -> None:
+    """Both attention kernels at the other paged models' shapes, which the
+    qwen3-1.7b inputs do not take: granite-moe's 3 q rows per kv slot at
+    head_dim 64 (the paged kernel's 4-row path with a pad row; prefill tiles
+    that end inside a position), qwen3-moe's 8 rows, qwen2.5-32b's 5 and
+    internvl2-26b's 6 at head_dim 128 (the 8-row path with 3 and 2 pad rows;
+    64-row prefill tiles ending inside a position); decode over the serve's
     pool of 16-token pages, prefill [4, G, 512, R, hd] causal."""
-    log("[kernels] paged_attention and flash_prefill at the MoE models' shapes")
+    log("[kernels] paged_attention and flash_prefill at the other paged "
+        "models' shapes")
     for dtype in (torch.bfloat16, torch.float32):
-        for label, KV, R, hd in MOE_SHAPES:
+        for label, KV, R, hd in ATTN_SHAPES:
             args = paged_inputs(dtype, KV=KV, Qp=R, hd=hd)
             out = ops.paged_attention(*args)
             want = ref.paged_attention_ref(*args)
@@ -837,16 +869,19 @@ def rwkv_kernel_checks() -> float:
     return err
 
 
-def full_model(arch: str, dtype: str = "", device="cuda", layers: int = 0):
+def full_model(arch: str, dtype: str = "", device="cuda", layers: int = 0,
+               by_layer: bool = False):
     """Full-width config (in ``dtype``, at ``layers`` layers if given), model
-    and random weights from SEED."""
+    and random weights from SEED (``by_layer``: drawn one layer group at a
+    time, the init the 20-33B models need to fit the card)."""
     cfg = get_config(arch)
     if dtype:
         cfg = cfg.replace(dtype=dtype)
     if layers:
         cfg = cfg.replace(num_layers=layers)
     model = build_model(cfg)
-    params = model.init_params(torch.Generator(device=device).manual_seed(SEED))
+    params = model.init_params(torch.Generator(device=device).manual_seed(SEED),
+                               by_layer=by_layer)
     return cfg, model, params
 
 
@@ -1042,7 +1077,8 @@ def tree_float(tree):
 
 
 def phase_model_truth(cfg, model, params, truth_tol, replay_tol,
-                      lens=(120, 97, 64, 33), device="cuda") -> None:
+                      lens=(120, 97, 64, 33), device="cuda",
+                      with_truth: bool = True) -> None:
     """A bf16 MoE model's served path (paged_pass) against the truth: the
     float32 model on the same weights (the bf16 values upcast) with plain
     attention. Beside the kernel path, the control: the bf16 plain path
@@ -1051,35 +1087,44 @@ def phase_model_truth(cfg, model, params, truth_tol, replay_tol,
     largest |logit| (None: reported only): the kernel path replaying the
     truth's routes, to ``truth_tol``; the kernel path replaying the bf16
     plain path's routes against that path, to ``replay_tol``. Reported: the
-    rest, kernel vs plain with their own routing among them."""
+    rest, kernel vs plain with their own routing among them.
+    ``with_truth`` False (a model whose float32 copy does not fit the
+    card): the plain path and the kernel path only, the decode on the
+    plain path's greedy tokens."""
     what = f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}"
     rng = np.random.RandomState(SEED)
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(len(lens), 128)),
                            dtype=torch.int32, device=device)
     seq_lens = torch.as_tensor(lens, dtype=torch.int32, device=device)
     truth_routes, plain_routes = Routes(), Routes()
+    tokens = None
     with torch.no_grad():
-        m32 = build_model(cfg.replace(dtype="float32"))
-        p32 = tree_float(params)
-        truth = paged_pass(m32, p32, toks, seq_lens, False,
-                           route=truth_routes.record)
-        del m32, p32
-        free()
-        tokens = truth[2]
+        if with_truth:
+            m32 = build_model(cfg.replace(dtype="float32"))
+            p32 = tree_float(params)
+            truth = paged_pass(m32, p32, toks, seq_lens, False,
+                               route=truth_routes.record)
+            del m32, p32
+            free()
+            tokens = truth[2]
         plain = paged_pass(model, params, toks, seq_lens, False, tokens,
                            plain_routes.record)
+        tokens = plain[2]
         kern = paged_pass(model, params, toks, seq_lens, True, tokens)
         kern_rp = paged_pass(model, params, toks, seq_lens, True, tokens,
                              plain_routes.replay)
-        kern_rt = paged_pass(model, params, toks, seq_lens, True, tokens,
-                             truth_routes.replay)
-        plain_rt = paged_pass(model, params, toks, seq_lens, False, tokens,
-                              truth_routes.replay)
+        if with_truth:
+            kern_rt = paged_pass(model, params, toks, seq_lens, True, tokens,
+                                 truth_routes.replay)
+            plain_rt = paged_pass(model, params, toks, seq_lens, False,
+                                  tokens, truth_routes.replay)
     for i, step in enumerate(("prefill", "paged decode")):
         log_rel("moe", f"{what} {step}: kernel vs plain, own routes",
                 kern[i], plain[i], None)
         log_rel("moe", f"{what} {step}: kernel replaying plain's routes vs "
                 f"plain", kern_rp[i], plain[i], replay_tol)
+        if not with_truth:
+            continue
         log_rel("moe", f"{what} {step}: kernel vs f32 truth, own routes",
                 kern[i], truth[i], None)
         log_rel("moe", f"{what} {step}: control, plain vs f32 truth, own "
@@ -1256,11 +1301,22 @@ def serve_trace(vocab_size: int = 151934, **kw):
 # (kv backend, max_slots, kernels its serve must launch) of each path's serve;
 # rwkv6-7b runs with as many slots as layers on purpose (a slot axis found by
 # its size would be wrong); gemma3's window layers and hymba's take the dense
-# backend only, whose attention is plain, as in the reference
-SERVE = {"qwen3-1.7b": ("paged", 64, ("paged_attention", "flash_prefill")),
+# backend only, whose attention is plain, as in the reference. The 20-33B
+# models take 16 slots: the paged pool holds max(max_slots x max_len, the
+# scheduler's cap of 16384 tokens + 256 sequences of rounding) / 16 blocks
+# (serving/factory.py), so any count up to 20 leaves it at the cap's 1280
+# blocks + scratch (5.00 GiB of KV at qwen2.5-32b's 256 KiB per token, 3.75
+# at internvl2-26b's 192, 1.88 at qwen3-moe's 96) beside 61.03, 36.99 and
+# 56.87 GiB of bf16 weights. qwen3's 64 slots would make qwen2.5-32b's pool
+# 16 GiB: 77 GiB before the first prefill batch, on a card of 80 GB (phase
+# 1 logs what torch sees of it)
+BOTH = ("paged_attention", "flash_prefill")
+SERVE = {"qwen3-1.7b": ("paged", 64, BOTH),
          "rwkv6-7b": ("dense", 32, ("rwkv6_chunk",)),
-         "granite-moe-3b-a800m": ("paged", 64, ("paged_attention",
-                                                "flash_prefill")),
+         "granite-moe-3b-a800m": ("paged", 64, BOTH),
+         "qwen3-moe-30b-a3b": ("paged", 16, BOTH),
+         "qwen2.5-32b": ("paged", 16, BOTH),
+         "internvl2-26b": ("paged", 16, BOTH),
          "gemma3-12b": ("dense", 32, ()),
          "hymba-1.5b": ("dense", 32, ())}
 
@@ -1341,6 +1397,8 @@ def phase_serve(model, params, *, exact: bool = False, loops=("serial",
     cfg = model.cfg
     _, _, kernels = SERVE[cfg.name]
     trace = serve_trace(cfg.vocab_size - 2, **(trace_kw or {}))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     runs = []
     for loop in loops:
@@ -1369,6 +1427,9 @@ def phase_serve(model, params, *, exact: bool = False, loops=("serial",
             f"{same:.3f} ({card})")
         if exact:
             check(runs[0] == runs[1], "serial and pipelined streams differ")
+    if device == "cuda":
+        log(f"[serve] {cfg.name} peak torch.cuda.max_memory_allocated over "
+            f"the serves: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {name: counts[name] for name in build.KERNELS}
 
 
@@ -1590,7 +1651,7 @@ def time_prefill(dt, label: str, **shape) -> dict:
 
 def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
     """The kernels' record at the main-path (qwen3-1.7b) inputs of phase 3;
-    the attention kernels are also timed at the MoE models' shapes.
+    the attention kernels are also timed at ATTN_SHAPES (``by_shape``).
     ``paths``: each serve's own launch counts (counters set to 0 before it
     and read after it); a record's ``launches`` is their sum and
     ``launches_by_path`` splits it. flash_prefill's record also carries its
@@ -1611,10 +1672,11 @@ def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
                          "max_abs_err": errs[name]}, **rec))
         if name == "flash_prefill":
             out[-1]["at_32k"] = flash_32k
-        for label, KV, R, hd in MOE_SHAPES:
-            timer(dt, label, **({"KV": KV, "Qp": R, "hd": hd}
-                                if name == "paged_attention"
-                                else {"G": KV, "R": R, "hd": hd}))
+        out[-1]["by_shape"] = {
+            label: timer(dt, label, **({"KV": KV, "Qp": R, "hd": hd}
+                                       if name == "paged_attention"
+                                       else {"G": KV, "R": R, "hd": hd}))
+            for label, KV, R, hd in ATTN_SHAPES}
 
     # rwkv6_chunk at one layer's call of the serve: r/k/v bf16 [1, 256, 64,
     # 64] in chunks of 16, logw / u / state f32, o f32
@@ -1747,10 +1809,18 @@ def log_device_profile(prof, wall_s: float, what: str, n: int,
                 f"{e.self_device_time_total / max(e.count, 1):.2f} us each")
 
 
-def load_model(arch: str, dtype: str = "", layers: int = 0):
-    cfg, model, params = full_model(arch, dtype, layers=layers)
+def load_model(arch: str, dtype: str = "", layers: int = 0,
+               by_layer: bool = False):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params = full_model(arch, dtype, layers=layers,
+                                    by_layer=by_layer)
+    torch.cuda.synchronize()
     log(f"[model] {cfg.name}: {model.param_count() / 1e9:.3f}B params, "
-        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}")
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}; init "
+        f"{'by layer' if by_layer else 'whole'} "
+        f"{time.perf_counter() - t0:.2f}s, peak torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return cfg, model, params
 
 
@@ -1791,10 +1861,13 @@ def path_granite(t: float) -> tuple:
     return counts, t
 
 
-def path_qwen3_moe(t: float) -> float:
-    """qwen3-moe-30b-a3b at full width, cut to QWEN3_MOE_LAYERS layers
-    (phase 14): kernel vs plain in float32; in bf16 against the float32
-    model on the same weights, and kernel vs plain with routes replayed."""
+def path_qwen3_moe(t: float) -> tuple:
+    """qwen3-moe-30b-a3b at full width (phase 14), cut to QWEN3_MOE_LAYERS
+    layers: kernel vs plain in float32; in bf16 against the float32 model
+    on the same weights, and kernel vs plain with routes replayed; then at
+    all 48 layers in bf16, drawn by layer: kernel vs plain with routes
+    replayed, the paged serve in both loops. Returns (the serve's launch
+    counts, the time of the last lap)."""
     cfg, model, params = load_model("qwen3-moe-30b-a3b", dtype="float32",
                                     layers=QWEN3_MOE_LAYERS)
     phase_model_paged(cfg, model, params, MOE_F32_REL_TOL, witness=True,
@@ -1806,7 +1879,43 @@ def path_qwen3_moe(t: float) -> float:
     phase_model_truth(cfg, model, params, MOE_TRUTH_REL_TOL, MODEL_REL_TOL)
     del cfg, model, params
     free()
-    return lap("qwen3-moe model", t)
+    t = lap("qwen3-moe model", t)
+    cfg, model, params = load_model("qwen3-moe-30b-a3b", by_layer=True)
+    phase_model_truth(cfg, model, params, None, MODEL_REL_TOL,
+                      with_truth=False)
+    t = lap("qwen3-moe 48 layers model bf16", t)
+    counts = phase_serve(model, params)
+    t = lap("qwen3-moe serve", t)
+    del cfg, model, params
+    free()
+    return counts, t
+
+
+def path_large_dense(arch: str, t: float, profile: bool) -> tuple:
+    """qwen2.5-32b or the internvl2-26b backbone at full width (phases 14a,
+    14b), drawn by layer: kernels vs plain in float32 at LARGE_F32_LAYERS
+    layers (full rows, beside the PERTURB witness) and in bf16 at full
+    depth; the paged serve in both loops; with ``profile`` a window of one
+    more serial serve. Returns (the serve's launch counts, the time of the
+    last lap)."""
+    cfg, model, params = load_model(arch, "float32", LARGE_F32_LAYERS,
+                                    by_layer=True)
+    phase_model_paged(cfg, model, params, MOE_F32_REL_TOL, witness=True,
+                      lens=FULL_ROWS)
+    del cfg, model, params
+    free()
+    t = lap(f"{arch} model f32", t)
+    cfg, model, params = load_model(arch, by_layer=True)
+    phase_model_paged(cfg, model, params)
+    t = lap(f"{arch} model bf16", t)
+    counts = phase_serve(model, params)
+    t = lap(f"{arch} serve", t)
+    if profile:
+        phase_profile(model, params)
+        t = lap(f"{arch} profile", t)
+    del cfg, model, params
+    free()
+    return counts, t
 
 
 def path_gemma(t: float) -> float:
@@ -2825,7 +2934,11 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     free()
 
     paths["granite serve"], t = path_granite(t)
-    t = path_qwen3_moe(t)
+    paths["qwen3-moe serve"], t = path_qwen3_moe(t)
+    paths["qwen2.5-32b serve"], t = path_large_dense("qwen2.5-32b", t,
+                                                     profile=True)
+    paths["internvl2-26b serve"], t = path_large_dense("internvl2-26b", t,
+                                                       profile=False)
     t = path_gemma(t)
     paths["hymba serve"], t = path_hymba(t)
     paths["whisper model"], t = path_whisper(t)

@@ -218,8 +218,8 @@ class MoETransformer(DenseTransformer):
         E, Ep = cfg.num_experts, self.padded_experts
 
         def init_expert(fan_in):
-            def f(gen):  # pad experts (index >= E) carry zero weights
-                shape = (G, Pg, Ep, D, F) if fan_in == D else (G, Pg, Ep, F, D)
+            def f(gen, n):  # pad experts (index >= E) carry zero weights
+                shape = (n, Pg, Ep, D, F) if fan_in == D else (n, Pg, Ep, F, D)
                 w = torch.randn(shape, generator=gen, dtype=torch.float32,
                                 device=gen.device).div_(math.sqrt(fan_in))
                 mask = (torch.arange(Ep, device=gen.device) < E).float()

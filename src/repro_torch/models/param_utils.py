@@ -5,8 +5,9 @@ A template tree mirrors the parameter tree (nested dicts); leaves are
 ``ParamTemplate``, each with its logical axis names. ``init_params`` draws
 every leaf from one explicit ``torch.Generator`` on that generator's device,
 with the reference's distributions: normal / sqrt(fan_in), zeros, ones, or
-a custom draw; ``shard_params`` then places the tree on a ``DeviceMesh``
-by ``param_specs``.
+a custom draw; whole, or (``by_layer``) one layer group at a time;
+``shard_params`` then places the tree on a ``DeviceMesh`` by
+``param_specs``.
 
 The tree helpers at the end walk parameter and optimizer-state trees in the
 order ``jax.tree_util`` does, which the optimizer's casts and the
@@ -30,8 +31,10 @@ class ParamTemplate:
     logical: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones
     fan_in: Optional[int] = None  # overrides scale for 'normal'
-    # generator -> float32 tensor on the generator's device (packed weights)
-    custom: Optional[Callable[[torch.Generator], torch.Tensor]] = None
+    # (generator, n) -> float32 tensor on the generator's device holding
+    # the first n entries of the leading axis (packed weights): n is
+    # shape[0] for a whole draw, 1 for one group of a by-layer draw
+    custom: Optional[Callable[[torch.Generator, int], torch.Tensor]] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
@@ -73,25 +76,46 @@ def shard_params(params, templates, pc: ParallelConfig, mesh):
 
 
 def init_params(templates, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16):
-    """Materialise ``templates`` on ``generator.device`` in ``dtype``."""
+                dtype: torch.dtype = torch.bfloat16, by_layer: bool = False):
+    """Materialise ``templates`` on ``generator.device`` in ``dtype``.
+
+    ``by_layer``: each leaf of a sub-tree (``blocks``; whisper's ``enc`` and
+    ``dec``), which is stacked on a leading layer-group axis, is allocated
+    once in ``dtype`` and filled one group at a time, scaled in place. The
+    init's peak is then the tree plus about two float32 groups, where the
+    whole draw holds the largest leaf in float32 once or twice (the
+    ``[64, 1, 5120, 27648]`` MLP leaves of qwen2.5-32b take 36 GB so). The
+    same distributions; on CUDA other numbers than the whole draw of the
+    same seed. Top-level leaves (embedding, final norm, head) are drawn
+    whole either way."""
     device = generator.device
 
-    def init(tm: ParamTemplate) -> torch.Tensor:
+    def draw(tm: ParamTemplate, n: int) -> torch.Tensor:
+        """The leaf's first ``n`` entries of its leading axis, float32."""
         if tm.custom is not None:
-            return tm.custom(generator).to(dtype)
-        if tm.init == "zeros":
-            return torch.zeros(tm.shape, dtype=dtype, device=device)
-        if tm.init == "ones":
-            return torch.ones(tm.shape, dtype=dtype, device=device)
+            return tm.custom(generator, n)
         fan_in = tm.fan_in if tm.fan_in is not None else (
             tm.shape[-2] if len(tm.shape) >= 2 else tm.shape[-1])
         std = 1.0 / math.sqrt(max(1, fan_in))
-        w = torch.randn(tm.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (w * std).to(dtype)
+        w = torch.randn((n,) + tm.shape[1:], generator=generator,
+                        dtype=torch.float32, device=device)
+        return w.mul_(std)
 
-    return map_templates(init, templates)
+    def init(tm: ParamTemplate, stacked: bool) -> torch.Tensor:
+        if tm.custom is None and tm.init == "zeros":
+            return torch.zeros(tm.shape, dtype=dtype, device=device)
+        if tm.custom is None and tm.init == "ones":
+            return torch.ones(tm.shape, dtype=dtype, device=device)
+        if not (by_layer and stacked):
+            return draw(tm, tm.shape[0]).to(dtype)
+        out = torch.empty(tm.shape, dtype=dtype, device=device)
+        for g in range(tm.shape[0]):
+            out[g:g + 1].copy_(draw(tm, 1))
+        return out
+
+    return {k: (init(v, False) if isinstance(v, ParamTemplate)
+                else map_templates(lambda tm: init(tm, True), v))
+            for k, v in templates.items()}
 
 
 def count_params(templates) -> int:

@@ -182,9 +182,11 @@ class RWKV6Model(TP.MeshModel, nn.Module):
     def abstract_params(self):
         return abstract_params(self.templates(), self.dtype)
 
-    def init_params(self, generator: torch.Generator):
-        """Random parameters on ``generator.device`` in the config's dtype."""
-        return init_params(self.templates(), generator, self.dtype)
+    def init_params(self, generator: torch.Generator, by_layer: bool = False):
+        """Random parameters on ``generator.device`` in the config's dtype
+        (``by_layer``: drawn one layer group at a time, see
+        ``param_utils.init_params``)."""
+        return init_params(self.templates(), generator, self.dtype, by_layer)
 
     def param_specs(self):
         return param_specs(self.templates(), self.pc)

@@ -125,16 +125,18 @@ class DenseTransformer(TP.MeshModel, nn.Module):
             return torch.as_tensor(qmask_np, dtype=torch.float32,
                                    device=gen.device)
 
-        def init_wq(gen):  # packed layout: zero weights on pad Q slots (exact)
-            w = randn(gen, (G, Pg, D, KVs, Qp, hd)) / math.sqrt(D)
-            return w * qmask(gen)[None, None, None, :, :, None]
+        # each draws the first n of the G groups (init_params' by_layer: 1)
+        def init_wq(gen, n):  # packed layout: zero weights on pad Q slots (exact)
+            w = randn(gen, (n, Pg, D, KVs, Qp, hd)).div_(math.sqrt(D))
+            return w.mul_(qmask(gen)[None, None, None, :, :, None])
 
-        def init_wo(gen):
-            w = randn(gen, (G, Pg, KVs, Qp, hd, D)) / math.sqrt(lay.num_heads * hd)
-            return w * qmask(gen)[None, None, :, :, None, None]
+        def init_wo(gen, n):
+            w = randn(gen, (n, Pg, KVs, Qp, hd, D)).div_(
+                math.sqrt(lay.num_heads * hd))
+            return w.mul_(qmask(gen)[None, None, :, :, None, None])
 
-        def init_kv(gen):  # canonical KV heads, then duplicate into slots
-            w = randn(gen, (G, Pg, D, KV, hd)) / math.sqrt(D)
+        def init_kv(gen, n):  # canonical KV heads, then duplicate into slots
+            w = randn(gen, (n, Pg, D, KV, hd)).div_(math.sqrt(D))
             return w.index_select(3, dup.to(gen.device))
 
         blocks: Dict[str, Any] = {
@@ -180,9 +182,11 @@ class DenseTransformer(TP.MeshModel, nn.Module):
     def abstract_params(self):
         return abstract_params(self.templates(), self.dtype)
 
-    def init_params(self, generator: torch.Generator):
-        """Random parameters on ``generator.device`` in the config's dtype."""
-        return init_params(self.templates(), generator, self.dtype)
+    def init_params(self, generator: torch.Generator, by_layer: bool = False):
+        """Random parameters on ``generator.device`` in the config's dtype
+        (``by_layer``: drawn one layer group at a time, see
+        ``param_utils.init_params``)."""
+        return init_params(self.templates(), generator, self.dtype, by_layer)
 
     def param_specs(self):
         return param_specs(self.templates(), self.pc)

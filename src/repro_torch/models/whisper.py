@@ -87,16 +87,18 @@ class WhisperModel(TP.MeshModel, nn.Module):
             return torch.as_tensor(qmask_np, dtype=torch.float32,
                                    device=gen.device)
 
-        def init_wq(gen):
-            w = randn(gen, (Lyr, D, KVs, Qp, hd)) / math.sqrt(D)
-            return w * qmask(gen)[None, None, :, :, None]
+        # each draws the first n of the Lyr layers (init_params' by_layer: 1)
+        def init_wq(gen, n):
+            w = randn(gen, (n, D, KVs, Qp, hd)).div_(math.sqrt(D))
+            return w.mul_(qmask(gen)[None, None, :, :, None])
 
-        def init_wo(gen):
-            w = randn(gen, (Lyr, KVs, Qp, hd, D)) / math.sqrt(lay.num_heads * hd)
-            return w * qmask(gen)[None, :, :, None, None]
+        def init_wo(gen, n):
+            w = randn(gen, (n, KVs, Qp, hd, D)).div_(
+                math.sqrt(lay.num_heads * hd))
+            return w.mul_(qmask(gen)[None, :, :, None, None])
 
-        def init_kv(gen):
-            w = randn(gen, (Lyr, D, lay.num_kv_heads, hd)) / math.sqrt(D)
+        def init_kv(gen, n):
+            w = randn(gen, (n, D, lay.num_kv_heads, hd)).div_(math.sqrt(D))
             return w.index_select(2, dup.to(gen.device))
 
         return {
@@ -152,9 +154,11 @@ class WhisperModel(TP.MeshModel, nn.Module):
     def abstract_params(self):
         return abstract_params(self.templates(), self.dtype)
 
-    def init_params(self, generator: torch.Generator):
-        """Random parameters on ``generator.device`` in the config's dtype."""
-        return init_params(self.templates(), generator, self.dtype)
+    def init_params(self, generator: torch.Generator, by_layer: bool = False):
+        """Random parameters on ``generator.device`` in the config's dtype
+        (``by_layer``: drawn one layer group at a time, see
+        ``param_utils.init_params``)."""
+        return init_params(self.templates(), generator, self.dtype, by_layer)
 
     def param_specs(self):
         return param_specs(self.templates(), self.pc)

@@ -78,6 +78,9 @@ def _paged_inputs(card, B, KV, rows, hd, page, maxp, dtype, ctx, qt=1, seed=0):
     (32, 8, 3, 64, 16, 64, 1, None),   # granite-moe decode: Qp 3, pad row
     (32, 4, 8, 128, 16, 64, 1, None),  # qwen3-moe decode: Qp 8
     (3, 4, 8, 128, 16, 64, 4, [1024, 300, 257]),     # qwen3-moe, rows 32
+    (32, 8, 5, 128, 16, 64, 1, None),  # qwen2.5-32b decode: Qp 5, 3 pad rows
+    (32, 8, 6, 128, 16, 64, 1, None),  # internvl2-26b decode: Qp 6
+    (3, 8, 5, 128, 16, 64, 4, [1024, 300, 257]),     # Qp 5, Qt 4: rows 20
 ])
 def test_paged_attention_kernel(card, B, KV, Qp, hd, page, maxp, qt, ctx, dtype):
     q, kp, vp, bt, cl = _paged_inputs(card, B, KV, qt * Qp, hd, page, maxp,
@@ -114,6 +117,9 @@ def test_paged_attention_kernel_zero_context(card):
     (2, 8, 256, 3, 64, 256, True, 0, 0),    # granite-moe: R 3, hd 64
     (2, 8, 77, 3, 64, 77, True, 0, 0),      # R 3, tiles end mid-position
     (2, 4, 256, 8, 128, 256, True, 0, 0),   # qwen3-moe: R 8
+    (2, 8, 256, 5, 128, 256, True, 0, 0),   # qwen2.5-32b: R 5
+    (2, 8, 256, 6, 128, 256, True, 0, 0),   # internvl2-26b: R 6
+    (2, 8, 77, 5, 128, 77, True, 0, 0),     # R 5, tiles end mid-position
 ])
 def test_flash_prefill_kernel(card, B, G, S, R, hd, T, causal, window, qoff,
                               dtype):
