@@ -6,17 +6,22 @@ Phases (each raises on failure; none catches its own):
   1. device  — CUDA with compute capability >= 9.0; card name and power limit
   2. build   — nvcc builds the three kernels from src/repro_torch/kernels/csrc/
                for sm_90a, one process each, in parallel; prints ptxas'
-               registers / shared memory / spills, and each library's count
-               of tensor-core instructions (HMMA) in its SASS from cuobjdump
-               ("not measured" without it; flash_prefill's must be > 0)
+               registers / shared memory / spills, each library's lines of
+               wgmma (HGMMA), TMA loads (UTMALDG) and mma.sync (HMMA) in its
+               SASS from cuobjdump ("not measured" without it; flash_prefill
+               must show HGMMA and UTMALDG, paged_attention UTMALDG), and
+               each kernel instance's registers, shared memory and resident
+               blocks per SM from the library's own occupancy query
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                at main-path shapes (paged_attention also at the planned
                serve's 8-token pages), bf16 and f32, TF32 off; each bf16 output
                also within half a bf16 ulp of the plain version's f32 result.
                Which kernel serves which dtype: flash_prefill bf16 runs on
-               the tensor cores (mma.sync, P split into bf16 hi + lo), f32
-               on the SIMT kernel; paged_attention is one split-KV kernel
-               (plus its merge launch) for both; rwkv6_chunk takes bf16 or
+               the tensor cores (wgmma on a TMA-fed ring at hd 64 and 128,
+               mma.sync at 16 and 32; P split into bf16 hi + lo), f32 on the
+               SIMT kernel; paged_attention is one split-KV launch for both
+               (K/V by TMA, the splits merged by the last block of each
+               sequence and kv slot); rwkv6_chunk takes bf16 or
                f32 r/k/v with f32 state. rwkv6_chunk one chunk per launch
                at c = 16 / 32 / 64 and through strided chunk views; one
                launch per layer (every chunk of [1, 256], [1, 1024],
@@ -171,6 +176,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import gc
 import json
 import math
@@ -201,7 +207,7 @@ from repro_torch.distributed.elastic import elastic_restore, reshard_tree  # noq
 from repro_torch.distributed.sharding import (  # noqa: E402
     ParallelConfig, local_tree, place_tree)
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, flash_prefill, ops, ref  # noqa: E402
 from repro_torch.launch.cells import (  # noqa: E402
     TRAIN_GRAD_ACCUM, build_cell, materialize, use_kernels)
 from repro_torch.launch.roofline import PEAK_FLOPS, roofline_row  # noqa: E402
@@ -639,9 +645,13 @@ def phase_device() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def sass_hmma_count(path) -> int | None:
-    """Tensor-core instructions (HMMA) in a library's SASS, from the
-    toolkit's cuobjdump; None where the toolkit has none."""
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")   # wgmma, TMA loads, mma.sync
+
+
+def sass_counts(path) -> dict | None:
+    """Lines of a library's SASS that hold each of SASS_OPS (HGMMA is no
+    substring of HMMA, nor the reverse), from the toolkit's cuobjdump; None
+    where the toolkit has none."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         return None
@@ -649,7 +659,29 @@ def sass_hmma_count(path) -> int | None:
                          text=True, timeout=300)
     if res.returncode != 0:
         return None
-    return sum("HMMA" in line for line in res.stdout.splitlines())
+    lines = res.stdout.splitlines()
+    return {op: sum(op in line for line in lines) for op in SASS_OPS}
+
+
+def occupancy(name: str) -> list:
+    """The library's own query (``<name>_occupancy``) of each kernel
+    instance the paths launch: registers, shared memory, threads, resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = getattr(build.load(name), f"{name}_occupancy")
+    fn.argtypes = ([ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+                   + [ctypes.POINTER(ctypes.c_int)] * 4)
+    fn.restype = ctypes.c_int
+    out = []
+    while True:
+        label = ctypes.create_string_buffer(128)
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        rc = fn(len(out), label, 128, *[ctypes.byref(x) for x in vals])
+        if rc == -1:
+            return out
+        check(rc == 0, f"{name}'s occupancy query {len(out)}: CUDA error {rc}")
+        out.append(dict(zip(("label", "registers", "smem", "threads",
+                             "blocks_per_sm"),
+                            [label.value.decode()] + [x.value for x in vals])))
 
 
 def phase_build() -> None:
@@ -661,15 +693,29 @@ def phase_build() -> None:
         log(f"[build] {b.name}: {b.path.relative_to(build.BUILD_DIR.parents[1])} "
             f"({b.seconds:.2f}s)")
         for line in b.ptxas.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry")):
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "arning")):
                 log(f"[build]   {line.strip()}")
     for b in built.values():
-        n = sass_hmma_count(b.path)
-        log(f"[build] {b.name}: HMMA in SASS: "
-            f"{'not measured (no cuobjdump)' if n is None else n}")
+        n = sass_counts(b.path)
+        log(f"[build] {b.name}: SASS lines with "
+            + ("not measured (no cuobjdump)" if n is None else
+               ", ".join(f"{op} {n[op]}" for op in SASS_OPS)))
+        # the attention kernels load K and V by TMA; flash_prefill's products
+        # run on wgmma (HGMMA), which a count of HMMA would not see
         if b.name == "flash_prefill" and n is not None:
-            check(n > 0, "flash_prefill's library has no tensor-core "
-                         "instruction (HMMA)")
+            check(n["HGMMA"] > 0, "flash_prefill's library has no wgmma "
+                                  "instruction (HGMMA)")
+        if b.name in ("flash_prefill", "paged_attention") and n is not None:
+            check(n["UTMALDG"] > 0, f"{b.name}'s library has no TMA load "
+                                    f"(UTMALDG)")
+        for inst in occupancy(b.name):
+            log(f"[build] {b.name} [{inst['label']}]: {inst['registers']} "
+                f"registers, {inst['smem']} bytes of shared memory, "
+                f"{inst['threads']} threads, {inst['blocks_per_sm']} blocks "
+                f"per SM")
+            check(inst["blocks_per_sm"] > 0, f"{b.name} [{inst['label']}] "
+                  f"fits no block on an SM")
 
 
 def phase_kernels() -> dict:
@@ -737,8 +783,9 @@ def shape_kernel_checks() -> None:
     qwen3-1.7b inputs do not take: granite-moe's 3 q rows per kv slot at
     head_dim 64 (the paged kernel's 4-row path with a pad row; prefill tiles
     that end inside a position), qwen3-moe's 8 rows, qwen2.5-32b's 5 and
-    internvl2-26b's 6 at head_dim 128 (the 8-row path with 3 and 2 pad rows;
-    64-row prefill tiles ending inside a position); decode over the serve's
+    internvl2-26b's 6 at head_dim 128 (2 rows per lane group, with a pad
+    row at Qp 5; prefill row groups of 64 ending inside a position); decode
+    over the serve's
     pool of 16-token pages, prefill [4, G, 512, R, hd] causal."""
     log("[kernels] paged_attention and flash_prefill at the other paged "
         "models' shapes")
@@ -1595,6 +1642,19 @@ def phase_planned(model, params, device="cuda") -> dict:
     return {name: counts[name] for name in model.KERNELS}
 
 
+def host_issue_ms(fn, n: int = 20) -> float:
+    """Host time to issue one call (no synchronize inside the loop): for a
+    kernel, the wrapper's checks, allocations, and (the attention kernels)
+    the encoding of its tensor maps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    issue = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return issue
+
+
 def time_paged(dt, label: str, **shape) -> dict:
     """paged_attention at the phase-3 decode inputs of ``shape``: kernel,
     plain and bound (bytes: q read and out written once, K and V of every
@@ -1615,12 +1675,14 @@ def time_paged(dt, label: str, **shape) -> dict:
     bound = max(t_ops, t_bytes) * 1e3
     ms = cuda_time_ms(lambda: ops.paged_attention(*args))
     plain = cuda_time_ms(lambda: ref.paged_attention_ref(*args))
+    issue = host_issue_ms(lambda: ops.paged_attention(*args))
     log(f"[times] paged_attention {label} q={list(q.shape)} B={B} "
         f"tokens={tokens}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bound:.4f} ms (bytes {nbytes}, flops {flops}), library null")
+        f"{bound:.4f} ms (bytes {nbytes}, flops {flops}), library null; host "
+        f"issue {issue:.4f} ms per call")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": None, "host_issue_ms": issue}
 
 
 def time_prefill(dt, label: str, **shape) -> dict:
@@ -1641,12 +1703,14 @@ def time_prefill(dt, label: str, **shape) -> dict:
     qh = q.permute(0, 1, 3, 2, 4).reshape(B, G * R, S, hd)   # head g*R + r
     lib = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, k, v, is_causal=True, enable_gqa=True))
+    issue = host_issue_ms(lambda: ops.flash_prefill(q, k, v, causal=True))
     log(f"[times] flash_prefill {label} q={list(q.shape)} causal: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-        f"{bound:.4f} ms (flops {flops}, bytes {nbytes})")
+        f"{bound:.4f} ms (flops {flops}, bytes {nbytes}); host issue "
+        f"{issue:.4f} ms per call (two tensor maps encoded)")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib}
+            "library_ms": lib, "host_issue_ms": issue}
 
 
 def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
@@ -1702,12 +1766,8 @@ def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
     plain = cuda_time_ms(lambda: ref.rwkv6_chunk_plain(*args, out_dtype=f32,
                                                        chunk=c),
                          iters=5, warmup=1, queued=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c)
-    issue = (time.perf_counter() - t0) / 20 * 1e3
-    torch.cuda.synchronize()
+    issue = host_issue_ms(lambda: ops.rwkv6_chunk(*args, out_dtype=f32,
+                                                  chunk=c))
     one = rwkv_inputs(torch.bfloat16)    # one chunk [1, 16, 64, 64] alone
     one_ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*one, out_dtype=f32))
     log(f"[times] rwkv6_chunk r={list(r.shape)} bf16 c={c}, o f32 (one layer's "
@@ -1807,6 +1867,13 @@ def log_device_profile(prof, wall_s: float, what: str, n: int,
             log(f"[profile] own kernel {name}: {e.self_device_time_total / 1e3:.2f} "
                 f"ms over {e.count} launches, "
                 f"{e.self_device_time_total / max(e.count, 1):.2f} us each")
+            # every profiled serve prefills in bf16 at head dim 64 or 128
+            # (the wgmma kernel) and decodes in one launch per call
+            check("flash_prefill" not in name or "wgmma" in name,
+                  f"a profiled bf16 prefill ran {name}, not the wgmma kernel")
+            check("paged_attention" not in name
+                  or name.startswith("paged_attention_kernel<"),
+                  f"a profiled decode ran {name} beside the split kernel")
 
 
 def load_model(arch: str, dtype: str = "", layers: int = 0,
@@ -2637,7 +2704,11 @@ def flash_prefill_at_32k(cell, args) -> dict:
         q, k, v = q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2)
         del x, h
         B, G, S, R, hd = q.shape
-        grid = (B * G, (S * R + 63) // 64)
+        grid = flash_prefill.grid(q)
+        lib_rows = build.load("flash_prefill").flash_prefill_block_rows(hd, 1)
+        check(lib_rows == flash_prefill.block_rows(q.dtype, hd),
+              f"flash_prefill.grid's {flash_prefill.block_rows(q.dtype, hd)} "
+              f"rows per block, the library launches {lib_rows}")
         check(grid[1] <= GRID_Y_MAX, f"flash_prefill's grid {grid} passes "
               f"gridDim.y's {GRID_Y_MAX}")
         out = ops.flash_prefill(q, k, v, causal=True)

@@ -91,4 +91,21 @@ inline cudaError_t allow_shared(Kernel kernel, int bytes, int* granted) {
   return err;
 }
 
+// Registers, shared memory (static + `dyn`) and resident blocks per SM of a
+// kernel launched with `threads` threads and `dyn` bytes of dynamic shared
+// memory (the occupancy query of each library). `granted` as allow_shared.
+template <typename Kernel>
+inline int occupancy(Kernel kernel, int threads, int dyn, int* granted,
+                     int* regs, int* smem, int* blocks) {
+  cudaError_t err = allow_shared(kernel, dyn, granted);
+  if (err != cudaSuccess) return int(err);
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return int(err);
+  *regs = a.numRegs;
+  *smem = int(a.sharedSizeBytes) + dyn;
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                           threads, dyn));
+}
+
 }  // namespace relserve

@@ -55,6 +55,7 @@
 // tensor-core form (bf16 hi + lo, or 3xTF32) was not tried.
 
 #include <stdint.h>
+#include <stdio.h>
 
 #include "common.cuh"
 
@@ -477,6 +478,17 @@ int launch_chunk(int c, const void* r, const void* k, const void* v,
                                   B, n_chunks, H, K, V, st, stream);
 }
 
+// One instance at K = 64 (rwkv6-7b's heads): registers, shared memory,
+// threads and resident blocks per SM.
+template <typename TI, typename TW, typename TO, int C, int VS>
+int query(int* regs, int* smem, int* threads, int* blocks) {
+  static int granted[kMaxDevices] = {};
+  *threads = Geo<C, VS>::NT;
+  return occupancy(rwkv6_chunk_kernel<TI, TW, TO, C, VS>, Geo<C, VS>::NT,
+                   smem_bytes<TI, TW, C, VS>(KMAX), granted, regs, smem,
+                   blocks);
+}
+
 template <typename TI, typename TW>
 int launch_out(int out_dtype, int c, const void* r, const void* k,
                const void* v, const void* logw, const float* u,
@@ -533,4 +545,25 @@ extern "C" int rwkv6_chunk_launch(
         out_dtype, c, r, k, v, logw, uf, sf, out, so, B, n_chunks, H, K, V,
         st, s);
   return int(cudaErrorInvalidValue);
+}
+
+// Instance i of the kernels the paths launch (the model's r/k/v in bf16,
+// logw, u and the state in f32, o in f32, 32 state columns per block):
+// a label, registers, shared memory (static + dynamic), threads and resident
+// blocks per SM. Returns 0, -1 past the last instance, or a CUDA error.
+extern "C" int rwkv6_chunk_occupancy(int i, char* label, int label_len,
+                                     int* regs, int* smem, int* threads,
+                                     int* blocks) {
+  using namespace relserve;
+  using bf = __nv_bfloat16;
+  static const char* labels[] = {"bf16 r/k/v, chunk 16", "bf16 r/k/v, chunk 32",
+                                 "bf16 r/k/v, chunk 64", "f32 r/k/v, chunk 16"};
+  if (i < 0 || i >= 4) return -1;
+  snprintf(label, label_len, "%s", labels[i]);
+  switch (i) {
+    case 0: return query<bf, float, float, 16, 32>(regs, smem, threads, blocks);
+    case 1: return query<bf, float, float, 32, 32>(regs, smem, threads, blocks);
+    case 2: return query<bf, float, float, 64, 32>(regs, smem, threads, blocks);
+    default: return query<float, float, float, 16, 32>(regs, smem, threads, blocks);
+  }
 }

@@ -10,10 +10,13 @@ q, k and v may be strided views (the model hands over ``movedim`` views of
 its ``[B, S, G, ...]`` projections); only the head dim must be contiguous.
 The output is a new contiguous ``[B, G, S, R, hd]`` tensor in q's dtype.
 
-The library holds two kernels and the C launcher picks one by dtype:
-bfloat16 (the serve's dtype) runs on the tensor cores (``mma.sync``, P V
-with P split into bf16 hi + lo so the output is the f32 result rounded
-once); float32 runs the SIMT kernel in full f32. No workspace.
+The library holds three kernels and the C launcher picks one by dtype and
+head dim: bfloat16 at head dims 64 and 128 (every model path) runs ``wgmma``
+on a ring of K/V tiles that TMA fills from tensor maps over the views' own
+strides, 128 packed q rows per block; bfloat16 at 16 and 32 runs
+``mma.sync``, 64 rows per block (both split P into bf16 hi + lo for P V, so
+the output is the f32 result rounded once); float32 runs the SIMT kernel in
+full f32, 64 rows per block. ``grid`` gives the launch's grid. No workspace.
 """
 from __future__ import annotations
 
@@ -40,6 +43,19 @@ def _launcher():
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
+
+
+def block_rows(dtype, hd: int) -> int:
+    """Packed q rows per block of the kernel the launcher picks (the
+    library's ``flash_prefill_block_rows``)."""
+    return 128 if dtype == torch.bfloat16 and hd >= 64 else 64
+
+
+def grid(q) -> tuple:
+    """The launch's grid for q [B, G, S, R, hd]: (B * G, ceil(S * R /
+    block_rows)); CUDA caps the second at 65535."""
+    B, G, S, R, hd = q.shape
+    return B * G, -(-(S * R) // block_rows(q.dtype, hd))
 
 
 def flash_prefill_cuda(q, k, v, *, causal: bool = True, window: int = 0,

@@ -14,12 +14,15 @@ context covers; the kernel reads them on the device without a bounds check.
 Split plan (``split_plan``): the block table is cut into ``n_split`` spans
 of ``pages_per_split`` pages, about ``SPLIT_TOKENS`` tokens each, from
 ``block_tables.shape[1]`` and the page size alone (no host sync on the
-context lengths). One block per (split, kv slot, sequence) streams its span;
-with ``n_split > 1`` the blocks write float32 partials into a workspace that
-the wrapper allocates with ``torch.empty`` (``o`` [B, KV, n_split, rows, hd],
-``m`` and ``l`` [B, KV, n_split, rows]) and a second kernel of the same
-library merges them by log-sum-exp. A call counts as one launch whatever it
-issues.
+context lengths). One block per (split, kv slot, sequence) streams its span
+through a TMA-fed shared-memory ring; with ``n_split > 1`` the blocks write
+float32 partials into a workspace that the wrapper allocates with
+``torch.empty`` (``o`` [B, KV, n_split, rows, hd], ``m`` and ``l``
+[B, KV, n_split, rows]), and the last block of each (sequence, kv slot) to
+finish, found through an int32 arrival counter, merges them by log-sum-exp:
+one launch per call. The counters (``arrival_counters``) are kept per device
+and are zero between launches (the last block resets its own), so no call
+clears them; calls that share them must run on one stream.
 """
 from __future__ import annotations
 
@@ -36,13 +39,15 @@ MAX_ROWS = 32          # Qt * Qp rows per (sequence, kv slot)
 SPLIT_TOKENS = 256     # tokens per split of the context
 
 _launch = None
+_counters = {}         # device index -> int32 arrival counters, all zero
 
 
 def _launcher():
     global _launch
     if _launch is None:
         fn = build.load("paged_attention").paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 2
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch = fn
@@ -57,6 +62,17 @@ def split_plan(max_pages: int, page: int) -> tuple:
         raise ValueError(f"max_pages {max_pages} must be >= 0 and page {page} >= 1")
     pages_per_split = max(1, SPLIT_TOKENS // page)
     return pages_per_split, max(1, -(-max_pages // pages_per_split))
+
+
+def arrival_counters(device, n: int) -> torch.Tensor:
+    """The device's int32 arrival counters, at least ``n`` of them, all zero:
+    grown (a new zeroed buffer) when a call needs more. The kernel leaves them
+    zero, so they are never cleared again."""
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[device.index] = buf
+    return buf
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
@@ -101,18 +117,20 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
     max_pages = block_tables.shape[1]
     pages_per_split, n_split = split_plan(max_pages, page)
     out = torch.empty_like(q)
-    ws = [None] * 3
+    ws = [None] * 4
     if n_split > 1:
         f32 = dict(dtype=torch.float32, device=q.device)
         ws_o = torch.empty((B, KV, n_split, rows, hd), **f32)
         ws_m = torch.empty((B, KV, n_split, rows), **f32)
         ws_l = torch.empty((B, KV, n_split, rows), **f32)
-        ws = [ws_o.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr()]
+        counters = arrival_counters(q.device, B * KV)
+        ws = [ws_o.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr(),
+              counters.data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       block_tables.data_ptr(), context_lens.data_ptr(),
                       out.data_ptr(), *ws, B, KV, rows, hd, num_q_tokens, page,
-                      max_pages, pages_per_split, n_split,
+                      max_pages, P, pages_per_split, n_split,
                       1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")

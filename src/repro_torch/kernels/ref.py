@@ -15,7 +15,7 @@ on the card, and ``ops`` dispatches to them for CPU tensors.
 
 Two more rehearse the CUDA kernels' own arithmetic on the CPU, and run on no
 path (the CPU tests hold them to the oracles above):
-- ``flash_prefill_tc_emulation``: the bf16 tensor-core prefill kernel.
+- ``flash_prefill_tc_emulation``: the bf16 wgmma prefill kernel.
 - ``paged_attention_split_ref``: the split-KV decode kernel's partials and
   their log-sum-exp merge.
 """
@@ -88,7 +88,9 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, context_lens,
     does, in float32: each span of ``pages_per_split`` pages (the wrapper's
     split plan by default) gives a partial (o unnormalised, m, l) in which
     masked keys add nothing; the partials with l > 0 are merged by
-    log-sum-exp. Rows with no key (``ctx == 0``) get zeros."""
+    log-sum-exp in split order, as the kernel's last block of each
+    (sequence, kv slot) merges them. Rows with no key (``ctx == 0``) get
+    zeros."""
     B, KV, rows, hd = q.shape
     page = k_pages.shape[1]
     max_pages = block_tables.shape[1]
@@ -125,43 +127,55 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, context_lens,
 
 
 def flash_prefill_tc_emulation(q, k, v, *, causal=True, q_offset=0, window=0,
-                               block_n: int = 32):
-    """``flash_prefill_ref``'s function computed as the bf16 tensor-core
-    kernel does: bf16 operands, f32 products, the scale applied to S in
-    f32, an online softmax over ``block_n``-key tiles, and P V as two
-    products with P split into bf16 hi = bf16(p) and lo = bf16(p - hi).
-    Returns the f32 result cast once to q's dtype."""
+                               block_n: int = 128, block_m: int = 64):
+    """``flash_prefill_ref``'s function computed as the bf16 wgmma kernel
+    does: bf16 operands, f32 products, S scaled by log2(e)/sqrt(hd) in f32,
+    an online softmax in base 2 over ``block_n``-key tiles, each group of
+    ``block_m`` packed rows (a consumer warpgroup) visiting only the tiles
+    its own positions can see, and P V as two products with P split into
+    bf16 hi = bf16(p) and lo = bf16(p - hi). Returns the f32 result cast
+    once to q's dtype."""
     B, G, S, R, hd = q.shape
     T = k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
+    SR = S * R
+    c = torch.tensor(1.0 / math.sqrt(hd) * math.log2(math.e),
+                     dtype=torch.float32)
     bf = torch.bfloat16
-    qf = q.to(bf).float().reshape(B, G, S * R, hd)
+    qf = q.to(bf).float().reshape(B, G, SR, hd)
     kf, vf = k.to(bf).float(), v.to(bf).float()
-    qpos = q_offset + torch.arange(S * R, device=q.device) // R
-    m = torch.full((B, G, S * R), NEG_INF, device=q.device)
-    l = torch.zeros((B, G, S * R), device=q.device)
-    acc = torch.zeros((B, G, S * R, hd), device=q.device)
-    for k0 in range(0, T, block_n):
-        kpos = torch.arange(k0, min(T, k0 + block_n), device=q.device)
-        s = torch.einsum("bgrh,bgth->bgrt", qf, kf[:, :, k0:k0 + block_n]) * scale
-        mask = torch.ones((S * R, len(kpos)), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window > 0:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.max(dim=-1).values)
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        p_hi = p.to(bf).float()
-        p_lo = (p - p_hi).to(bf).float()
-        vt = vf[:, :, k0:k0 + block_n]
-        acc = (acc * corr[..., None]
-               + torch.einsum("bgrt,bgth->bgrh", p_hi, vt)
-               + torch.einsum("bgrt,bgth->bgrh", p_lo, vt))
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = torch.empty((B, G, SR, hd), device=q.device)
+    for r0 in range(0, SR, block_m):
+        r1 = min(SR, r0 + block_m)
+        qpos = q_offset + torch.arange(r0, r1, device=q.device) // R
+        lo, hi = int(qpos[0]), int(qpos[-1])
+        k_end = min(T, hi + 1) if causal else T
+        k_first = (max(0, lo - window + 1) // block_n) * block_n if window > 0 else 0
+        m = torch.full((B, G, r1 - r0), NEG_INF, device=q.device)
+        l = torch.zeros((B, G, r1 - r0), device=q.device)
+        acc = torch.zeros((B, G, r1 - r0, hd), device=q.device)
+        for k0 in range(k_first, k_end, block_n):
+            kpos = torch.arange(k0, min(T, k0 + block_n), device=q.device)
+            s = torch.einsum("bgrh,bgth->bgrt", qf[:, :, r0:r1],
+                             kf[:, :, k0:k0 + block_n]) * c
+            mask = torch.ones((r1 - r0, len(kpos)), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.max(dim=-1).values)
+            p = torch.exp2(s - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            p_hi = p.to(bf).float()
+            p_lo = (p - p_hi).to(bf).float()
+            vt = vf[:, :, k0:k0 + block_n]
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bgrt,bgth->bgrh", p_hi, vt)
+                   + torch.einsum("bgrt,bgth->bgrh", p_lo, vt))
+            m = m_new
+        out[:, :, r0:r1] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, G, S, R, hd).to(q.dtype)
 
 

@@ -81,6 +81,8 @@ def _paged_inputs(card, B, KV, rows, hd, page, maxp, dtype, ctx, qt=1, seed=0):
     (32, 8, 5, 128, 16, 64, 1, None),  # qwen2.5-32b decode: Qp 5, 3 pad rows
     (32, 8, 6, 128, 16, 64, 1, None),  # internvl2-26b decode: Qp 6
     (3, 8, 5, 128, 16, 64, 4, [1024, 300, 257]),     # Qp 5, Qt 4: rows 20
+    (4, 2, 7, 128, 16, 40, 1, None),   # Qp 7: a lane group's pad row
+    (3, 2, 6, 128, 16, 64, 4, [1024, 300, 257]),     # Qp 6, Qt 4: rows 24
 ])
 def test_paged_attention_kernel(card, B, KV, Qp, hd, page, maxp, qt, ctx, dtype):
     q, kp, vp, bt, cl = _paged_inputs(card, B, KV, qt * Qp, hd, page, maxp,
@@ -90,6 +92,28 @@ def test_paged_attention_kernel(card, B, KV, Qp, hd, page, maxp, qt, ctx, dtype)
     assert ops.launch_counts()["paged_attention"] == before + 1
     want = ref.paged_attention_ref(q, kp, vp, bt, cl, num_q_tokens=qt)
     _close(out, want, 1e-5 if dtype == "float32" else 2e-2)
+
+
+def test_paged_attention_counters_grow_zeroed(card):
+    """A call at a larger B * KV after a smaller one: the arrival counters
+    grow (a new zeroed buffer) and both calls hold against the plain
+    version."""
+    for B, KV in ((2, 2), (48, 8)):
+        args = _paged_inputs(card, B, KV, 2, 128, 16, 64, "bfloat16", None,
+                             seed=B)
+        out = ops.paged_attention(*args)
+        _close(out, ref.paged_attention_ref(*args), 2e-2)
+
+
+def test_paged_attention_back_to_back_calls_are_bit_equal(card):
+    """Two calls on the same inputs give the same bits: the last block of
+    each (sequence, kv slot) resets its arrival counter, so the second call
+    merges exactly as the first did."""
+    args = _paged_inputs(card, 8, 4, 6, 128, 16, 64, "bfloat16", None, seed=5)
+    first = ops.paged_attention(*args)
+    second = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_paged_attention_kernel_zero_context(card):
@@ -120,6 +144,13 @@ def test_paged_attention_kernel_zero_context(card):
     (2, 8, 256, 5, 128, 256, True, 0, 0),   # qwen2.5-32b: R 5
     (2, 8, 256, 6, 128, 256, True, 0, 0),   # internvl2-26b: R 6
     (2, 8, 77, 5, 128, 77, True, 0, 0),     # R 5, tiles end mid-position
+    (2, 2, 200, 2, 128, 200, True, 0, 0),   # T not a multiple of 128 keys
+    (2, 2, 200, 2, 64, 200, True, 0, 0),    # ... at head_dim 64
+    (1, 2, 77, 5, 128, 77, True, 0, 0),     # S*R 385: not a multiple of 128
+    (1, 2, 70, 6, 128, 70, True, 0, 0),     # S*R 420, R 6
+    (1, 2, 50, 7, 64, 50, True, 0, 0),      # S*R 350, R 7
+    (2, 2, 100, 5, 128, 300, True, 64, 200),  # R 5: window past an offset
+    (1, 1, 4096, 5, 128, 4096, True, 0, 0),   # R 5: the ring wraps 16 times
 ])
 def test_flash_prefill_kernel(card, B, G, S, R, hd, T, causal, window, qoff,
                               dtype):
@@ -148,6 +179,20 @@ def test_flash_prefill_kernel_reads_strided_views(card, dtype):
     _close(out, ref.flash_prefill_ref(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=True),
            1e-5 if dtype == "float32" else 3e-2)
+
+
+def test_flash_prefill_kernel_reads_strided_views_at_r5(card):
+    """The model's movedim views at R 5 and head_dim 128: the tensor maps
+    over K and V step the views' own strides, Q rows end inside a
+    position."""
+    rng = np.random.RandomState(4)
+    q = _t(rng.randn(2, 96, 4, 5, 128), "bfloat16", card).movedim(1, 2)
+    k = _t(rng.randn(2, 96, 4, 128), "bfloat16", card).movedim(1, 2)
+    v = _t(rng.randn(2, 96, 4, 128), "bfloat16", card).movedim(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    out = ops.flash_prefill(q, k, v, causal=True)
+    _close(out, ref.flash_prefill_ref(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=True), 3e-2)
 
 
 @pytest.mark.parametrize("kernel", ["paged_attention", "flash_prefill"])

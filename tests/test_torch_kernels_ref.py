@@ -387,6 +387,10 @@ def test_paged_attention_split_plan_refuses_bad_geometry():
                                                    # that tokens 0-1 may see
     (2, 1, 3, 16, 16, 5, 1, 1, [80, 1]),           # one page per split
     (2, 2, 2, 32, 8, 4, 1, None, [32, 5]),         # the wrapper's plan: 1 split
+    (2, 2, 5, 128, 16, 40, 1, None, [600, 257]),   # Qp 5: 3 splits, the last
+                                                   # block's merge in split order
+    (1, 2, 6, 128, 16, 40, 1, None, [640]),        # Qp 6: every split full
+    (2, 1, 7, 128, 8, 64, 1, None, [500, 256]),    # Qp 7, page 8: 2 splits
 ])
 def test_paged_attention_split_ref_matches_oracles(B, KV, Qp, hd, page, maxp,
                                                    qt, pps, ctx):
@@ -409,6 +413,13 @@ def test_paged_attention_split_ref_matches_oracles(B, KV, Qp, hd, page, maxp,
     (1, 2, 64, 2, 64, 64, True, 16, 0),     # sliding window
     (1, 1, 48, 3, 16, 112, True, 0, 64),    # head_dim 16, prefix offset
     (1, 2, 70, 1, 32, 70, False, 0, 0),     # non-causal
+    (1, 1, 160, 5, 64, 160, True, 0, 0),    # R 5: 64-row groups end inside
+    (1, 1, 160, 5, 128, 160, True, 0, 0),   # a position; two 128-key tiles
+    (1, 1, 150, 6, 64, 150, True, 0, 0),    # R 6
+    (1, 1, 150, 6, 128, 150, True, 0, 0),
+    (1, 1, 140, 8, 64, 140, True, 0, 0),    # R 8
+    (1, 1, 140, 8, 128, 140, True, 0, 0),
+    (1, 1, 100, 5, 128, 300, True, 64, 200),  # R 5, window past an offset
 ])
 def test_flash_prefill_tc_emulation_rounds_once(B, G, S, R, hd, T, causal,
                                                 window, qoff):
@@ -429,6 +440,62 @@ def test_flash_prefill_tc_emulation_rounds_once(B, G, S, R, hd, T, causal,
                                    q_offset=qoff)
     lim = 2.0 ** -8 * want32.abs() + 2e-5
     assert bool(((out.float() - want32).abs() <= lim).all())
+
+
+def test_flash_prefill_tc_emulation_matches_the_pallas_kernel_at_r5():
+    """The wgmma kernel's arithmetic (128-key tiles, 64-row groups that end
+    inside a position at R 5) against the JAX Pallas kernel in interpret
+    mode on the same bf16 inputs, at the bf16 tolerance, and rounded once."""
+    B, G, S, R, hd, T, qoff = 1, 1, 64, 5, 128, 256, 192
+    rng = np.random.RandomState(17)
+    q = rng.randn(B, G, S, R, hd).astype(np.float32)
+    k = rng.randn(B, G, T, hd).astype(np.float32)
+    v = rng.randn(B, G, T, hd).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(x, "bfloat16") for x in (q, k, v))
+    out = ref.flash_prefill_tc_emulation(qt, kt, vt, causal=True,
+                                         q_offset=qoff)
+    _close(out, jax_flash_prefill(qj, kj, vj, causal=True, q_offset=qoff,
+                                  q_block=32, kv_block=128, interpret=True),
+           3e-2)
+    want32 = ref.flash_prefill_ref(qt.float(), kt.float(), vt.float(),
+                                   causal=True, q_offset=qoff)
+    lim = 2.0 ** -8 * want32.abs() + 2e-5
+    assert bool(((out.float() - want32).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("dtype,hd,rows", [
+    ("bfloat16", 128, 128), ("bfloat16", 64, 128), ("bfloat16", 32, 64),
+    ("bfloat16", 16, 64), ("float32", 128, 64), ("float32", 64, 64),
+])
+def test_flash_prefill_grid_follows_the_kernel_choice(dtype, hd, rows):
+    """The grid the launcher uses: 128 packed rows per block for the wgmma
+    kernel (bf16 at hd 64 and 128), 64 for the others; at S = 32,768 and
+    R = 2 its second dim stays under CUDA's 65535."""
+    from repro_torch.kernels import flash_prefill
+
+    td = DTYPES[dtype][1]
+    assert flash_prefill.block_rows(td, hd) == rows
+    q = torch.empty((2, 8, 77, 5, hd), dtype=td)
+    assert flash_prefill.grid(q) == (16, -(-(77 * 5) // rows))
+    assert flash_prefill.grid(torch.empty((1, 8, 32768, 2, hd), dtype=td))[1] \
+        <= 65535
+
+
+def test_paged_attention_arrival_counters_grow_zeroed():
+    """The wrapper's per-device arrival counters: at least the asked count,
+    all zero; the same buffer while it is large enough, a new zeroed one
+    when a call needs more."""
+    from repro_torch.kernels import paged_attention
+
+    dev = torch.device("cpu")
+    paged_attention._counters.pop(dev.index, None)
+    a = paged_attention.arrival_counters(dev, 16)
+    assert a.dtype == torch.int32 and a.numel() == 16 and not a.any()
+    assert paged_attention.arrival_counters(dev, 8) is a
+    b = paged_attention.arrival_counters(dev, 64)
+    assert b is not a and b.numel() == 64 and not b.any()
+    assert paged_attention.arrival_counters(dev, 64) is b
+    paged_attention._counters.pop(dev.index, None)
 
 
 # --------------------------------------------------------------------------
