@@ -17,9 +17,9 @@ Phases (each raises on failure; none catches its own):
                serve's 8-token pages), bf16 and f32, TF32 off; each bf16 output
                also within half a bf16 ulp of the plain version's f32 result.
                Which kernel serves which dtype: flash_prefill bf16 runs on
-               the tensor cores (wgmma on a TMA-fed ring at hd 64 and 128,
-               mma.sync at 16 and 32; P split into bf16 hi + lo), f32 on the
-               SIMT kernel; paged_attention is one split-KV launch for both
+               wgmma on a TMA-fed ring at hd 64 and 128 (P split into bf16
+               hi + lo), on the SIMT kernel at 16 and 32, f32 on the SIMT
+               kernel; paged_attention is one split-KV launch for both
                (K/V by TMA, the splits merged by the last block of each
                sequence and kv slot); rwkv6_chunk takes bf16 or
                f32 r/k/v with f32 state. rwkv6_chunk one chunk per launch

@@ -10,13 +10,13 @@ q, k and v may be strided views (the model hands over ``movedim`` views of
 its ``[B, S, G, ...]`` projections); only the head dim must be contiguous.
 The output is a new contiguous ``[B, G, S, R, hd]`` tensor in q's dtype.
 
-The library holds three kernels and the C launcher picks one by dtype and
+The library holds two kernels and the C launcher picks one by dtype and
 head dim: bfloat16 at head dims 64 and 128 (every model path) runs ``wgmma``
 on a ring of K/V tiles that TMA fills from tensor maps over the views' own
-strides, 128 packed q rows per block; bfloat16 at 16 and 32 runs
-``mma.sync``, 64 rows per block (both split P into bf16 hi + lo for P V, so
-the output is the f32 result rounded once); float32 runs the SIMT kernel in
-full f32, 64 rows per block. ``grid`` gives the launch's grid. No workspace.
+strides, 128 packed q rows per block (P split into bf16 hi + lo for P V, so
+the output is the f32 result rounded once); float32, and bfloat16 at 16 and
+32 (test widths), run the SIMT kernel in full f32, 64 rows per block.
+``grid`` gives the launch's grid. No workspace.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
-entry module of the spawned gloo ranks import neither jax nor anything of
-the JAX package ``repro``; a real serve (a dense,
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``,
+``tools/kernel_ab.py`` and the entry module of the spawned gloo ranks import
+neither jax nor anything of the JAX package ``repro``; a real serve (a dense,
 an MoE and a hybrid smoke model), a simulated multi-replica replay with a
 crash, a planned real serve and a training run with a checkpoint run with
 jax blocked; and the entry points never fall back to the CPU on their own."""
@@ -29,7 +29,8 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_or_repro_imports():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tools" / "kernel_ab.py"]
     assert len(files) > 30
     for mod in ("models/moe.py", "models/hymba.py", "models/whisper.py",
                 "training/__init__.py", "training/optimizer.py",

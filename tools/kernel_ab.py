@@ -1,0 +1,216 @@
+"""Time the attention kernels of two checkouts of this repo on one card.
+
+    python3 tools/kernel_ab.py --tree parent=build/parent --tree change=. \
+        --order parent,change,change,parent [--out chiprun_out/kernel_ab.json]
+
+Each run is a process of its own: it imports one checkout's ``repro_torch``
+(whose kernels build into that checkout's ``build/kernels``) and takes its
+inputs, timers and serve trace from this checkout's ``chip_smoke.py``. A run
+records, for qwen3-1.7b's attention shapes and ``chip_smoke.ATTN_SHAPES``:
+
+- each kernel's device time (``cuda_time_ms``) and host issue time per call
+  (the median of 7 repeats of ``host_issue_ms`` over 50 calls): the
+  wrapper's checks, allocations, launches, and in a checkout whose kernels
+  load by TMA the encoding of two tensor maps;
+- the host time of one ``cuTensorMapEncodeTiled`` call of the driver (median
+  of 7 repeats of 1000) at the decode pool's map, the one the paged kernel
+  encodes twice per call;
+- the wall of qwen3-1.7b's paged serve (serial loop, random weights from
+  seed 0, ``chip_smoke.serve_trace``; one warm-up serve, then 2 timed), its
+  decode steps, batches and token streams.
+
+Runs go in the order given, so parent, change, change, parent brackets the
+card's drift. Prints each run's record and, last, a JSON object with all of
+them and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _bind_checkout(src: Path):
+    """Import ``repro_torch`` from ``src``, then this checkout's chip_smoke:
+    its own ``repro_torch`` imports resolve to the package already bound."""
+    sys.path.insert(0, str(src))
+    import repro_torch.kernels.ops  # noqa: F401
+
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+
+    got = Path(cs.ops.__file__).resolve()
+    if src.resolve() not in got.parents:
+        raise RuntimeError(f"chip_smoke bound {got}, not {src}")
+    return cs
+
+
+def _median_issue(cs, fn) -> float:
+    return statistics.median(cs.host_issue_ms(fn, n=50) for _ in range(7))
+
+
+def _encode_us(pool) -> float:
+    """Host microseconds of one cuTensorMapEncodeTiled over ``pool`` [P,
+    page, KV, hd] as the paged kernel maps it: (hd, KV, page, P), box (hd,
+    1, page, 1), no swizzle."""
+    import torch
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    fn = lib.cuTensorMapEncodeTiled
+    u64p, u32p = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                   ctypes.c_void_p, u64p, u64p, u32p, u32p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    P, page, KV, hd = pool.shape
+    es = pool.element_size()
+    u64x4, u64x3, u32x4 = (ctypes.c_uint64 * 4, ctypes.c_uint64 * 3,
+                           ctypes.c_uint32 * 4)
+    dims = u64x4(hd, KV, page, P)
+    strides = u64x3(hd * es, KV * hd * es, page * KV * hd * es)
+    box, ones = u32x4(hd, 1, page, 1), u32x4(1, 1, 1, 1)
+    raw = ctypes.create_string_buffer(128 + 64)   # CUtensorMap: 64-aligned
+    addr = ctypes.addressof(raw)
+    tmap = ctypes.c_void_p(addr + (-addr) % 64)
+    dtype = {torch.bfloat16: 9, torch.float32: 7}[pool.dtype]
+    # interleave none, swizzle none, L2 promotion 256B, out-of-bounds fill none
+    args = (tmap, dtype, 4, ctypes.c_void_p(pool.data_ptr()), dims, strides,
+            box, ones, 0, 0, 3, 0)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"cuTensorMapEncodeTiled: CUresult {rc}")
+    n, reps = 1000, []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        reps.append((time.perf_counter() - t0) / n * 1e6)
+    return statistics.median(reps)
+
+
+def _serve(cs, model, params, trace) -> dict:
+    import torch
+    from repro_torch.serving import build_real_engine
+
+    _, max_slots, _ = cs.SERVE["qwen3-1.7b"]
+    engine = build_real_engine("qwen3-1.7b", "relserve", "paged",
+                               model=copy.copy(model), params=params,
+                               max_slots=max_slots, max_len=1024,
+                               engine_loop="serial", device="cuda")
+    trace = copy.deepcopy(trace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_trace(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ex = engine.executor
+    out = {"wall_s": wall, "decode_steps": len(ex.decode_samples),
+           "batches": len(ex.decode_samples) + len(ex.prefill_samples),
+           "streams": [list(r.output_tokens) for rq in trace
+                       for r in rq.requests]}
+    del engine, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def worker(src: Path) -> dict:
+    cs = _bind_checkout(src)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.build.build()
+    ops, dt = cs.ops, torch.bfloat16
+    rec = {"src": str(src), "paged": {}, "prefill": {}}
+    shapes = [("qwen3-1.7b KV 8 Qp 2 hd 128", 8, 2, 128)] + cs.ATTN_SHAPES
+    for label, KV, R, hd in shapes:
+        args = cs.paged_inputs(dt, KV=KV, Qp=R, hd=hd)
+        rec["paged"][label] = {
+            "ms": cs.cuda_time_ms(lambda: ops.paged_attention(*args)),
+            "host_issue_ms": _median_issue(
+                cs, lambda: ops.paged_attention(*args))}
+        q, k, v = cs.prefill_inputs(dt, G=KV, R=R, hd=hd)
+        rec["prefill"][label] = {
+            "ms": cs.cuda_time_ms(
+                lambda: ops.flash_prefill(q, k, v, causal=True)),
+            "host_issue_ms": _median_issue(
+                cs, lambda: ops.flash_prefill(q, k, v, causal=True))}
+    rec["encode_us"] = _encode_us(cs.paged_inputs(dt)[1])
+    _, model, params = cs.full_model("qwen3-1.7b")
+    trace = cs.serve_trace()
+    _serve(cs, model, params, trace)   # warm-up: cuBLAS, allocator
+    rec["serves"] = [_serve(cs, model, params, trace) for _ in range(2)]
+    return rec
+
+
+def smi() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi: {e}"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="name=path of a checkout (repeat)")
+    ap.add_argument("--order", help="comma-separated names, in run order")
+    ap.add_argument("--out", help="write the JSON here too")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.worker:
+        print("RECORD " + json.dumps(worker(Path(a.worker))), flush=True)
+        return
+    trees = dict(t.split("=", 1) for t in a.tree)
+    order = a.order.split(",") if a.order else list(trees)
+    runs = []
+    for name in order:
+        src = Path(trees[name]).resolve() / "src"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, __file__, "--worker", str(src)],
+                             capture_output=True, text=True,
+                             env=dict(os.environ, PYTHONPATH=""))
+        sys.stderr.write(res.stderr[-4000:])
+        if res.returncode != 0:
+            raise SystemExit(f"run {name}: exit {res.returncode}")
+        line = [x for x in res.stdout.splitlines() if x.startswith("RECORD ")][-1]
+        rec = dict(json.loads(line[len("RECORD "):]), name=name,
+                   seconds=time.perf_counter() - t0)
+        runs.append(rec)
+        brief = {k: {s: {m: round(x, 4) for m, x in v.items()}
+                     for s, v in rec[k].items()} for k in ("paged", "prefill")}
+        print(f"[ab] {name}: encode {rec['encode_us']:.3f} us; serve walls "
+              f"{[round(s['wall_s'], 4) for s in rec['serves']]} s, "
+              f"{rec['serves'][0]['decode_steps']} decode steps; {brief}",
+              flush=True)
+    # token streams of each serve against the first run's first serve
+    first = runs[0]["serves"][0]["streams"]
+    for rec in runs:
+        for s in rec["serves"]:
+            s["streams_equal_to_first"] = sum(
+                x == y for x, y in zip(s["streams"], first)) / len(first)
+    out = {"card": smi(), "runs": runs}
+    if a.out:
+        Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(a.out).write_text(json.dumps(out, indent=1))
+    for rec in runs:
+        for s in rec["serves"]:
+            del s["streams"]
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()
