@@ -8,8 +8,9 @@ Phases (each raises on failure; none catches its own):
                for sm_90a, one process each, in parallel; prints ptxas'
                registers / shared memory / spills, each library's lines of
                wgmma (HGMMA), TMA loads (UTMALDG) and mma.sync (HMMA) in its
-               SASS from cuobjdump ("not measured" without it; flash_prefill
-               must show HGMMA and UTMALDG, paged_attention UTMALDG), and
+               SASS from cuobjdump ("not measured" without it; every
+               library must show UTMALDG, flash_prefill HGMMA, rwkv6_chunk
+               HMMA), and
                each kernel instance's registers, shared memory and resident
                blocks per SM from the library's own occupancy query
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
@@ -22,13 +23,15 @@ Phases (each raises on failure; none catches its own):
                kernel; paged_attention is one split-KV launch for both
                (K/V by TMA, the splits merged by the last block of each
                sequence and kv slot); rwkv6_chunk takes bf16 or
-               f32 r/k/v with f32 state. rwkv6_chunk one chunk per launch
-               at c = 16 / 32 / 64 and through strided chunk views; one
-               launch per layer (every chunk of [1, 256], [1, 1024],
-               [1, 4096] at c = 32, a padded row, views cut from wider
-               projections, f32) against the chained plain version and
-               against chained one-chunk launches; 4 chunks, chained and
-               in one launch, against the sequential oracle. Both attention
+               f32 r/k/v with f32 state; it is one call of two launches,
+               a chunk-parallel pass and the state carry. rwkv6_chunk one
+               chunk per call at c = 16 / 32 / 64 and through strided chunk
+               views; one call per layer (every chunk of [1, 256],
+               [1, 1024], [1, 4096] at c = 32, [1, 12288] at c = 64, a
+               padded row, views cut from wider projections, f32) against
+               the chained plain version and, bit for bit, against chained
+               one-chunk calls; 4 chunks, chained and in one call, against
+               the sequential oracle. Both attention
                kernels also at the other paged models' shapes (granite-moe:
                3 q rows per kv slot, head_dim 64; qwen3-moe: 8 rows,
                qwen2.5-32b: 5, internvl2-26b: 6, head_dim 128), and rwkv6-7b's WKV call through the model at S 1000 and
@@ -62,8 +65,9 @@ Phases (each raises on failure; none catches its own):
                and in bf16 at 32 layers each layer's time mix on its own,
                teacher-forced (output and state, kernel vs plain)
   9. rwkv6   — the dense engine serving the same trace, serial then pipelined
-     serve     (rwkv6_chunk, one launch per layer per prefill call); the two
-               runs' streams must be identical
+     serve     (rwkv6_chunk, one call per layer per prefill call); the two
+               runs' streams must be identical; the (B, S, chunk) of every
+               rwkv6_chunk call is counted (timed in phase 24)
  10. rwkv6   — one more serial serve, a window of its batches profiled as
      profile   in phase 6
  11. granite — full-width, full-depth granite-moe-3b-a800m (40 experts, top 8):
@@ -167,13 +171,16 @@ Phases (each raises on failure; none catches its own):
                take (bytes / 3.35 TB/s, flops / 989 TFLOP/s in bf16 or
                67 TFLOP/s in f32 without tensor cores); the attention
                kernels also at the MoE models' shapes; rwkv6_chunk at one
-               layer's call, beside the same work as one-chunk launches, its
-               host issue time, and one chunk alone
+               layer's call, beside the same work as one-chunk calls, its
+               host issue time, and one chunk alone; then at [1, 4096] c 32,
+               [1, 12288] c 64 and every (B, S, chunk) of phase 9's serve,
+               each with its bound and host issue time
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import ctypes
@@ -232,6 +239,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12       # dense TF32 tensor-core peak
 # tolerances of tests/test_kernels.py: f32 1e-5; bf16 2e-2 (paged), 3e-2
 # (prefill); rwkv6_chunk 5e-4 (one chunk), 1e-3 (a chain against the oracle)
 TOL = {("paged_attention", torch.float32): 1e-5,
@@ -615,6 +623,9 @@ def rwkv_layer_inputs(dtype, *, B=1, S=256, lens=None, cut=False, seed=5):
     return r, k, v, logw, u, s0
 
 
+# (B, S, chunk) of one rwkv6-7b layer's WKV call timed beside the serve's own
+RWKV_TIME_SHAPES = [(1, 256, 16), (1, 4096, 32), (1, 12288, 64)]
+
 RWKV_LAYER_CASES = [   # (label, input kwargs, chunk, lens): one launch per layer
     ("layer [1,256,64,64] bf16", {"dtype": torch.bfloat16}, 16, None),
     ("max_len [1,1024] bf16", {"dtype": torch.bfloat16, "S": 1024}, 16, None),
@@ -624,6 +635,7 @@ RWKV_LAYER_CASES = [   # (label, input kwargs, chunk, lens): one launch per laye
     ("[4,512] views cut from wider projections",
      {"dtype": torch.bfloat16, "B": 4, "S": 512, "cut": True}, 16, None),
     ("all f32 [1,256]", {"dtype": torch.float32}, 16, None),
+    ("192 chunks [1,12288]", {"dtype": torch.bfloat16, "S": 12288}, 64, None),
 ]
 
 
@@ -701,12 +713,16 @@ def phase_build() -> None:
         log(f"[build] {b.name}: SASS lines with "
             + ("not measured (no cuobjdump)" if n is None else
                ", ".join(f"{op} {n[op]}" for op in SASS_OPS)))
-        # the attention kernels load K and V by TMA; flash_prefill's products
-        # run on wgmma (HGMMA), which a count of HMMA would not see
+        # every kernel loads its tiles by TMA; flash_prefill's products run
+        # on wgmma (HGMMA), which a count of HMMA would not see; rwkv6_chunk's
+        # A v, k^T v and r~ S on mma.sync (HMMA)
         if b.name == "flash_prefill" and n is not None:
             check(n["HGMMA"] > 0, "flash_prefill's library has no wgmma "
                                   "instruction (HGMMA)")
-        if b.name in ("flash_prefill", "paged_attention") and n is not None:
+        if b.name == "rwkv6_chunk" and n is not None:
+            check(n["HMMA"] > 0, "rwkv6_chunk's library has no mma.sync "
+                                 "instruction (HMMA)")
+        if n is not None:
             check(n["UTMALDG"] > 0, f"{b.name}'s library has no TMA load "
                                     f"(UTMALDG)")
         for inst in occupancy(b.name):
@@ -876,9 +892,11 @@ def rwkv_kernel_checks() -> float:
         assert_chain_close(f"state {label} c={chunk}", s, want_s)
         chain_o, chain_s = chained_launches(*args, chunk, f32)
         torch.cuda.synchronize()
-        log(f"  {name} {label}: one launch vs {args[0].shape[1] // chunk} "
-            f"chained one-chunk launches: o {max_err(o, chain_o):.3e}, state "
-            f"{max_err(s, chain_s):.3e} (expected 0)")
+        log(f"  {name} {label}: one call vs {args[0].shape[1] // chunk} "
+            f"chained one-chunk calls: o {max_err(o, chain_o):.3e}, state "
+            f"{max_err(s, chain_s):.3e} (bit for bit)")
+        check(torch.equal(o, chain_o) and torch.equal(s, chain_s),
+              f"{name} {label}: one call differs from chained one-chunk calls")
         if err is None:
             err = e
     # B=4 through strided chunk views of [4, 64, 64, 64] projections
@@ -1713,9 +1731,12 @@ def time_prefill(dt, label: str, **shape) -> dict:
             "library_ms": lib, "host_issue_ms": issue}
 
 
-def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
+def phase_times(errs: dict, paths: dict, flash_32k: dict,
+                rwkv_shapes: collections.Counter) -> list:
     """The kernels' record at the main-path (qwen3-1.7b) inputs of phase 3;
-    the attention kernels are also timed at ATTN_SHAPES (``by_shape``).
+    the attention kernels are also timed at ATTN_SHAPES (``by_shape``),
+    rwkv6_chunk at the long buckets and at ``rwkv_shapes``, the (B, S,
+    chunk) counts of the rwkv6 serve's calls (``by_shape``).
     ``paths``: each serve's own launch counts (counters set to 0 before it
     and read after it); a record's ``launches`` is their sum and
     ``launches_by_path`` splits it. flash_prefill's record also carries its
@@ -1746,45 +1767,90 @@ def phase_times(errs: dict, paths: dict, flash_32k: dict) -> list:
     # 64] in chunks of 16, logw / u / state f32, o f32
     f32 = torch.float32
     args = rwkv_layer_inputs(torch.bfloat16)
-    r, k, v, logw, u, s0 = args
-    B, S, H, K = r.shape
-    V = v.shape[3]
-    c = 16
-    outs = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c)
-    nbytes = (sum(x.numel() * x.element_size() for x in args)
-              + sum(x.numel() * x.element_size() for x in outs))
-    pairs = c * (c - 1) // 2
-    flops = B * H * (S // c) * (4 * c * K * V         # rd @ S and ks^T v
-                                + c * (c + 1) * V     # A @ v, lower triangle
-                                + 4 * pairs * K       # decayed products of A
-                                + 3 * c * K + K * V)  # diagonal, decay of S
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    bound = max(t_ops, t_bytes) * 1e3
-    ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c))
+    S, c = args[0].shape[1], 16
+    rec = time_rwkv(args, c)
     chained = cuda_time_ms(lambda: chained_launches(*args, c, f32))
     # ~30 launches per chunk: too many to queue ahead of the device
     plain = cuda_time_ms(lambda: ref.rwkv6_chunk_plain(*args, out_dtype=f32,
                                                        chunk=c),
                          iters=5, warmup=1, queued=False)
-    issue = host_issue_ms(lambda: ops.rwkv6_chunk(*args, out_dtype=f32,
-                                                  chunk=c))
     one = rwkv_inputs(torch.bfloat16)    # one chunk [1, 16, 64, 64] alone
     one_ms = cuda_time_ms(lambda: ops.rwkv6_chunk(*one, out_dtype=f32))
-    log(f"[times] rwkv6_chunk r={list(r.shape)} bf16 c={c}, o f32 (one layer's "
-        f"call): kernel {ms:.4f} ms, the same work as {S // c} one-chunk "
-        f"launches {chained:.4f} ms, plain {plain:.4f} ms (not queued: with "
-        f"the host's gaps), bound {bound:.4f} ms "
-        f"(flops {flops}, bytes {nbytes}), library null; host issue "
-        f"{issue:.4f} ms per call; one chunk r=[1, 16, 64, 64]: {one_ms:.4f} ms")
+    log(f"[times] rwkv6_chunk r={list(args[0].shape)} bf16 c={c}, o f32 (one "
+        f"layer's call): kernel {rec['ms']:.4f} ms, the same work as {S // c} "
+        f"one-chunk calls {chained:.4f} ms, plain {plain:.4f} ms (not queued: "
+        f"with the host's gaps), bound {rec['bound_ms']:.4f} ms, library "
+        f"null; host issue {rec['host_issue_ms']:.4f} ms per call; one chunk "
+        f"r=[1, 16, 64, 64]: {one_ms:.4f} ms")
+    # the long buckets, and every (B, S, chunk) the rwkv6 serve called with
+    shapes = RWKV_TIME_SHAPES[1:] + sorted(rwkv_shapes)
+    by_shape = {}
+    for B, Sx, cx in dict.fromkeys(shapes):
+        r = time_rwkv(rwkv_layer_inputs(torch.bfloat16, B=B, S=Sx), cx)
+        label = f"B={B} S={Sx} c={cx}"
+        r["serve_calls"] = rwkv_shapes.get((B, Sx, cx), 0)
+        log(f"[times] rwkv6_chunk {label} ({r['serve_calls']} calls in the "
+            f"serve): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), host issue {r['host_issue_ms']:.4f} ms")
+        by_shape[label] = r
     out.append({"name": "rwkv6_chunk", "route": "cuda",
                 "source": SOURCES["rwkv6_chunk"],
                 "replaces": REPLACES["rwkv6_chunk"],
                 **launches("rwkv6_chunk"),
-                "max_abs_err": errs["rwkv6_chunk"], "ms": ms,
-                "plain_ms": plain, "bound_ms": bound,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None})
+                "max_abs_err": errs["rwkv6_chunk"], "ms": rec["ms"],
+                "plain_ms": plain, "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None,
+                "host_issue_ms": rec["host_issue_ms"], "by_shape": by_shape})
     return out
+
+
+def time_rwkv(args, c: int) -> dict:
+    """rwkv6_chunk on ``args`` in chunks of ``c``, o f32: device and host
+    issue time per call, and the bound: the bytes of the inputs read and the
+    outputs written once (the workspace is the kernel's own), or the
+    operations the chunked form needs at the rate of the unit that runs
+    them. The products r~ S, k~^T v and A v run on the tensor cores in
+    3xTF32: three TF32 products per f32 product, two where v is bf16 (exact
+    in TF32). A's decayed products, its diagonal and the decay of S run on
+    f32 FMAs."""
+    f32 = torch.float32
+    outs = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c)
+    r = args[0]
+    B, S, H, K = r.shape
+    V = args[2].shape[3]
+    nbytes = (sum(x.numel() * x.element_size() for x in args)
+              + sum(x.numel() * x.element_size() for x in outs))
+    pairs = c * (c - 1) // 2
+    per_v = 2 if args[2].dtype == torch.bfloat16 else 3
+    n = B * H * (S // c)
+    tensor = n * (2 * c * K * V * 3                     # r~ @ S
+                  + (2 * c * K * V                      # k~^T v
+                     + c * (c + 1) * V) * per_v)        # A @ v, lower triangle
+    fma = n * (4 * pairs * K                            # decayed products of A
+               + 3 * c * K + K * V)                     # diagonal, decay of S
+    flops = n * (4 * c * K * V + c * (c + 1) * V) + fma
+    t_ops = tensor / TF32_FLOPS_PER_S + fma / F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    fn = lambda: ops.rwkv6_chunk(*args, out_dtype=f32, chunk=c)  # noqa: E731
+    return {"ms": cuda_time_ms(fn), "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "host_issue_ms": host_issue_ms(fn)}
+
+
+@contextlib.contextmanager
+def record_rwkv_shapes(shapes: collections.Counter):
+    """Count the (B, S, chunk) of every ops.rwkv6_chunk call made inside."""
+    call = ops.rwkv6_chunk
+
+    def counted(r, *args, chunk=None, **kw):
+        shapes[(r.shape[0], r.shape[1], chunk or r.shape[1])] += 1
+        return call(r, *args, chunk=chunk, **kw)
+
+    ops.rwkv6_chunk = counted
+    try:
+        yield shapes
+    finally:
+        ops.rwkv6_chunk = call
 
 
 def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
@@ -2997,7 +3063,11 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     phase_layers_rwkv(cfg, model, params)
     phase_model_rwkv(cfg, model, params, None)
     t = lap("rwkv6 model bf16", t)
-    paths["rwkv6 serve"] = phase_serve(model, params, exact=True)
+    rwkv_shapes = collections.Counter()
+    with record_rwkv_shapes(rwkv_shapes):
+        paths["rwkv6 serve"] = phase_serve(model, params, exact=True)
+    log("[serve] rwkv6-7b rwkv6_chunk calls by (B, S, chunk): " + ", ".join(
+        f"{key}: {n}" for key, n in sorted(rwkv_shapes.items())))
     t = lap("rwkv6 serve", t)
     phase_profile(model, params)
     t = lap("rwkv6 profile", t)
@@ -3028,7 +3098,7 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     paths["cells"], flash_32k = phase_cells()
     t = lap("cells", t)
 
-    kernels = phase_times(errs, paths, flash_32k)
+    kernels = phase_times(errs, paths, flash_32k, rwkv_shapes)
     lap("times", t)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())

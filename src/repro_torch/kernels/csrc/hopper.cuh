@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: mbarrier
-// waits, TMA tile loads from tensor maps, wgmma descriptors and products,
-// register rebalancing between warpgroups, and tensor-map encoding on the
-// host. Raw PTX, as the PTX ISA (9.7.9.25 cp.async.bulk.tensor, 9.7.13.15
-// mbarrier, 9.7.15 wgmma) defines each instruction; no CUTLASS or CuTe.
+// Hopper (sm_90a) building blocks shared by the kernels of this directory:
+// mbarrier waits, TMA tile loads from tensor maps and contiguous bulk
+// copies, wgmma descriptors and products, register rebalancing between
+// warpgroups, and tensor-map encoding on the host. Raw PTX, as the PTX ISA
+// (9.7.9.25 cp.async.bulk(.tensor), 9.7.13.15 mbarrier, 9.7.15 wgmma)
+// defines each instruction; no CUTLASS or CuTe.
 #pragma once
 
 #include <stdint.h>
@@ -76,6 +77,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
+// from global into shared memory by the TMA unit, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -13,11 +13,13 @@
 The CPU tests run them, ``chip_smoke.py`` holds the CUDA kernels against them
 on the card, and ``ops`` dispatches to them for CPU tensors.
 
-Two more rehearse the CUDA kernels' own arithmetic on the CPU, and run on no
-path (the CPU tests hold them to the oracles above):
+Three more rehearse the CUDA kernels' own arithmetic on the CPU, and run on
+no path (the CPU tests hold them to the oracles above):
 - ``flash_prefill_tc_emulation``: the bf16 wgmma prefill kernel.
 - ``paged_attention_split_ref``: the split-KV decode kernel's partials and
   their log-sum-exp merge.
+- ``rwkv6_chunk_split_emulation``: the WKV kernel's two passes, every
+  chunk's own terms first, then the state carry and the outputs.
 """
 from __future__ import annotations
 
@@ -179,15 +181,16 @@ def flash_prefill_tc_emulation(q, k, v, *, causal=True, q_offset=0, window=0,
     return out.reshape(B, G, S, R, hd).to(q.dtype)
 
 
-def _wkv6_one_chunk(r, k, v, logw, u, state):
-    """One chunk of the WKV6 recurrence in float32 -> (o f32, new state)."""
+def _wkv6_chunk_terms(r, k, v, logw, u):
+    """What one chunk of the WKV6 recurrence needs of its own inputs only,
+    in float32: (r * exp(lde) [B, c, H, K], A @ v [B, c, H, V],
+    d_total = exp(ldi[-1]) [B, H, K], U = (k * exp(ldi[-1] - ldi))^T v
+    [B, H, K, V])."""
     r, k, v, logw, u = (x.float() for x in (r, k, v, logw, u))
-    state = state.float()
     c = r.shape[1]
     ldi = torch.cumsum(logw, dim=1)              # inclusive decay log-sums
     lde = ldi - logw                             # exclusive
-    # inter-chunk: the carried state's contribution
-    o_inter = torch.einsum("bthk,bhkv->bthv", r * torch.exp(lde), state)
+    r_dec = r * torch.exp(lde)
     # intra-chunk: A[t,j] = sum_k r[t,k] k[j,k] exp(lde[t]-ldi[j]), j < t
     diff = lde[:, :, None] - ldi[:, None, :]     # [B, t, j, H, K]
     tri = (torch.arange(c, device=r.device)[:, None]
@@ -196,13 +199,28 @@ def _wkv6_one_chunk(r, k, v, logw, u, state):
     A = torch.einsum("bthk,bjhk,btjhk->bthj", r, k, w_decay)
     diag = torch.einsum("bthk,bthk,hk->bth", r, k, u)
     A = A + torch.eye(c, device=r.device)[None, :, None, :] * diag[..., None]
-    o = o_inter + torch.einsum("bthj,bjhv->bthv", A, v)
+    av = torch.einsum("bthj,bjhv->bthv", A, v)
     # state update: S' = diag(d_total) S + sum_j (k_j exp(ldi[-1]-ldi[j])) v_j^T
     d_total = torch.exp(ldi[:, -1])              # [B, H, K]
     k_scaled = k * torch.exp(ldi[:, -1][:, None] - ldi)
-    new_state = (state * d_total[..., None]
-                 + torch.einsum("bjhk,bjhv->bhkv", k_scaled, v))
-    return o, new_state
+    return r_dec, av, d_total, torch.einsum("bjhk,bjhv->bhkv", k_scaled, v)
+
+
+def _wkv6_output(r_dec, av, state):
+    """o = (r * exp(lde)) @ S + A @ v, from the carried state S."""
+    return torch.einsum("bthk,bhkv->bthv", r_dec, state) + av
+
+
+def _wkv6_carry(d_total, U, state):
+    """S' = diag(d_total) S + U."""
+    return state * d_total[..., None] + U
+
+
+def _wkv6_one_chunk(r, k, v, logw, u, state):
+    """One chunk of the WKV6 recurrence in float32 -> (o f32, new state)."""
+    r_dec, av, d_total, U = _wkv6_chunk_terms(r, k, v, logw, u)
+    state = state.float()
+    return _wkv6_output(r_dec, av, state), _wkv6_carry(d_total, U, state)
 
 
 def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
@@ -226,6 +244,30 @@ def rwkv6_chunk_plain(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
         outs.append(o)
     o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return o.to(out_dtype), state
+
+
+def rwkv6_chunk_split_emulation(r, k, v, logw, u, state, *, out_dtype=None,
+                                chunk=None):
+    """``rwkv6_chunk_plain``'s function computed in the CUDA kernel's three
+    steps, each with the plain version's per-chunk expressions: the intra
+    pass computes every chunk's own terms (r * exp(lde), A @ v, d_total, U)
+    without the state; the carry walks the chunks, S_n = d_n S_{n-1} + U_n,
+    and is the only serial step; the output pass computes o_n = (r *
+    exp(lde))_n @ S_{n-1} + (A @ v)_n for every chunk from the carried
+    states. Same arguments and results as ``rwkv6_chunk_plain``."""
+    out_dtype = out_dtype or r.dtype
+    S = r.shape[1]
+    c = check_chunk(S, chunk)
+    chunks = [slice(i * c, (i + 1) * c) for i in range(S // c)]
+    terms = [_wkv6_chunk_terms(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u)
+             for sl in chunks]                                    # intra
+    states = [state.float()]
+    for _, _, d_total, U in terms:                                # carry
+        states.append(_wkv6_carry(d_total, U, states[-1]))
+    outs = [_wkv6_output(r_dec, av, s_prev)                       # output
+            for (r_dec, av, _, _), s_prev in zip(terms, states)]
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return o.to(out_dtype), states[-1]
 
 
 def rwkv6_chunk_ref(r, k, v, logw, u, state):

@@ -1,22 +1,25 @@
 """RWKV6 chunked-WKV kernel: the Python side of ``csrc/rwkv6_chunk.cu``
 (CUDA C++ for sm_90a), which replaces the Pallas kernel
-``repro/kernels/rwkv6_chunk.py``. One launch walks every chunk of a
-sequence with the WKV state kept on chip.
+``repro/kernels/rwkv6_chunk.py``. One call per layer: a chunk-parallel pass
+(every chunk's A, A v and k^T v) and the state carry, which walks the chunks
+in order with the WKV state kept on chip.
 
 Layouts:
   r, k, logw [B, S, H, K]; v [B, S, H, V]; u [H, K]; state [B, H, K, V]
   -> o [B, S, H, V], state after the last chunk [B, H, K, V] (float32)
 
 ``S`` is split into chunks of ``chunk`` tokens (``S`` by default: one
-chunk, the Pallas kernel's contract), walked in order; each chunk computes
-what the one-chunk kernel computes, so one launch over n chunks equals n
-chained one-chunk launches bit for bit. r/k/v/logw may be strided views (the
+chunk, the Pallas kernel's contract); each chunk computes what the
+one-chunk kernel computes, so one call over n chunks equals n chained
+one-chunk calls bit for bit. r/k/v/logw may be strided views (the
 model's ``[B, S, H, K]`` projections, or slices of them); only the last dim
-must be contiguous, and every row must start on 16 bytes (the kernel copies
-16 bytes at a time). r, k and v are float32 or bfloat16, all three alike;
+must be contiguous, and every row must start on 16 bytes (the kernel loads
+them by TMA). r, k and v are float32 or bfloat16, all three alike;
 logw is float32 or r's dtype; u and state are contiguous float32. ``o`` is
 written in ``out_dtype``, r's dtype by default as the Pallas kernel writes
-it (the model asks for float32, as its ``wkv6_chunk`` keeps it).
+it (the model asks for float32, as its ``wkv6_chunk`` keeps it). The
+passes hand each chunk's record over through a float32 workspace that the
+wrapper allocates (``rwkv6_chunk_workspace`` floats).
 """
 from __future__ import annotations
 
@@ -31,17 +34,22 @@ CHUNKS = (16, 32, 64)
 MAX_HEAD_DIM = 64
 
 _launch = None
+_workspace = None
 
 
 def _launcher():
-    global _launch
+    global _launch, _workspace
     if _launch is None:
-        fn = build.load("rwkv6_chunk").rwkv6_chunk_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        lib = build.load("rwkv6_chunk")
+        fn = lib.rwkv6_chunk_launch
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _launch = fn
+        ws = lib.rwkv6_chunk_workspace
+        ws.argtypes = [ctypes.c_int] * 6
+        ws.restype = ctypes.c_longlong
+        _launch, _workspace = fn, ws
     return _launch
 
 
@@ -104,21 +112,25 @@ def _check(r, k, v, logw, u, state, out_dtype, chunk):
 
 
 def rwkv6_chunk_cuda(r, k, v, logw, u, state, *, out_dtype=None, chunk=None):
-    """Launch the kernel on the current stream; raises on any input it does
-    not take. Returns (o, state after the last chunk), both new tensors."""
+    """Launch the two passes on the current stream; raises on any input they
+    do not take. Returns (o, state after the last chunk), both new
+    tensors."""
     out_dtype = out_dtype or r.dtype
     c = _check(r, k, v, logw, u, state, out_dtype, chunk)
     B, S, H, K = r.shape
     V = v.shape[3]
     out = torch.empty((B, S, H, V), dtype=out_dtype, device=r.device)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    launch = _launcher()
+    ws = torch.empty(_workspace(B, H, S // c, c, K, V), dtype=torch.float32,
+                     device=r.device)
     strides = [s for x in (r, k, v, logw) for s in x.stride()[:3]]
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                      u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                      s_out.data_ptr(), B, S // c, c, H, K, V, *strides,
-                      _DTYPES[r.dtype], _DTYPES[logw.dtype],
-                      _DTYPES[out_dtype], stream)
+    err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                 u.data_ptr(), state.data_ptr(), out.data_ptr(),
+                 s_out.data_ptr(), ws.data_ptr(), B, S // c, c, H, K, V,
+                 *strides, _DTYPES[r.dtype], _DTYPES[logw.dtype],
+                 _DTYPES[out_dtype], stream)
     if err:
         raise RuntimeError(f"rwkv6_chunk kernel launch failed: CUDA error {err}")
     return out, s_out

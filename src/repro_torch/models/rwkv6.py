@@ -3,9 +3,9 @@ decay. The PyTorch counterpart of ``repro/models/rwkv6.py::RWKV6Model``.
 
 Prefill runs the chunked form of the WKV recurrence over chunks of
 ``_chunk_size(S)`` tokens, carrying a ``[B, H, K, V]`` float32 state: one
-call of ``ops.rwkv6_chunk`` per layer (the hand-written CUDA kernel, one
-launch that walks every chunk, for CUDA tensors; its plain version, a loop
-over the chunks, on the CPU). The kernel takes the chunk lengths of
+call of ``ops.rwkv6_chunk`` per layer (for CUDA tensors the hand-written
+CUDA kernels: a chunk-parallel pass and the state carry; on the CPU their
+plain version, a loop over the chunks). The kernel takes the chunk lengths of
 ``CHUNKS`` only; for any other ``_chunk_size(S)`` the CUDA path walks the
 sequence at ``kernel_chunking(S)`` instead (see ``wkv_padded``). The chunked
 form is exact for any chunk length, so only the float32 rounding differs.

@@ -383,6 +383,9 @@ def _chained_launches(r, k, v, logw, u, state, chunk, out_dtype):
     (4, 512, 16, "bfloat16", None, True),
     (1, 256, 16, "float32", None, False),
     (2, 128, 64, "float32", [128, 50], False),
+    (1, 12288, 64, "bfloat16", None, False),   # 192 chunks of 64
+    (1, 1008, 16, "bfloat16", [1000], False),  # S 1000 padded: 63 chunks
+    (4, 256, 16, "bfloat16", None, False),     # B 4 x H 64
 ])
 def test_rwkv6_chunk_kernel_walks_every_chunk_in_one_launch(card, B, S, chunk,
                                                             dtype, lens, cut):
@@ -399,6 +402,24 @@ def test_rwkv6_chunk_kernel_walks_every_chunk_in_one_launch(card, B, S, chunk,
     chain_o, chain_s = _chained_launches(*args, chunk, f32)
     torch.cuda.synchronize()
     assert torch.equal(o, chain_o) and torch.equal(s, chain_s)
+
+
+def test_rwkv6_chunk_back_to_back_calls_leave_nothing_behind(card):
+    """Two calls of different shapes queued back to back, then each again
+    on its own: equal bit for bit, so no workspace or launch state of one
+    call reaches the next."""
+    f32 = torch.float32
+    first = _rwkv_layer_inputs(card, 1, 256, "bfloat16", seed=11)
+    second = _rwkv_layer_inputs(card, 2, 512, "bfloat16", lens=[512, 300],
+                                seed=12)
+    got = [ops.rwkv6_chunk(*first, out_dtype=f32, chunk=16),
+           ops.rwkv6_chunk(*second, out_dtype=f32, chunk=32),
+           ops.rwkv6_chunk(*first, out_dtype=f32, chunk=16)]
+    torch.cuda.synchronize()
+    fresh = ops.rwkv6_chunk(*second, out_dtype=f32, chunk=32)
+    torch.cuda.synchronize()
+    for x, y in ((got[1], fresh), (got[0], got[2])):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
 
 
 def test_rwkv6_chunk_kernel_one_launch_chain_matches_sequential_oracle(card):

@@ -346,6 +346,52 @@ def test_rwkv6_plain_chunked_matches_loops_of_pallas_and_model_chunks(
         _close_rel(s, js, 1e-5)
 
 
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("B", [1, 3])
+def test_rwkv6_split_emulation_equals_the_plain_chunks_bit_for_bit(c, n, B):
+    """The CUDA kernel's split (every chunk's own terms, then the state carry,
+    then the outputs) computes what the plain chunk loop computes, bit for
+    bit: o in float32 (and bf16 below 16 chunks) and the carried state;
+    masked rows too."""
+    H, K, S = 2, 16, c * n
+    args = _chunk_inputs(B, S, H, K, seed=30 + n + B)
+    args = _padded(args, [S, S - c // 2 - 3, max(1, S // 3)][:B])
+    r, k, v, logw, u, s0 = map(_t, args)
+    for out_dtype in (torch.float32, torch.bfloat16)[:1 if n == 16 else 2]:
+        o, s = ref.rwkv6_chunk_split_emulation(r, k, v, logw, u, s0,
+                                               out_dtype=out_dtype, chunk=c)
+        want_o, want_s = ref.rwkv6_chunk_plain(r, k, v, logw, u, s0,
+                                               out_dtype=out_dtype, chunk=c)
+        assert o.dtype == out_dtype and s.dtype == torch.float32
+        assert torch.equal(o, want_o) and torch.equal(s, want_s)
+
+
+@pytest.mark.parametrize("B,c,n,H,K,padded", [
+    (1, 16, 3, 2, 16, False),
+    (3, 32, 2, 2, 32, True),
+    (1, 64, 2, 1, 64, True),
+])
+def test_rwkv6_split_emulation_matches_loops_of_the_pallas_kernel(
+        B, c, n, H, K, padded):
+    """The split against the Pallas kernel (interpret mode) chained chunk by
+    chunk, at the chain loops' tolerance (1e-5 of the largest value)."""
+    S = c * n
+    args = _chunk_inputs(B, S, H, K, seed=40 + c)
+    if padded:
+        args = _padded(args, [S, S - c - 5, S // 2][:B])
+    r, k, v, logw, u, s0 = args
+    o, s = ref.rwkv6_chunk_split_emulation(*map(_t, args), chunk=c)
+    js, jouts = jnp.asarray(s0), []
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        jo, js = jax_pallas_chunk(*[jnp.asarray(x[:, sl]) for x in (r, k, v, logw)],
+                                  jnp.asarray(u), js, interpret=True)
+        jouts.append(jo)
+    _close_rel(o, jnp.concatenate(jouts, axis=1), 1e-5)
+    _close_rel(s, js, 1e-5)
+
+
 @pytest.mark.parametrize("S,chunk", [(48, 32), (16, 64), (40, 16)])
 def test_rwkv6_ops_refuses_a_chunk_that_does_not_divide_the_sequence(S, chunk):
     args = [_t(a) for a in _chunk_inputs(1, S, 2, 16, seed=5)]

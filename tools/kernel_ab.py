@@ -1,7 +1,8 @@
-"""Time the attention kernels of two checkouts of this repo on one card.
+"""Time the kernels of two checkouts of this repo on one card.
 
     python3 tools/kernel_ab.py --tree parent=build/parent --tree change=. \
         --order parent,change,change,parent [--out chiprun_out/kernel_ab.json]
+    python3 tools/kernel_ab.py ... --rwkv-only --rwkv-shape 1,128,16
 
 Each run is a process of its own: it imports one checkout's ``repro_torch``
 (whose kernels build into that checkout's ``build/kernels``) and takes its
@@ -17,7 +18,14 @@ records, for qwen3-1.7b's attention shapes and ``chip_smoke.ATTN_SHAPES``:
   encodes twice per call;
 - the wall of qwen3-1.7b's paged serve (serial loop, random weights from
   seed 0, ``chip_smoke.serve_trace``; one warm-up serve, then 2 timed), its
-  decode steps, batches and token streams.
+  decode steps, batches and token streams;
+- ``rwkv6_chunk``'s device time and host issue per call (r/k/v bf16 at
+  rwkv6-7b's 64 heads of 64, o f32) at ``chip_smoke.RWKV_TIME_SHAPES`` and
+  each ``--rwkv-shape B,S,chunk``. ``--rwkv-only`` times that and the wall
+  of rwkv6-7b's dense serve, the path that calls it (the same serve, one
+  warm-up, then 5 timed), and nothing else. Each serve also gives the
+  executor's prefill and decode seconds, and there the host seconds spent
+  inside its ``rwkv6_chunk`` calls and their count.
 
 Runs go in the order given, so parent, change, change, parent brackets the
 card's drift. Prints each run's record and, last, a JSON object with all of
@@ -101,20 +109,38 @@ def _serve(cs, model, params, trace) -> dict:
     import torch
     from repro_torch.serving import build_real_engine
 
-    _, max_slots, _ = cs.SERVE["qwen3-1.7b"]
-    engine = build_real_engine("qwen3-1.7b", "relserve", "paged",
+    call, inside = cs.ops.rwkv6_chunk, [0, 0.0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return call(*args, **kw)
+        finally:
+            inside[0] += 1
+            inside[1] += time.perf_counter() - t0
+
+    arch = model.cfg.name
+    backend, max_slots, _ = cs.SERVE[arch]
+    engine = build_real_engine(arch, "relserve", backend,
                                model=copy.copy(model), params=params,
                                max_slots=max_slots, max_len=1024,
                                engine_loop="serial", device="cuda")
     trace = copy.deepcopy(trace)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.run_trace(trace)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    cs.ops.rwkv6_chunk = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_trace(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cs.ops.rwkv6_chunk = call
     ex = engine.executor
     out = {"wall_s": wall, "decode_steps": len(ex.decode_samples),
            "batches": len(ex.decode_samples) + len(ex.prefill_samples),
+           "prefill_s": sum(s for _, s in ex.prefill_samples),
+           "decode_s": sum(s for _, s in ex.decode_samples),
+           "rwkv6_chunk_calls": inside[0], "rwkv6_chunk_host_s": inside[1],
            "streams": [list(r.output_tokens) for rq in trace
                        for r in rq.requests]}
     del engine, ex
@@ -122,16 +148,39 @@ def _serve(cs, model, params, trace) -> dict:
     return out
 
 
-def worker(src: Path) -> dict:
+def _rwkv(cs, shapes) -> dict:
+    import torch
+
+    out = {}
+    for B, S, c in shapes:
+        args = cs.rwkv_layer_inputs(torch.bfloat16, B=B, S=S)
+        fn = lambda: cs.ops.rwkv6_chunk(*args, out_dtype=torch.float32,  # noqa: E731
+                                        chunk=c)
+        out[f"B={B} S={S} c={c}"] = {"ms": cs.cuda_time_ms(fn),
+                                     "host_issue_ms": _median_issue(cs, fn)}
+        del args
+    return out
+
+
+def worker(src: Path, rwkv_shapes, rwkv_only: bool) -> dict:
     cs = _bind_checkout(src)
     import torch
+
+    rwkv_shapes = list(dict.fromkeys(cs.RWKV_TIME_SHAPES + rwkv_shapes))
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.build.build()
     ops, dt = cs.ops, torch.bfloat16
-    rec = {"src": str(src), "paged": {}, "prefill": {}}
+    rec = {"src": str(src), "paged": {}, "prefill": {},
+           "rwkv": _rwkv(cs, rwkv_shapes)}
+    if rwkv_only:
+        cfg, model, params = cs.full_model("rwkv6-7b")
+        trace = cs.serve_trace(cfg.vocab_size - 2)
+        _serve(cs, model, params, trace)   # warm-up: cuBLAS, allocator
+        rec["serves"] = [_serve(cs, model, params, trace) for _ in range(5)]
+        return rec
     shapes = [("qwen3-1.7b KV 8 Qp 2 hd 128", 8, 2, 128)] + cs.ATTN_SHAPES
     for label, KV, R, hd in shapes:
         args = cs.paged_inputs(dt, KV=KV, Qp=R, hd=hd)
@@ -169,10 +218,16 @@ def main() -> None:
                     help="name=path of a checkout (repeat)")
     ap.add_argument("--order", help="comma-separated names, in run order")
     ap.add_argument("--out", help="write the JSON here too")
+    ap.add_argument("--rwkv-shape", action="append", default=[],
+                    help="B,S,chunk of an rwkv6_chunk call to time (repeat)")
+    ap.add_argument("--rwkv-only", action="store_true",
+                    help="time rwkv6_chunk and the rwkv6-7b serve only")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
-        print("RECORD " + json.dumps(worker(Path(a.worker))), flush=True)
+        extra = [tuple(int(x) for x in sh.split(",")) for sh in a.rwkv_shape]
+        print("RECORD " + json.dumps(worker(Path(a.worker), extra,
+                                            a.rwkv_only)), flush=True)
         return
     trees = dict(t.split("=", 1) for t in a.tree)
     order = a.order.split(",") if a.order else list(trees)
@@ -180,8 +235,10 @@ def main() -> None:
     for name in order:
         src = Path(trees[name]).resolve() / "src"
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, __file__, "--worker", str(src)],
-                             capture_output=True, text=True,
+        flags = [f"--rwkv-shape={sh}" for sh in a.rwkv_shape]
+        flags += ["--rwkv-only"] if a.rwkv_only else []
+        res = subprocess.run([sys.executable, __file__, "--worker", str(src),
+                              *flags], capture_output=True, text=True,
                              env=dict(os.environ, PYTHONPATH=""))
         sys.stderr.write(res.stderr[-4000:])
         if res.returncode != 0:
@@ -191,11 +248,19 @@ def main() -> None:
                    seconds=time.perf_counter() - t0)
         runs.append(rec)
         brief = {k: {s: {m: round(x, 4) for m, x in v.items()}
-                     for s, v in rec[k].items()} for k in ("paged", "prefill")}
-        print(f"[ab] {name}: encode {rec['encode_us']:.3f} us; serve walls "
-              f"{[round(s['wall_s'], 4) for s in rec['serves']]} s, "
-              f"{rec['serves'][0]['decode_steps']} decode steps; {brief}",
-              flush=True)
+                     for s, v in rec[k].items()}
+                 for k in ("paged", "prefill", "rwkv")}
+        walls = ("serve walls / prefill / decode / in rwkv6_chunk s "
+                 + str([[round(s[k], 4) for k in ("wall_s", "prefill_s",
+                                                  "decode_s",
+                                                  "rwkv6_chunk_host_s")]
+                        for s in rec["serves"]])
+                 + f", {rec['serves'][0]['decode_steps']} decode steps")
+        if a.rwkv_only:
+            print(f"[ab] {name}: {walls}; {brief['rwkv']}", flush=True)
+            continue
+        print(f"[ab] {name}: encode {rec['encode_us']:.3f} us; {walls}; "
+              f"{brief}", flush=True)
     # token streams of each serve against the first run's first serve
     first = runs[0]["serves"][0]["streams"]
     for rec in runs:
