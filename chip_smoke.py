@@ -39,15 +39,30 @@ Phases (each raises on failure; none catches its own):
                not take (the model pads to, or picks, one it takes)
   The paths follow, each serve driven with the launch counters set to 0 just
   before and read just after; each must launch the kernels of its own model,
-  one launch per layer per prefill call or decode step:
+  one launch per layer per prefill call or decode step. Every serve runs its
+  executor's steps as CUDA graphs, one per shape bucket (engine/graphs.py):
+  a replay adds its capture's launches to the counters, and the executor
+  counts the prefill calls and decode steps. The graphs phases ("graphs"
+  below) hold them against the executors' eager steps (eager=True):
   4. qwen3   — full-width qwen3-1.7b (28 layers, bf16, random weights from a
      model     seed): one prefill batch and one paged decode step, kernels vs
                the plain attention path
   5. qwen3   — the paged engine with the paper's scheduler serving a rotten
      serve     trace, serial then pipelined loop (paged_attention, flash_prefill)
-  6. qwen3   — one more serial serve, a window of its batches traced on the
-     profile   device only: the device's busy share of the window's wall
-               time, launches per batch and the kernels that take the time
+  6. qwen3   — graphs against eager steps (phase_graphs) on the serve trace
+     graphs    with every relQuery at t = 0 (both serve the same batches):
+               one prefill and one decode step captured beside the same
+               step called eagerly (logits bit for bit, else the largest
+               difference); a graphed and an eager serve, serial and
+               pipelined: identical streams, equal launches per kernel,
+               both walls, the graphs, capture and prestage seconds, graph
+               pool bytes and peak memory; then a window of a serial serve
+               of each traced on the device only, its executor having
+               captured the graphed serve's buckets first (the steady
+               state; the serve stops after the window): the device's busy
+               share of the window's wall time, host launches (a graph's
+               replay is one) and device kernels per batch, and the
+               kernels that take the time
   7. qwen3   — the workload planner (dedup fan-out, prefix-maximizing
      planned   reorder) in front of the paged engine with physically shared
                prefix blocks, optimistic admission at a tight KV cap,
@@ -56,7 +71,8 @@ Phases (each raises on failure; none catches its own):
                the dedup fan-out, shared blocks, preemptions, swaps, both
                pools drained; reports the share of rows whose streams equal
                an unplanned serve of the same engine; then one more planned
-               serial serve, a window of its batches profiled as in phase 6
+               serial serve (graphed), a window of its batches profiled as
+               in phase 6
   8. rwkv6   — full-width rwkv6-7b (random weights from the seed), in float32
      model     at full depth (32 layers) and in bf16 at 4 layers (reported at
                32): one prefill at B=2 L=128 and one decode step from each
@@ -67,9 +83,11 @@ Phases (each raises on failure; none catches its own):
   9. rwkv6   — the dense engine serving the same trace, serial then pipelined
      serve     (rwkv6_chunk, one call per layer per prefill call); the two
                runs' streams must be identical; the (B, S, chunk) of every
-               rwkv6_chunk call is counted (timed in phase 24)
- 10. rwkv6   — one more serial serve, a window of its batches profiled as
-     profile   in phase 6
+               rwkv6_chunk call is counted from the executors' buckets
+               (timed in phase 24)
+ 10. rwkv6   — phase 6's graphs against eager (serial), and rwkv6_chunk
+     graphs    replayed from a CUDA graph against the eager call, bit for
+               bit
  11. granite — full-width, full-depth granite-moe-3b-a800m (40 experts, top 8):
      model     one prefill batch and one paged decode step, kernels vs plain
                attention: in float32 (full rows, beside the PERTURB witness)
@@ -79,8 +97,8 @@ Phases (each raises on failure; none catches its own):
                and kernels vs plain with the plain path's routes replayed
  12. granite — the paged engine serving the rotten trace, serial then
      serve     pipelined; the share of rows whose streams agree is reported
- 13. granite — one more serial serve, a window of its batches traced on the
-     profile   device only
+ 13. granite — phase 6's graphs against eager (serial)
+     graphs
  14. qwen3   — qwen3-moe-30b-a3b at full width cut to 4 layers (128 experts):
      moe       prefill and paged decode, kernels vs plain in float32; in
                bf16 against the float32 model and with routes replayed, as
@@ -94,11 +112,10 @@ Phases (each raises on failure; none catches its own):
                vs plain in float32 at 4 layers (full rows, beside the
                PERTURB witness) and in bf16 at 64; the paged serve in both
                loops, 16 slots (the serve gate of phase 5; peak memory
-               logged); one more serial serve, a window of its batches
-               profiled as in phase 6
+               logged); phase 6's graphs against eager (serial)
  14b. intern- — the internvl2-26b backbone (48 layers, d_model 6144, 48 / 8
       vl2       heads of 128: 6 rows per slot), as phase 14a without the
-               profile
+               graphs against eager
  15. gemma3  — gemma3-12b (5 window layers : 1 global, window 1024): a prefill
                past the window and 4 decode steps against one pass over the
                extended sequence, in float32 at one 6-layer group and bf16
@@ -112,8 +129,8 @@ Phases (each raises on failure; none catches its own):
                at 4 layers (held, MODEL_REL_TOL) and 32 (reported)
  17. hymba   — the dense engine serving the rotten trace, serial then
      serve     pipelined; streams identical; no kernel of this repo launches
- 18. hymba   — one more serial serve, a window of its batches traced on the
-     profile   device only (launches per batch, idle share)
+ 18. hymba   — phase 6's graphs against eager (serial)
+     graphs
  19. whisper — whisper-base at full width and depth (6 + 6 layers, d_model
                512, 1500 encoder frames, max_target_len 448): ragged frame
                lengths, a prefill of 64 tokens and 4 decode steps vs one
@@ -175,8 +192,10 @@ Phases (each raises on failure; none catches its own):
                host issue time, and one chunk alone; then at [1, 4096] c 32,
                [1, 12288] c 64 and every (B, S, chunk) of phase 9's serve,
                each with its bound and host issue time
-The last three lines are the card's name and power limit, the kernels' JSON
-record and {"ok": true, "device": {...}}.
+After phase 24 the graphs phases' rows are printed again, one line each and
+as one JSON object ("[graphs] json"). The last three lines are the card's
+name and power limit, the kernels' JSON record and {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -213,6 +232,7 @@ from repro_torch.distributed.fault_tolerance import (  # noqa: E402
 from repro_torch.distributed.elastic import elastic_restore, reshard_tree  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
     ParallelConfig, local_tree, place_tree)
+from repro_torch.engine import graphs  # noqa: E402
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, flash_prefill, ops, ref  # noqa: E402
 from repro_torch.launch.cells import (  # noqa: E402
@@ -395,10 +415,26 @@ MD_CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_md_ckpt")
 # lives under the checkout's git-ignored build directory, and is removed
 CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
 # each profile phase traces this window of a serve's batches (first, count)
-# on the device only: summing a whole serve's trace took most of a profile
-# phase's time (the four whole-serve profiles ~510 s of a 807 s run on an
-# H100, 700 W, before they were windowed)
-PROFILE_WINDOW = (4, 16)
+# on the device only, and the serve stops after it: summing a whole serve's
+# trace took most of a profile phase's time (the four whole-serve profiles
+# ~510 s of a 807 s run on an H100, 700 W, before they were windowed; 8-33 s
+# a window of 16 batches in this script's run on an H100, 700 W, before the
+# graphed and eager windows doubled their number)
+PROFILE_WINDOW = (4, 8)
+# the CUDA runtime and driver calls that put work on a stream, as the
+# profiler names them: a host launch each (a graph's replay is one)
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+# graphs against eager steps (phase_graphs): the serve trace with every
+# relQuery arriving at once, so that the batches follow from the trace alone
+# and both serve the same batches
+GRAPH_TRACE = dict(rate=1e9)
+# one prefill (B rows of GRAPH_CHECK_LEN tokens, ragged) and one decode step
+# of each model captured beside the same step called eagerly
+GRAPH_CHECK_LEN = 128
+# phase_graphs' rows, printed together at the end
+GRAPH_ROWS: list = []
 # the tensor-parallel forward and the cells (phase 23). On the (1, 1) NCCL
 # mesh the TP forward of qwen3-1.7b (and granite-moe-3b-a800m, routes
 # replayed) is held against the single-device path: prefill and decode
@@ -1386,27 +1422,51 @@ SERVE = {"qwen3-1.7b": ("paged", 64, BOTH),
          "hymba-1.5b": ("dense", 32, ())}
 
 
+def serve_engine(model, params, loop: str, device="cuda", eager=False):
+    """The engine of this path's serve (SERVE): CUDA graphs per shape
+    bucket, or eager steps with ``eager``."""
+    arch = model.cfg.name
+    backend, max_slots, _ = SERVE[arch]
+    return build_real_engine(arch, "relserve", backend, model=copy.copy(model),
+                             params=params, max_slots=max_slots, max_len=1024,
+                             engine_loop=loop, device=device, eager=eager)
+
+
+def graph_stats(ex, device="cuda") -> dict:
+    """The executor's graphs, their capture seconds (prestage's apart), its
+    graph pool's bytes, and the peak max_memory_allocated since the last
+    reset."""
+    cuda = device == "cuda"
+    return {"graphs": ex.num_graphs, "capture_s": ex.capture_s,
+            "prestage_s": ex.prestage_compile_s,
+            "pool_bytes": ex.pool_bytes() if cuda else None,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+
+
+def gib(n) -> str:
+    return "not measured" if n is None else f"{n / 2**30:.2f} GiB"
+
+
+def graphs_line(g: dict) -> str:
+    return (f"{g['graphs']} graphs, capture {g['capture_s']:.2f}s (prestage "
+            f"{g['prestage_s']:.2f}s), graph pool {gib(g['pool_bytes'])}, "
+            f"peak max_memory_allocated {gib(g['peak_bytes'])}")
+
+
 def run_serve(model, params, trace, loop: str, device="cuda", card: str = "",
-              on_engine=None):
-    """Serve ``trace``; returns (token streams, prefill calls, decode steps),
-    counted on the model the executor runs (a copy of ``model``, or the
-    paged executor's sibling of it). ``on_engine`` gets the engine before the
-    serve starts."""
+              on_engine=None, eager=False) -> dict:
+    """Serve ``trace`` (CUDA graphs per bucket; eager steps with ``eager``).
+    Returns its token streams, the executor's prefill calls and decode steps
+    (a graph's replay calls no model function, so the executor counts
+    them), the wall and ``graph_stats``. ``on_engine`` gets the engine
+    before the serve starts."""
     arch = model.cfg.name
     backend, max_slots, _ = SERVE[arch]
     trace = copy.deepcopy(trace)
-    engine = build_real_engine(arch, "relserve", backend, model=copy.copy(model),
-                               params=params, max_slots=max_slots, max_len=1024,
-                               engine_loop=loop, device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    engine = serve_engine(model, params, loop, device, eager)
     ex = engine.executor
-    prefills = [0]
-    inner = ex.model.prefill
-
-    def prefill(*args, **kw):
-        prefills[0] += 1
-        return inner(*args, **kw)
-
-    ex.model.prefill = prefill
     if on_engine is not None:
         on_engine(engine)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1433,68 +1493,89 @@ def run_serve(model, params, trace, loop: str, device="cuda", card: str = "",
               f"{loop}: a dense slot was not freed")
         where = f"{max_slots} dense slots"
     fitted = ex.fitted_model()
-    steps = len(ex.decode_samples)
-    log(f"[serve] {arch} {backend} {loop}: {len(report.latencies)} relQueries, "
+    run = {"streams": [tuple(r.output_tokens) for rq in trace
+                       for r in rq.requests],
+           "prefills": ex.prefill_calls, "steps": len(ex.decode_samples),
+           "wall": wall, "batches": len(report.events),
+           "buckets": {k: s.calls for k, s in ex._prefill_fn.items()},
+           "decode_keys": list(ex._decode_fn) if backend == "paged" else [],
+           **graph_stats(ex, device)}
+    log(f"[serve] {arch} {backend} {loop} {'eager' if eager else 'graphed'}: "
+        f"{len(report.latencies)} relQueries, "
         f"{sum(len(rq.requests) for rq in trace)} requests, {n_tok} tokens; "
         f"latency avg {report.avg_latency:.4f}s p50 {report.percentile(50):.4f}s "
         f"p99 {report.percentile(99):.4f}s; wall {wall:.3f}s, "
-        f"{n_tok / wall:.1f} tokens/s; {len(report.events)} batches, "
-        f"{prefills[0]} prefill calls, {steps} decode steps; "
-        f"{where}; fitted alpha_p {fitted.alpha_p:.3e} "
+        f"{n_tok / wall:.1f} tokens/s; {run['batches']} batches, "
+        f"{run['prefills']} prefill calls, {run['steps']} decode steps; "
+        f"{where}; {graphs_line(run)}; fitted alpha_p {fitted.alpha_p:.3e} "
         f"beta_p {fitted.beta_p:.3e} alpha_d {fitted.alpha_d:.3e} "
         f"beta_d {fitted.beta_d:.3e}; {card}")
-    streams = [tuple(r.output_tokens) for rq in trace for r in rq.requests]
     del engine, ex
     if device == "cuda":
-        torch.cuda.empty_cache()
-    return streams, prefills[0], steps
+        free()
+    return run
+
+
+def check_serve_launches(cfg, got: dict, run: dict, label: str) -> None:
+    """Each kernel of this path's serve (SERVE) launched once per layer per
+    prefill call or decode step of ``run``, every other kernel never."""
+    _, _, kernels = SERVE[cfg.name]
+    per = {"paged_attention": run["steps"], "flash_prefill": run["prefills"],
+           "rwkv6_chunk": run["prefills"]}
+    log(f"[serve] {cfg.name} {label} launches: {got}; per layer and "
+        f"call: " + ", ".join(
+            f"{name} {got[name] / max(per[name] * cfg.num_layers, 1):g} "
+            f"({per[name]} calls x {cfg.num_layers} layers)"
+            for name in kernels))
+    for name in got:
+        want = per[name] * cfg.num_layers if name in kernels else 0
+        check(got[name] == want and (want > 0 or name not in kernels),
+              f"{label} serve launched {name} {got[name]} times, not "
+              f"{want} (one per layer per call of this path)")
 
 
 def phase_serve(model, params, *, exact: bool = False, loops=("serial",
                                                                "pipelined"),
-                trace_kw=None, device="cuda") -> dict:
-    """The serve of this path in each of ``loops``; each must launch the
-    kernels of this path's own serve (SERVE), one launch per layer per
-    prefill call or decode step, and a path without kernels must launch
-    none. ``exact``: the loops' streams must be identical (else the share
-    that is is reported). Returns this path's launch counts."""
+                trace_kw=None, device="cuda",
+                rwkv_shapes: collections.Counter | None = None) -> dict:
+    """The serve of this path in each of ``loops``, through CUDA graphs;
+    each must launch the kernels of this path's own serve (SERVE), one
+    launch per layer per prefill call or decode step, and a path without
+    kernels must launch none. ``exact``: the loops' streams must be
+    identical (else the share that is is reported). ``rwkv_shapes`` gets the
+    (B, S, chunk) counts of the serves' rwkv6_chunk calls. Returns this
+    path's launch counts."""
     card = nvidia_smi_line() if device == "cuda" else "cpu"
     cfg = model.cfg
-    _, _, kernels = SERVE[cfg.name]
     trace = serve_trace(cfg.vocab_size - 2, **(trace_kw or {}))
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     runs = []
     for loop in loops:
         before = ops.launch_counts()
-        streams, n_prefill, n_decode = run_serve(model, params, trace, loop,
-                                                 device, card)
+        run = run_serve(model, params, trace, loop, device, card)
         after = ops.launch_counts()
-        got = {name: after[name] - before[name] for name in after}
-        per = {"paged_attention": n_decode, "flash_prefill": n_prefill,
-               "rwkv6_chunk": n_prefill}
-        log(f"[serve] {cfg.name} {loop} launches: {got}; per layer and "
-            f"call: " + ", ".join(
-                f"{name} {got[name] / max(per[name] * cfg.num_layers, 1):g} "
-                f"({per[name]} calls x {cfg.num_layers} layers)"
-                for name in kernels))
-        for name in got:
-            want = per[name] * cfg.num_layers if name in kernels else 0
-            check(got[name] == want and (want > 0 or name not in kernels),
-                  f"{loop} serve launched {name} {got[name]} times, not "
-                  f"{want} (one per layer per call of this path)")
-        runs.append(streams)
+        check_serve_launches(cfg, {name: after[name] - before[name]
+                                   for name in after}, run, loop)
+        runs.append(run)
     counts = ops.launch_counts()
     if len(runs) == 2:
-        same = sum(a == b for a, b in zip(*runs)) / len(runs[0])
+        a, b = (r["streams"] for r in runs)
+        same = sum(x == y for x, y in zip(a, b)) / len(a)
         log(f"[serve] {cfg.name} identical streams serial vs pipelined: "
             f"{same:.3f} ({card})")
         if exact:
-            check(runs[0] == runs[1], "serial and pipelined streams differ")
+            check(a == b, "serial and pipelined streams differ")
     if device == "cuda":
         log(f"[serve] {cfg.name} peak torch.cuda.max_memory_allocated over "
-            f"the serves: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"the serves: {gib(max(r['peak_bytes'] for r in runs))}")
+    if rwkv_shapes is not None:
+        # every prefill step of the dense executor is one sequence of its
+        # bucket, through rwkv6_chunk once per layer at kernel_chunking's
+        # chunk and padded length
+        for run in runs:
+            for S, calls in run["buckets"].items():
+                c, padded = kernel_chunking(S)
+                rwkv_shapes[(1, padded, c)] += calls * cfg.num_layers
     return {name: counts[name] for name in build.KERNELS}
 
 
@@ -1837,92 +1918,304 @@ def time_rwkv(args, c: int) -> dict:
             "flops": flops, "bytes": nbytes, "host_issue_ms": host_issue_ms(fn)}
 
 
-@contextlib.contextmanager
-def record_rwkv_shapes(shapes: collections.Counter):
-    """Count the (B, S, chunk) of every ops.rwkv6_chunk call made inside."""
-    call = ops.rwkv6_chunk
+def graph_vs_eager(label: str, fn, arrays, reset, card: str) -> None:
+    """One step ``fn`` over int32 ``arrays`` captured as a CUDA graph
+    (engine/graphs.py) beside the same step called eagerly, each from the
+    state ``reset`` leaves: logs whether the logits are equal bit for bit,
+    and else the largest difference."""
+    dev = torch.device("cuda")
+    shapes = [a.shape for a in arrays]
+    reset()
+    want = graphs.capture(fn, shapes, arrays, dev)[0](*arrays)[0]
+    step, secs = graphs.capture(fn, shapes, arrays, dev,
+                                pool=torch.cuda.graph_pool_handle(),
+                                stream=torch.cuda.Stream())
+    reset()
+    got = step(*arrays)[0]
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    log(f"[graphs] {label}: graphed vs eager logits "
+        + ("equal bit for bit" if torch.equal(got, want) else
+           f"differ: largest difference {diff:.3e} of the largest |logit| "
+           f"{top:.3e}") + f"; capture {secs:.3f}s; {card}")
 
-    def counted(r, *args, chunk=None, **kw):
-        shapes[(r.shape[0], r.shape[1], chunk or r.shape[1])] += 1
-        return call(r, *args, chunk=chunk, **kw)
 
-    ops.rwkv6_chunk = counted
-    try:
-        yield shapes
-    finally:
-        ops.rwkv6_chunk = call
+def graph_logits_check(model, params, card: str) -> None:
+    """A prefill and a decode step of the model as its serve's executor runs
+    them (SERVE), graphed against eager on the same inputs: the paged
+    backend's prefill + scatter of 4 ragged rows and a decode step over
+    them, the dense backend's one-row prefill and a decode step over 4
+    slots (its recurrent state reset before each)."""
+    cfg = model.cfg
+    dev = params["embed"].device
+    backend = SERVE[cfg.name][0]
+    L, bs = GRAPH_CHECK_LEN, 16
+    rng = np.random.RandomState(SEED)
+    lens = np.array([L - bs, 100, 77, 1], np.int32)
+    toks = rng.randint(0, cfg.vocab_size - 2, size=(4, L)).astype(np.int32)
+    nxt = rng.randint(0, cfg.vocab_size - 2, size=(4,)).astype(np.int32)
+    if backend == "paged":
+        m = model.with_prefill_attn("flash")
+        nblk = L // bs
+        pools = m.init_paged_pools(4 * nblk + 1, bs, dev)
+        tables = np.arange(4 * nblk, dtype=np.int32).reshape(4, nblk)
+
+        def prefill(t, sl, tb):
+            lg, caches = m.prefill(params, t, seq_lens=sl, max_len=L)
+            return lg, m.scatter_prefill_pools(pools, caches, tb)
+
+        def decode(t, pos, tb, ctx):
+            return m.decode_step_paged(params, pools, t, pos, tb, ctx,
+                                       attn_impl="kernel")
+
+        graph_vs_eager(f"{cfg.name} paged prefill [4, {L}]", prefill,
+                       [toks, lens, tables], lambda: None, card)
+        graph_vs_eager(f"{cfg.name} paged decode [4] over {nblk} blocks",
+                       decode, [nxt, lens, tables, lens + 1], lambda: None,
+                       card)
+        del pools
+    else:
+        cache = model.init_cache(4, L, dev)
+
+        def reset():
+            for c in cache.values():
+                c.zero_()
+
+        def prefill(t, sl):
+            return model.prefill(params, t, seq_lens=sl, max_len=L)
+
+        def decode(t, pos):
+            return model.decode_step(params, cache, t, pos)
+
+        graph_vs_eager(f"{cfg.name} dense prefill [1, {L}]", prefill,
+                       [toks[:1], lens[:1]], lambda: None, card)
+        graph_vs_eager(f"{cfg.name} dense decode [4]", decode, [nxt, lens],
+                       reset, card)
+        del cache
+    free()
 
 
-def phase_profile(model, params, device="cuda", planned: bool = False) -> None:
-    """Where a serve phase's time goes: one more serial serve of the same
-    trace (after the launch counters were read), the planned serve of phase 7
-    with ``planned``, with the batches of PROFILE_WINDOW traced under
-    torch.profiler on the device only. Prints the device's busy and idle
-    share of the window's wall time, its launches per batch, and the kernels
-    that take the device time."""
+def rwkv_graph_check(card: str) -> None:
+    """rwkv6_chunk (its carry launched as the intra pass's programmatic
+    dependent) captured in a CUDA graph: the replay's output and state equal
+    the eager call's bit for bit, at one layer's call of the serve."""
+    f32 = torch.float32
+    args = rwkv_layer_inputs(torch.bfloat16)
+    want = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.rwkv6_chunk(*args, out_dtype=f32, chunk=16)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = ops.rwkv6_chunk(*args, out_dtype=f32, chunk=16)
+    for x in got:
+        x.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"[graphs] rwkv6_chunk r={list(args[0].shape)} c=16 replayed from a "
+        f"CUDA graph vs eager: output and state "
+        f"{'equal bit for bit' if same else 'differ'}; {card}")
+    check(same, "a replayed rwkv6_chunk differs from the eager call")
+
+
+def phase_graphs(model, params, loops=("serial",)) -> None:
+    """CUDA graphs against eager steps (the executors' ``eager=True``) on
+    the trace whose relQueries all arrive at once (GRAPH_TRACE), so both
+    serve the same batches: the logits of one prefill and one decode step
+    (graph_logits_check); in each of ``loops`` a graphed then an eager
+    serve, whose streams must be identical and whose per-kernel launches
+    must be equal (one per layer per prefill call or decode step); then a
+    window of each, serial, profiled (phase_profile) after its executor
+    captured the graphed serial serve's buckets (the steady state; capture
+    seconds are the serves'). Each row goes to GRAPH_ROWS."""
+    card = nvidia_smi_line()
+    cfg = model.cfg
+    backend = SERVE[cfg.name][0]
+    trace = serve_trace(cfg.vocab_size - 2, **GRAPH_TRACE)
+    graph_logits_check(model, params, card)
+    if "rwkv6_chunk" in model.KERNELS:
+        rwkv_graph_check(card)
+    row = {"arch": cfg.name, "backend": backend}
+    for loop in loops:
+        runs = {}
+        for mode in ("graphed", "eager"):
+            ops.reset_launch_counts()
+            run = run_serve(model, params, trace, loop, card=card,
+                            eager=mode == "eager")
+            run["launches"] = ops.launch_counts()
+            check_serve_launches(cfg, run["launches"], run, f"{loop} {mode}")
+            runs[mode] = run
+        g, e = runs["graphed"], runs["eager"]
+        check(g["streams"] == e["streams"],
+              f"{cfg.name} {loop}: graphed and eager streams differ")
+        check(g["launches"] == e["launches"],
+              f"{cfg.name} {loop}: graphed launches {g['launches']}, eager "
+              f"{e['launches']}")
+        log(f"[graphs] {cfg.name} {backend} {loop}: streams identical "
+            f"({len(g['streams'])} rows), launches equal {g['launches']} over "
+            f"{g['prefills']} prefill calls and {g['steps']} decode steps; "
+            f"graphed: {graphs_line(g)}; eager: peak max_memory_allocated "
+            f"{gib(e['peak_bytes'])}; wall graphed {g['wall']:.3f}s, eager "
+            f"{e['wall']:.3f}s; {card}")
+        row[loop] = {mode: {k: r[k] for k in ("wall", "graphs", "capture_s",
+                                               "prestage_s", "pool_bytes",
+                                               "peak_bytes", "batches")}
+                     for mode, r in runs.items()}
+        if loop == "serial":
+            row["warm"] = g
+    # the windows show the steady state: each executor first captures the
+    # buckets the graphed serial serve of the same batches captured
+    row["profile"] = {mode: phase_profile(model, params, trace=trace,
+                                          eager=mode == "eager",
+                                          warm=row["warm"])
+                      for mode in ("graphed", "eager")}
+    del row["warm"]
+    GRAPH_ROWS.append(row)
+
+
+def log_graph_rows(card: str) -> None:
+    """phase_graphs' rows, one line each and as one JSON object."""
+    for r in GRAPH_ROWS:
+        p = r["profile"]
+        walls = "; ".join(
+            f"{loop} wall {r[loop]['graphed']['wall']:.3f} / "
+            f"{r[loop]['eager']['wall']:.3f}s"
+            for loop in ("serial", "pipelined") if loop in r)
+        s = r["serial"]["graphed"]
+        log(f"[graphs] summary {r['arch']} {r['backend']} graphed / eager: "
+            f"{walls}; idle {p['graphed']['idle']} / {p['eager']['idle']}; "
+            f"host launches per batch {p['graphed']['host_per']} / "
+            f"{p['eager']['host_per']}; device kernels per batch "
+            f"{p['graphed']['kernels_per']} / {p['eager']['kernels_per']}; "
+            f"{s['graphs']} graphs, capture {s['capture_s']:.2f}s, prestage "
+            f"{s['prestage_s']:.2f}s, pool {gib(s['pool_bytes'])}, peak "
+            f"{gib(s['peak_bytes'])} / "
+            f"{gib(r['serial']['eager']['peak_bytes'])}; {card}")
+    log("[graphs] json " + json.dumps({"card": card, "rows": GRAPH_ROWS}))
+
+
+class WindowDone(Exception):
+    """Raised by a profiled serve's dispatch once its window is traced: the
+    rest of the serve is not needed."""
+
+
+def precapture(ex, run: dict) -> None:
+    """Capture before a serve starts every bucket that ``run``, a graphed
+    serve of the same batches, captured as it went (eager steps for an
+    eager executor)."""
+    for key in run["buckets"]:
+        if key not in ex._prefill_fn:
+            args = key if isinstance(key, tuple) else (key,)
+            ex._prefill_fn[key] = ex._prefill_step(*args)[0]
+    for key in run["decode_keys"]:
+        if key not in ex._decode_fn:
+            ex._decode_fn[key] = ex._decode_step(*key)[0]
+
+
+def phase_profile(model, params, device="cuda", planned: bool = False,
+                  trace=None, eager: bool = False, warm=None) -> dict:
+    """Where a serve's time goes: a serial serve of ``trace`` (the serve
+    trace by default; the planned serve of phase 7 with ``planned``), CUDA
+    graphs or eager steps, the batches of PROFILE_WINDOW traced under
+    torch.profiler on the device only; the serve stops after the window.
+    With ``warm`` (a graphed serve of the same batches) the executor
+    captures that serve's buckets before it starts, so the window shows
+    the steady state, replays only. Logs and returns the device's busy and
+    idle share of the window's wall time, host launches and device kernels
+    per batch, and the kernels that take the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] if device == "cuda" else [ProfilerActivity.CPU]
     if planned:
         trace = serve_trace(model.cfg.vocab_size - 2, **PLANNED_TRACE)
         cap = planned_cap(trace)
-    else:
+    elif trace is None:
         trace = serve_trace(model.cfg.vocab_size - 2)
     prof = profile(activities=acts)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     first, n = PROFILE_WINDOW
     span = {}
-
-    def on_engine(engine):   # start and stop the trace at batch boundaries
-        ex = engine.executor
-        inner, seen = ex.dispatch, [0]
-
-        def dispatch(batch, now):
-            if seen[0] in (first, first + n):
-                sync()
-                if seen[0] == first:
-                    prof.start()
-                    span["t0"] = time.perf_counter()
-                else:
-                    span["t1"] = time.perf_counter()
-                    prof.stop()
-            seen[0] += 1
-            return inner(batch, now)
-
-        ex.dispatch = dispatch
-
+    trace = copy.deepcopy(trace)
     if planned:
-        run_planned(model, params, trace, "serial", cap, device,
-                    on_engine=on_engine)
+        engine = planned_engine(model, params, "serial", cap, device)
     else:
-        run_serve(model, params, trace, "serial", device, on_engine=on_engine)
+        engine = serve_engine(model, params, "serial", device, eager)
+    ex = engine.executor
+    if warm is not None:
+        precapture(ex, warm)
+    inner, seen = ex.dispatch, [0]
+
+    def dispatch(batch, now):   # start and stop the trace at batch boundaries
+        if seen[0] in (first, first + n):
+            sync()
+            if seen[0] == first:
+                prof.start()
+                span["t0"] = time.perf_counter()
+                span["graphs"], span["capture_s"] = ex.num_graphs, ex.capture_s
+            else:
+                span["t1"] = time.perf_counter()
+                prof.stop()
+                raise WindowDone
+        seen[0] += 1
+        return inner(batch, now)
+
+    ex.dispatch = dispatch
+    try:
+        if planned:
+            tok = HashTokenizer(vocab_size=model.cfg.vocab_size - 2)
+            planner = Planner("full", tokenizer=tok)
+            PlanExecutor(Frontend(engine), planner).replay(
+                planner.plan_trace(trace))
+        else:
+            engine.run_trace(trace)
+    except WindowDone:
+        pass
     check("t1" in span, f"the serve has fewer than {first + n + 1} batches")
-    log_device_profile(prof, span["t1"] - span["t0"],
-                       f"{model.cfg.name} {'planned ' if planned else ''}"
-                       f"serial serve, batches {first}..{first + n - 1}",
-                       n, "batch")
+    mode = "graphed" if ex.num_graphs else "eager"
+    captured = (f" ({ex.num_graphs - span['graphs']} graphs captured in it, "
+                f"{ex.capture_s - span['capture_s']:.3f}s)"
+                if ex.num_graphs else "")
+    del engine, ex, inner
+    free()
+    return log_device_profile(
+        prof, span["t1"] - span["t0"],
+        f"{model.cfg.name} {'planned ' if planned else ''}serial serve "
+        f"{mode}{', buckets captured first' if warm else ''}, batches "
+        f"{first}..{first + n - 1}{captured}", n, "batch")
 
 
 def log_device_profile(prof, wall_s: float, what: str, n: int,
-                       unit: str) -> None:
-    """The device's busy and idle share of ``wall_s``, launches per ``unit``
-    (``n`` of them in the window) and the kernels that take the time."""
+                       unit: str) -> dict:
+    """The device's busy and idle share of ``wall_s``, device kernels and
+    host launches per ``unit`` (``n`` of them in the window) and the kernels
+    that take the time. Host launches are the CUDA runtime and driver calls
+    that put work on a stream (HOST_LAUNCH_CALLS): a graph's replay is one.
+    Returns the figures (None where the profiler recorded no device time)."""
     from torch.autograd import DeviceType
 
     t1 = time.perf_counter()
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if getattr(e, "device_type", None) == DeviceType.CUDA]
+    host = {e.key: e.count for e in events if e.key in HOST_LAUNCH_CALLS}
     log(f"[profile] summing the trace took {time.perf_counter() - t1:.1f}s")
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         log("[profile] the profiler recorded no device time: not measured")
-        return
+        return {"idle": None, "kernels_per": None, "host_per": None}
     wall_us = wall_s * 1e6
     launches = sum(e.count for e in kernels)
+    n_host = sum(host.values())
     log(f"[profile] {what} under the profiler: wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall, "
         f"idle {1 - busy_us / wall_us:.3f}), {launches} kernel launches, "
-        f"{launches / n:.0f} per {unit}")
+        f"{launches / n:.0f} per {unit}; host launches "
+        + (f"{n_host}, {n_host / n:.0f} per {unit} ({host})" if host
+           else "not measured (no runtime calls in the trace)"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<6d} "
@@ -1940,6 +2233,9 @@ def log_device_profile(prof, wall_s: float, what: str, n: int,
             check("paged_attention" not in name
                   or name.startswith("paged_attention_kernel<"),
                   f"a profiled decode ran {name} beside the split kernel")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "idle": 1 - busy_us / wall_us, "kernels_per": launches / n,
+            "host_per": n_host / n if host else None}
 
 
 def load_model(arch: str, dtype: str = "", layers: int = 0,
@@ -1987,8 +2283,8 @@ def path_granite(t: float) -> tuple:
     t = lap("granite model bf16", t)
     counts = phase_serve(model, params)
     t = lap("granite serve", t)
-    phase_profile(model, params)
-    t = lap("granite profile", t)
+    phase_graphs(model, params)
+    t = lap("granite graphs", t)
     del cfg, model, params
     free()
     return counts, t
@@ -2024,13 +2320,13 @@ def path_qwen3_moe(t: float) -> tuple:
     return counts, t
 
 
-def path_large_dense(arch: str, t: float, profile: bool) -> tuple:
+def path_large_dense(arch: str, t: float, graphs_too: bool) -> tuple:
     """qwen2.5-32b or the internvl2-26b backbone at full width (phases 14a,
     14b), drawn by layer: kernels vs plain in float32 at LARGE_F32_LAYERS
     layers (full rows, beside the PERTURB witness) and in bf16 at full
-    depth; the paged serve in both loops; with ``profile`` a window of one
-    more serial serve. Returns (the serve's launch counts, the time of the
-    last lap)."""
+    depth; the paged serve in both loops; with ``graphs_too`` graphs against
+    eager steps (phase_graphs). Returns (the serve's launch counts, the time
+    of the last lap)."""
     cfg, model, params = load_model(arch, "float32", LARGE_F32_LAYERS,
                                     by_layer=True)
     phase_model_paged(cfg, model, params, MOE_F32_REL_TOL, witness=True,
@@ -2043,9 +2339,9 @@ def path_large_dense(arch: str, t: float, profile: bool) -> tuple:
     t = lap(f"{arch} model bf16", t)
     counts = phase_serve(model, params)
     t = lap(f"{arch} serve", t)
-    if profile:
-        phase_profile(model, params)
-        t = lap(f"{arch} profile", t)
+    if graphs_too:
+        phase_graphs(model, params)
+        t = lap(f"{arch} graphs", t)
     del cfg, model, params
     free()
     return counts, t
@@ -2086,8 +2382,8 @@ def path_hymba(t: float) -> tuple:
     t = lap("hymba model bf16", t)
     counts = phase_serve(model, params, exact=True)
     t = lap("hymba serve", t)
-    phase_profile(model, params)
-    t = lap("hymba profile", t)
+    phase_graphs(model, params)
+    t = lap("hymba graphs", t)
     del cfg, model, params
     free()
     return counts, t
@@ -3041,8 +3337,8 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     t = lap("qwen3 model", t)
     paths = {"qwen3 serve": phase_serve(model, params)}
     t = lap("qwen3 serve", t)
-    phase_profile(model, params)
-    t = lap("qwen3 profile", t)
+    phase_graphs(model, params, loops=("serial", "pipelined"))
+    t = lap("qwen3 graphs", t)
     paths["qwen3 planned serve"] = phase_planned(model, params)
     t = lap("qwen3 planned serve", t)
     phase_profile(model, params, planned=True)
@@ -3064,22 +3360,22 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     phase_model_rwkv(cfg, model, params, None)
     t = lap("rwkv6 model bf16", t)
     rwkv_shapes = collections.Counter()
-    with record_rwkv_shapes(rwkv_shapes):
-        paths["rwkv6 serve"] = phase_serve(model, params, exact=True)
+    paths["rwkv6 serve"] = phase_serve(model, params, exact=True,
+                                       rwkv_shapes=rwkv_shapes)
     log("[serve] rwkv6-7b rwkv6_chunk calls by (B, S, chunk): " + ", ".join(
         f"{key}: {n}" for key, n in sorted(rwkv_shapes.items())))
     t = lap("rwkv6 serve", t)
-    phase_profile(model, params)
-    t = lap("rwkv6 profile", t)
+    phase_graphs(model, params)
+    t = lap("rwkv6 graphs", t)
     del cfg, model, params
     free()
 
     paths["granite serve"], t = path_granite(t)
     paths["qwen3-moe serve"], t = path_qwen3_moe(t)
     paths["qwen2.5-32b serve"], t = path_large_dense("qwen2.5-32b", t,
-                                                     profile=True)
+                                                     graphs_too=True)
     paths["internvl2-26b serve"], t = path_large_dense("internvl2-26b", t,
-                                                       profile=False)
+                                                       graphs_too=False)
     t = path_gemma(t)
     paths["hymba serve"], t = path_hymba(t)
     paths["whisper model"], t = path_whisper(t)
@@ -3099,7 +3395,8 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     t = lap("cells", t)
 
     kernels = phase_times(errs, paths, flash_32k, rwkv_shapes)
-    lap("times", t)
+    t = lap("times", t)
+    log_graph_rows(nvidia_smi_line())
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

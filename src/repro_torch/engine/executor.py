@@ -22,10 +22,22 @@ through the ``flash_prefill`` kernel on CUDA) and decode through the
 versions. Prefix-sharing chains map to physically shared (ref-counted) blocks
 with copy-on-write on divergence; preemption releases real blocks.
 
-PyTorch runs eagerly, so there is no ahead-of-time compile to keep out of the
-samples; what takes its place on CUDA is the build of the model's kernels,
-done in the executors' constructors. KV pools and caches are updated in
-place. Swapped-out KV is copied synchronously to host memory.
+Every prefill and decode runs as one step per shape bucket, as the
+reference runs one compiled executable per bucket (``_aot``,
+``repro/engine/executor.py:128-138``): on CUDA a CUDA graph captured at the
+bucket's first use or in ``prestage`` (``engine/graphs.py``), replayed after
+one copy of the step's inputs; on the CPU the same bucket bookkeeping around
+eager calls. The buckets' keys are the reference's: the dense executor's
+``_prefill_fn`` by length and one ``_decode_fn``, the paged executor's
+``_prefill_fn`` and ``_scatter_fn`` by (batch, length) and ``_decode_fn`` by
+(batch, blocks). Capture seconds are kept out of the samples, as the
+reference keeps its compile seconds out; ``prestage``'s are counted apart in
+``prestage_compile_s``. A failed capture raises; ``eager=True`` (an argument
+of the constructors only) runs eager steps on CUDA, to hold the graphs
+against. The build of the model's kernels happens in the constructors. KV
+pools and caches are updated in place and never move: the graphs write them
+where they were captured. Swapped-out KV is copied synchronously to host
+memory.
 
 Both are the calibration source for the linear batch-cost model (paper
 Fig. 7): ``fitted_model()`` fits α/β from measured (tokens, duration) /
@@ -44,9 +56,10 @@ from repro_torch.core import latency_model as lm_mod
 from repro_torch.core.batch import Batch
 from repro_torch.core.relquery import RelQuery, Request
 from repro_torch.core.scheduler import BatchResult
+from repro_torch.engine import graphs
 from repro_torch.engine.kv_cache import BlockManager, OutOfBlocks
 from repro_torch.engine.prefix_cache import PrefixCache, block_hashes
-from repro_torch.kernels import build
+from repro_torch.kernels import build, paged_attention
 
 
 class RequestCapacityError(ValueError):
@@ -107,11 +120,12 @@ def _refuse_encoder_decoder(model) -> None:
 
 class _ExecutorBase:
     """Shared mechanics of the real executors: sampling, finish detection,
-    admission-time capacity validation and cost-model calibration."""
+    admission-time capacity validation, cost-model calibration and the
+    capture of each bucket's step."""
 
     def __init__(self, model, params, *, max_len: int,
                  prefix_cache: Optional[PrefixCache] = None,
-                 greedy: bool = True):
+                 greedy: bool = True, eager: bool = False):
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -120,6 +134,16 @@ class _ExecutorBase:
         self.greedy = greedy
         self.prefill_samples: List[Tuple[int, float]] = []
         self.decode_samples: List[Tuple[int, float]] = []
+        # one private memory pool and one capture stream for every graph of
+        # this executor; none on the CPU or when the caller asked for eager
+        graphed = self.device.type == "cuda" and not eager
+        self._pool = torch.cuda.graph_pool_handle() if graphed else None
+        self._stream = torch.cuda.Stream(self.device) if graphed else None
+        self.capture_s = 0.0          # every capture, prestage's included
+        # capture seconds spent pre-staging shape buckets during another
+        # batch's device compute (never charged to any batch duration)
+        self.prestage_compile_s = 0.0
+        self._compile_s = 0.0         # capture time to subtract from a phase
 
     # ------------------------------------------------------------- admission
     def validate_relquery(self, rq: RelQuery) -> None:
@@ -136,14 +160,44 @@ class _ExecutorBase:
                     f"shorten the prompt, lower max_output_tokens, or build "
                     f"the executor with a larger max_len")
 
-    def prestage(self, batch: Batch) -> None:
-        """Called by the pipelined engine under the previous batch's device
-        compute. The JAX executors compile shape buckets here; eager PyTorch
-        has nothing to compile, so this does nothing."""
+    # ------------------------------------------------------------- steps
+    def _capture(self, fn, shapes, init, state) -> Tuple[graphs.Step, float]:
+        """One bucket's step (``graphs.capture``) and its seconds. A captured
+        step must return the executor's own ``state`` tensors: it writes
+        them in place, where every replay writes them again."""
+        step, dt = graphs.capture(fn, shapes, init, self.device,
+                                  pool=self._pool, stream=self._stream)
+        if step.graph is not None and any(
+                step.outputs[1][name] is not x for name, x in state.items()):
+            raise RuntimeError("a captured step returned state tensors other "
+                               "than the executor's own")
+        self.capture_s += dt
+        return step, dt
+
+    def _steps(self) -> List[graphs.Step]:
+        raise NotImplementedError
+
+    @property
+    def num_graphs(self) -> int:
+        """CUDA graphs captured (0 for eager steps)."""
+        return sum(s.graph is not None for s in self._steps())
+
+    @property
+    def prefill_calls(self) -> int:
+        """Prefill steps served (one per model call)."""
+        return sum(s.calls for s in self._prefill_fn.values())
+
+    def pool_bytes(self) -> Optional[int]:
+        """Device bytes held by this executor's graph pool (None: eager, or
+        not told by the allocator)."""
+        return None if self._pool is None else graphs.pool_bytes(self._pool)
 
     # ------------------------------------------------------------- shared bits
     def _ints(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":   # no stream sync for a pinned source
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _sample(self, logits) -> np.ndarray:
         # torch.argmax takes the first maximum, as jnp.argmax does
@@ -186,16 +240,19 @@ class RealExecutor(_ExecutorBase):
     layer count that search takes the layer axis of a recurrent state."""
 
     def __init__(self, model, params, *, max_slots: int = 32, max_len: int = 512,
-                 prefix_cache: Optional[PrefixCache] = None, greedy: bool = True):
+                 prefix_cache: Optional[PrefixCache] = None, greedy: bool = True,
+                 eager: bool = False):
         _refuse_encoder_decoder(model)
         super().__init__(model, params, max_len=max_len,
-                         prefix_cache=prefix_cache, greedy=greedy)
+                         prefix_cache=prefix_cache, greedy=greedy, eager=eager)
         self.max_slots = max_slots
         self.cache = model.init_cache(max_slots, max_len, self.device)
         self.slot_axes: Dict[str, int] = model.cache_slot_axes()
         if self.device.type != "cpu":
             # build time lands here, never in a batch's sample
             build.build(model.KERNELS)
+        self._prefill_fn: Dict[int, graphs.Step] = {}
+        self._decode_fn = self._capture_decode()
         self.slots: List[Optional[Slot]] = [None] * max_slots
         self._slot_of: Dict[str, int] = {}
         # host KV tier: req_id -> (request, slot position, {name: host slice})
@@ -203,6 +260,39 @@ class RealExecutor(_ExecutorBase):
         # swap-in prefetch: req_id -> device copy of its stash, staged ahead
         # of the commit (the stash itself stays authoritative until commit)
         self._prestaged: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def _steps(self) -> List[graphs.Step]:
+        return [*self._prefill_fn.values(), self._decode_fn]
+
+    def _capture_decode(self) -> graphs.Step:
+        """The decode step over all ``max_slots`` rows, captured while no
+        slot is live: its warm-up writes every row's K/V at position 0 and
+        advances every recurrent state. ``init_cache`` makes every entry
+        zeros, so zeroing the cache afterwards leaves it as it was made."""
+        model, params, cache = self.model, self.params, self.cache
+
+        def decode(tokens, positions):
+            return model.decode_step(params, cache, tokens, positions)
+
+        n = self.max_slots
+        zeros = np.zeros((n,), np.int32)
+        step, _ = self._capture(decode, [(n,), (n,)], [zeros, zeros], cache)
+        for c in cache.values():
+            c.zero_()
+        return step
+
+    def _prefill_step(self, bucket: int) -> Tuple[graphs.Step, float]:
+        """The prefill step of one length bucket: a single sequence, whose
+        cache (the step's output) ``_prefill_issue`` copies into a slot."""
+        model, params, max_len = self.model, self.params, self.max_len
+
+        def prefill(toks, seq_lens):
+            return model.prefill(params, toks, seq_lens=seq_lens,
+                                 max_len=max_len)
+
+        return self._capture(prefill, [(1, bucket), (1,)],
+                             [np.zeros((1, bucket), np.int32),
+                              np.ones((1,), np.int32)], {})
 
     # ------------------------------------------------------------------ slots
     def _slot_view(self, name: str, i: int) -> torch.Tensor:
@@ -288,14 +378,30 @@ class RealExecutor(_ExecutorBase):
         bucket = min(_bucket(n), self.max_len)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = seq
-        logits, kv = self.model.prefill(
-            self.params, self._ints(toks), seq_lens=self._ints(np.array([n], np.int32)),
-            max_len=self.max_len)
+        if bucket not in self._prefill_fn:
+            self._prefill_fn[bucket], dt = self._prefill_step(bucket)
+            self._compile_s += dt
+        logits, kv = self._prefill_fn[bucket](toks, np.array([n], np.int32))
+        # the slot differs from call to call: this copy stays outside
         slot = self._alloc_slot(req)
         for name in self.cache:
             self._slot_view(name, slot).copy_(kv[name])
         self.slots[slot].position = n
         return logits, utok
+
+    def prestage(self, batch: Batch) -> None:
+        """Capture the prefill buckets ``batch`` will need, as the reference
+        compiles them: called by the pipelined engine while the previous
+        batch runs on the device. The decode step was captured with the
+        executor."""
+        for r in batch.prefill_requests:
+            if not batch.completes_prompt(r):
+                continue
+            bucket = min(_bucket(len(r.prefill_token_ids())), self.max_len)
+            if bucket in self._prefill_fn:
+                continue
+            self._prefill_fn[bucket], dt = self._prefill_step(bucket)
+            self.prestage_compile_s += dt
 
     # ------------------------------------------------------------------ decode
     def _decode_issue(self, reqs: List[Request]) -> object:
@@ -335,8 +441,7 @@ class RealExecutor(_ExecutorBase):
             rows = self._ints(np.asarray(off, np.int64))
             kept = {name: c.index_select(self.slot_axes[name], rows)
                     for name, c in self.cache.items()}
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, self._ints(tokens), self._ints(positions))
+        logits, _ = self._decode_fn(tokens, positions)
         if off:
             for name, c in self.cache.items():
                 c.index_copy_(self.slot_axes[name], rows, kept[name])
@@ -349,7 +454,9 @@ class RealExecutor(_ExecutorBase):
         """Launch one unified batch without waiting for the device: prefill
         passes write their KV and the decode step advances the slot
         positions, but no logits reach the host. Prefill and decode issue
-        times are kept separate for the phase-separated samples."""
+        times are kept separate for the phase-separated samples, capture
+        seconds taken out of both."""
+        self._compile_s = 0.0
         t0 = _time.perf_counter()
         pending = []
         total_utok = 0
@@ -359,7 +466,7 @@ class RealExecutor(_ExecutorBase):
             logits, utok = self._prefill_issue(r)
             total_utok += utok
             pending.append((r, logits))
-        prefill_issue = _time.perf_counter() - t0
+        prefill_issue = max(0.0, _time.perf_counter() - t0 - self._compile_s)
         reqs = [r for r in batch.decode_requests if r.req_id in self._slot_of]
         decode_logits, rows, decode_issue = None, [], 0.0
         if reqs:
@@ -437,7 +544,7 @@ class PagedRealExecutor(_ExecutorBase):
                  prefix_cache: Optional[PrefixCache] = None,
                  greedy: bool = True,
                  share_prefix_blocks: bool = False,
-                 num_host_blocks: int = 0):
+                 num_host_blocks: int = 0, eager: bool = False):
         _refuse_encoder_decoder(model)
         if not getattr(model, "supports_paged", lambda: False)():
             raise NotImplementedError(
@@ -447,11 +554,16 @@ class PagedRealExecutor(_ExecutorBase):
         if not on_cpu:
             model = model.with_prefill_attn("flash")
         super().__init__(model, params, max_len=max_len,
-                         prefix_cache=prefix_cache, greedy=greedy)
+                         prefix_cache=prefix_cache, greedy=greedy, eager=eager)
         self.attn_impl = "ref" if on_cpu else "kernel"
         if not on_cpu:
             # build time lands here, never in a batch's sample
             build.build(model.KERNELS)
+            # a captured decode keeps the counters' address: size them now
+            # for the widest decode this pool admits (each decoding
+            # sequence holds a private block after its copy-on-write)
+            paged_attention.arrival_counters(
+                self.device, _pow2_bucket(num_blocks) * model.cache_heads)
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.scratch_block = num_blocks          # pools hold one extra page
@@ -469,6 +581,13 @@ class PagedRealExecutor(_ExecutorBase):
         # swap-in prefetch: req_id -> staged copy plan; the blocks were
         # written at prefetch time, so the commit is pure accounting
         self._staged_swap_in: Dict[str, List[Tuple[int, int]]] = {}
+        # one step per (B, L) covers the prefill and its scatter into the
+        # pools; _scatter_fn holds the keys whose scatter has run, which the
+        # reference compiles at first dispatch (its prestage compiles only
+        # the prefill)
+        self._prefill_fn: Dict[Tuple[int, int], graphs.Step] = {}
+        self._scatter_fn: Dict[Tuple[int, int], graphs.Step] = {}
+        self._decode_fn: Dict[Tuple[int, int], graphs.Step] = {}
         self.cow_copies = 0
         self.shared_block_hits = 0    # physically shared prefix blocks reused
 
@@ -567,6 +686,60 @@ class PagedRealExecutor(_ExecutorBase):
     def _prompt_keys(self, r: Request) -> Tuple[int, ...]:
         return tuple(block_hashes(r.tokens, self.block_size))
 
+    # ------------------------------------------------------------- steps
+    def _steps(self) -> List[graphs.Step]:
+        return [*self._prefill_fn.values(), *self._decode_fn.values()]
+
+    def _prefill_step(self, B: int, L: int) -> Tuple[graphs.Step, float]:
+        """Prefill of a (B, L) group and its scatter into the pools. Its
+        warm-up routes every row and table entry to the scratch block, so it
+        writes only the scratch page, even with a batch in flight."""
+        model, params, pools = self.model, self.params, self.pools
+
+        def prefill(toks, seq_lens, tables):
+            logits, caches = model.prefill(params, toks, seq_lens=seq_lens,
+                                           max_len=L)
+            return logits, model.scatter_prefill_pools(pools, caches, tables)
+
+        nblk = L // self.block_size
+        return self._capture(
+            prefill, [(B, L), (B,), (B, nblk)],
+            [np.zeros((B, L), np.int32), np.ones((B,), np.int32),
+             np.full((B, nblk), self.scratch_block, np.int32)], pools)
+
+    def _decode_step(self, B: int, NB: int) -> Tuple[graphs.Step, float]:
+        """The paged decode step of a (B, NB) bucket; its warm-up writes
+        position 0 of the scratch block only."""
+        model, params, pools = self.model, self.params, self.pools
+        attn_impl = self.attn_impl
+
+        def decode(tokens, positions, tables, ctx):
+            return model.decode_step_paged(params, pools, tokens, positions,
+                                           tables, ctx, attn_impl=attn_impl)
+
+        zeros = np.zeros((B,), np.int32)
+        return self._capture(
+            decode, [(B,), (B,), (B, NB), (B,)],
+            [zeros, zeros, np.full((B, NB), self.scratch_block, np.int32),
+             np.ones((B,), np.int32)], pools)
+
+    def prestage(self, batch: Batch) -> None:
+        """Capture the (batch, length) prefill buckets ``batch`` will group
+        into, as the reference compiles them: run by the pipelined engine
+        under the previous batch's device compute. Decode steps are captured
+        at first use, as the reference compiles them."""
+        groups: Dict[int, int] = {}
+        for r in batch.prefill_requests:
+            if batch.completes_prompt(r):
+                L = self._prefill_group_key(r)
+                groups[L] = groups.get(L, 0) + 1
+        for L, n in sorted(groups.items()):
+            key = (_pow2_bucket(n), L)
+            if key in self._prefill_fn:
+                continue
+            self._prefill_fn[key], dt = self._prefill_step(*key)
+            self.prestage_compile_s += dt
+
     def _prefill_group_key(self, r: Request) -> int:
         """Block-aligned length bucket a request prefills under (the same
         per-request bucket the dense baseline pads to)."""
@@ -620,11 +793,12 @@ class PagedRealExecutor(_ExecutorBase):
                 for j in range(alloc.shared_prefix_blocks):
                     row[j] = self.scratch_block
                 tables[i] = row
-            logits, caches = self.model.prefill(
-                self.params, self._ints(toks), seq_lens=self._ints(seq_lens),
-                max_len=L)
-            self.pools = self.model.scatter_prefill_pools(
-                self.pools, caches, self._ints(tables))
+            key = (B, L)
+            if key not in self._prefill_fn:
+                self._prefill_fn[key], dt = self._prefill_step(B, L)
+                self._compile_s += dt
+            self._scatter_fn.setdefault(key, self._prefill_fn[key])
+            logits, _ = self._prefill_fn[key](toks, seq_lens, tables)
             pending.append((grp, logits))
         return pending, utok
 
@@ -663,9 +837,11 @@ class PagedRealExecutor(_ExecutorBase):
             ctx[i] = pos + 1
             tables[i] = self.bm.padded_block_table(r.req_id, NB,
                                                    self.scratch_block)
-        logits, self.pools = self.model.decode_step_paged(
-            self.params, self.pools, self._ints(tokens), self._ints(pos_arr),
-            self._ints(tables), self._ints(ctx), attn_impl=self.attn_impl)
+        key = (B, NB)
+        if key not in self._decode_fn:
+            self._decode_fn[key], dt = self._decode_step(B, NB)
+            self._compile_s += dt
+        logits, _ = self._decode_fn[key](tokens, pos_arr, tables, ctx)
         return logits
 
     # ------------------------------------------------------------- engine API
@@ -679,15 +855,19 @@ class PagedRealExecutor(_ExecutorBase):
         utok = 0
         prefill_issue = 0.0
         if prefill_reqs:
+            self._compile_s = 0.0
             t0 = _time.perf_counter()
             pending, utok = self._prefill_issue_batch(prefill_reqs)
-            prefill_issue = _time.perf_counter() - t0
+            prefill_issue = max(0.0,
+                                _time.perf_counter() - t0 - self._compile_s)
         reqs = [r for r in batch.decode_requests if r.req_id in self._active]
         decode_logits, decode_issue = None, 0.0
         if reqs:
+            self._compile_s = 0.0
             t1 = _time.perf_counter()
             decode_logits = self._decode_issue(reqs)
-            decode_issue = _time.perf_counter() - t1
+            decode_issue = max(0.0,
+                               _time.perf_counter() - t1 - self._compile_s)
         produced = {r.req_id: len(r.output_tokens) + 1
                     for r in (*(r for grp, _ in pending for r in grp), *reqs)}
         return InFlight(batch=batch, prefill_pending=pending,

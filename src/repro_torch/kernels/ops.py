@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written CUDA kernel (or the wrapper raises);
 a CPU tensor goes to the plain version in ``ref``, which is what the CPU
 tests run. Each launch of a CUDA kernel adds one to its counter; the plain
-path counts nothing, so the counters show which path a run took.
+path counts nothing, so the counters show which path a run took. A CUDA
+graph replays launches without calling the wrappers: its capture records
+what the wrappers counted (``uncounted``) and each replay adds that
+(``add_launches``; ``engine/graphs.py``).
 
 The kernels are forward-only, as the reference's Pallas kernels have no VJP:
 a wrapper given a tensor that requires grad raises rather than return a
@@ -12,7 +15,8 @@ paths (``train_loss``).
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
@@ -75,3 +79,24 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[Dict[str, int]]:
+    """Launches counted inside the block are taken out of the counters again
+    when it ends, and left in the dict it yields, by kernel: a graph's
+    capture and its warm-up serve no step."""
+    before = dict(_launches)
+    seen: Dict[str, int] = {}
+    try:
+        yield seen
+    finally:
+        for name in _launches:
+            seen[name] = _launches[name] - before[name]
+            _launches[name] = before[name]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for name, n in counts.items():
+        _launches[name] += n

@@ -22,7 +22,10 @@ float32 partials into a workspace that the wrapper allocates with
 finish, found through an int32 arrival counter, merges them by log-sum-exp:
 one launch per call. The counters (``arrival_counters``) are kept per device
 and are zero between launches (the last block resets its own), so no call
-clears them; calls that share them must run on one stream.
+clears them; calls that share them must run on one stream. A CUDA graph
+keeps the address it captured: the paged executor sizes them when it is
+built, a capture that needs more raises, and a buffer replaced by a larger
+one outside a capture is kept for the graphs captured on it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ SPLIT_TOKENS = 256     # tokens per split of the context
 
 _launch = None
 _counters = {}         # device index -> int32 arrival counters, all zero
+_retired = []          # replaced counters: earlier graphs still launch on them
 
 
 def _launcher():
@@ -66,10 +70,18 @@ def split_plan(max_pages: int, page: int) -> tuple:
 
 def arrival_counters(device, n: int) -> torch.Tensor:
     """The device's int32 arrival counters, at least ``n`` of them, all zero:
-    grown (a new zeroed buffer) when a call needs more. The kernel leaves them
-    zero, so they are never cleared again."""
+    grown (a new zeroed buffer) when a call needs more, which a CUDA graph's
+    capture may not do. The kernel leaves them zero, so they are never
+    cleared again."""
     buf = _counters.get(device.index)
     if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a captured paged_attention launch needs {n} arrival "
+                f"counters, {0 if buf is None else buf.numel()} were reserved "
+                f"(arrival_counters before the capture)")
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(n, dtype=torch.int32, device=device)
         _counters[device.index] = buf
     return buf

@@ -501,22 +501,18 @@ def test_rwkv6_dense_engine_on_the_card_launches_its_kernel(card):
         tr = copy.deepcopy(trace)
         ops.reset_launch_counts()
         m = model.with_wkv_impl(impl)
-        prefills = []
-
-        def prefill(*a, _real=m.prefill, _calls=prefills, **kw):
-            _calls.append(1)
-            return _real(*a, **kw)
-
-        m.prefill = prefill
         engine = build_real_engine("rwkv6-7b", "relserve", "dense", model=m,
                                    params=params, engine_loop=loop, device=card)
         engine.run_trace(tr)
         streams[impl, loop] = [tuple(r.output_tokens) for rq in tr
                                for r in rq.requests]
         counts = ops.launch_counts()
+        # the executor counts its prefill steps: a graph's replay calls no
+        # model function
+        prefills = engine.executor.prefill_calls
         assert prefills
         # one launch per layer per prefill call, none on the plain path
-        assert counts["rwkv6_chunk"] == (cfg.num_layers * len(prefills)
+        assert counts["rwkv6_chunk"] == (cfg.num_layers * prefills
                                          if impl == "kernel" else 0), counts
         assert counts["paged_attention"] == counts["flash_prefill"] == 0
     assert streams["kernel", "serial"] == streams["kernel", "pipelined"]
@@ -1011,3 +1007,184 @@ def test_cells_run_on_the_card_at_smoke_size(card, shape_name):
         assert launched == (cfg.num_layers if cell.kind == "prefill" else 0)
     row = roofline_row("qwen3-1.7b", shape_name, None, cfg_override=cfg, shape=shape)
     assert row["step_time_bound_s"] > 0 and row["dot_flops_per_device"] > 0
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs of the executors' steps (engine/graphs.py) against eager steps
+# (the executors' eager=True), at the smoke configs in float32
+# --------------------------------------------------------------------------
+GRAPH_ARCHS = [("qwen3-1.7b", "paged", "serial"),
+               ("qwen3-1.7b", "paged", "pipelined"),
+               ("rwkv6-7b", "dense", "serial"),
+               ("hymba-1.5b", "dense", "pipelined"),
+               ("granite-moe-3b-a800m", "paged", "serial")]
+
+
+def _smoke(card, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    return model, model.init_params(torch.Generator(device=card).manual_seed(0))
+
+
+def _graph_trace(cfg):
+    """Every relQuery at t = 0: the batches follow from the trace alone, so
+    a graphed and an eager serve serve the same batches."""
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.trace import TraceConfig, build_trace
+    from repro_torch.engine.tokenizer import HashTokenizer
+
+    return build_trace(make_dataset("beer", num_rows=64, seed=1),
+                       TraceConfig(num_relqueries=3, rate=1e9, seed=2,
+                                   max_requests=3, output_token_cap=6),
+                       tokenizer=HashTokenizer(vocab_size=cfg.vocab_size - 2))
+
+
+def _requests(prompts, out=4):
+    from repro_torch.core.relquery import make_relquery
+
+    return make_relquery("R", [list(p) for p in prompts], 0.0, out).requests
+
+
+@pytest.mark.parametrize("arch,backend,loop", GRAPH_ARCHS)
+def test_graphed_serve_equals_eager(card, arch, backend, loop):
+    """A serve through CUDA graphs gives the eager serve's streams and its
+    launches of each kernel, once per layer per prefill call or decode step;
+    every step replayed a graph."""
+    import copy
+
+    from repro_torch.serving import build_real_engine
+
+    model, params = _smoke(card, arch)
+    cfg = model.cfg
+    trace = _graph_trace(cfg)
+    got = {}
+    for eager in (False, True):
+        tr = copy.deepcopy(trace)
+        ops.reset_launch_counts()
+        engine = build_real_engine(arch, "relserve", backend, model=model,
+                                   params=params, engine_loop=loop,
+                                   device=card, eager=eager)
+        engine.run_trace(tr)
+        ex = engine.executor
+        counts = ops.launch_counts()
+        per = {"paged_attention": len(ex.decode_samples),
+               "flash_prefill": ex.prefill_calls,
+               "rwkv6_chunk": ex.prefill_calls}
+        for name, n in counts.items():
+            want = per[name] * cfg.num_layers if name in model.KERNELS else 0
+            assert n == want, (name, n, want)
+        assert ex.num_graphs == (0 if eager else len(ex._steps()))
+        got[eager] = ([tuple(r.output_tokens) for rq in tr for r in rq.requests],
+                      counts)
+    assert got[False] == got[True]
+
+
+def test_same_bucket_prefills_keep_their_own_logits(card):
+    """Two dense prefills of one length bucket in one batch replay one
+    graph twice before either is sampled: each keeps its own logits, equal
+    to the eager executor's bit for bit."""
+    from repro_torch.core.batch import Batch
+    from repro_torch.engine.executor import RealExecutor
+
+    model, params = _smoke(card, "qwen3-1.7b")
+    prompts = [[5, 9, 17, 3, 44, 2], [70, 8, 12, 90, 1, 33, 4]]
+    logits = {}
+    for eager in (False, True):
+        ex = RealExecutor(model, params, max_slots=4, max_len=64, eager=eager)
+        reqs = _requests(prompts)
+        inflight = ex.dispatch(Batch("prefill", prefill_requests=reqs), 0.0)
+        logits[eager] = [lg for _, lg in inflight.prefill_pending]
+        assert len(ex._prefill_fn) == 1 and ex.prefill_calls == 2
+        ex.wait(inflight)
+    assert not torch.equal(logits[False][0], logits[False][1])
+    for g, e in zip(logits[False], logits[True]):
+        assert torch.equal(g, e)
+
+
+def test_capture_mid_serve_leaves_live_state_intact(card):
+    """Captures while requests are live: a dense prefill bucket and (paged)
+    a prefill and a decode bucket leave every live slot, and every pool
+    block but the scratch page, bit for bit as they were."""
+    from repro_torch.core.batch import Batch
+    from repro_torch.engine.executor import PagedRealExecutor, RealExecutor
+
+    for arch in ("rwkv6-7b", "hymba-1.5b"):
+        model, params = _smoke(card, arch)
+        ex = RealExecutor(model, params, max_slots=4, max_len=256)
+        reqs = _requests([[5, 9, 17, 3, 44, 2], [70, 8, 12]])
+        ex.execute(Batch("prefill", prefill_requests=reqs), 0.0)
+        before = {k: v.clone() for k, v in ex.cache.items()}
+        late = _requests([list(range(1, 100))])
+        ex.prestage(Batch("prefill", prefill_requests=late))
+        assert 128 in ex._prefill_fn and ex.prestage_compile_s > 0
+        torch.cuda.synchronize()
+        for k, v in ex.cache.items():
+            assert torch.equal(v, before[k]), (arch, k)
+
+    model, params = _smoke(card, "qwen3-1.7b")
+    ex = PagedRealExecutor(model, params, num_blocks=64, block_size=8,
+                           max_len=256)
+    reqs = _requests([[5, 9, 17, 3, 44, 2], [70, 8, 12]])
+    ex.execute(Batch("prefill", prefill_requests=reqs), 0.0)
+    keep = slice(0, ex.scratch_block)
+    before = {k: v[:, :, keep].clone() for k, v in ex.pools.items()}
+    late = _requests([list(range(1, 100))] * 3)
+    ex.prestage(Batch("prefill", prefill_requests=late))
+    ex._decode_fn[(8, 4)] = ex._decode_step(8, 4)[0]
+    assert (4, 128) in ex._prefill_fn
+    torch.cuda.synchronize()
+    for k, v in ex.pools.items():
+        assert torch.equal(v[:, :, keep], before[k]), k
+
+
+def test_arrival_counters_stay_put_after_capture(card):
+    """The paged executor sizes the arrival counters when it is built; its
+    serve (captures included) never moves them, and a capture that needs
+    more than were reserved raises."""
+    import copy
+
+    from repro_torch.kernels import paged_attention
+    from repro_torch.serving import build_real_engine
+
+    model, params = _smoke(card, "qwen3-1.7b")
+    engine = build_real_engine("qwen3-1.7b", "relserve", "paged", model=model,
+                               params=params, device=card)
+    ex = engine.executor
+    buf = paged_attention.arrival_counters(ex.device, 1)
+    assert buf.numel() >= ex.num_blocks * model.cache_heads
+    engine.run_trace(copy.deepcopy(_graph_trace(model.cfg)))
+    assert ex.num_graphs > 0
+    assert paged_attention.arrival_counters(ex.device, 1).data_ptr() == buf.data_ptr()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="arrival"):
+        with torch.cuda.graph(graph):
+            paged_attention.arrival_counters(ex.device, buf.numel() + 1)
+
+
+@pytest.mark.parametrize("B,S,H,K,c", [(1, 256, 64, 64, 16), (2, 64, 4, 16, 16),
+                                       (1, 4096, 64, 64, 32)])
+def test_rwkv6_chunk_replay_equals_eager(card, B, S, H, K, c):
+    """rwkv6_chunk captured in a CUDA graph (the carry launched as the intra
+    pass's programmatic dependent): a replay's output and state equal the
+    eager call's bit for bit."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(card, B, S, H, K, "bfloat16",
+                                        "float32", T=S)
+    args = (r, k, v, logw, u, s0)
+    want = ops.rwkv6_chunk(*args, out_dtype=torch.float32, chunk=c)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.rwkv6_chunk(*args, out_dtype=torch.float32, chunk=c)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = ops.rwkv6_chunk(*args, out_dtype=torch.float32, chunk=c)
+    for x in got:
+        x.fill_(float("nan"))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -1004,3 +1004,126 @@ def test_port_paged_engine_at_qp5_matches_jax_engine():
     port = [tuple(r.output_tokens) for rq in ttrace for r in rq.requests]
     want = [tuple(r.output_tokens) for rq in jtrace for r in rq.requests]
     assert port == want and all(len(s) >= 1 for s in port)
+
+
+# --------------------------------------------------------------------------
+# the executors' shape buckets (one CUDA graph each on the card; eager steps
+# here) against the executables the reference's executors compile
+# --------------------------------------------------------------------------
+import functools  # noqa: E402
+
+from repro.core.batch import Batch as JaxBatch  # noqa: E402
+
+# every relQuery at t = 0 and prefills of at most 512 (128) tokens a batch:
+# the batches follow from the trace alone, and under the pipelined loop the
+# speculative plans bring new prefill buckets, which prestage captures
+BUCKET_TRACE = dict(num_relqueries=3, rate=1e9, seed=2, max_requests=3,
+                    output_token_cap=3)
+BUCKET_CASES = [("qwen3-1.7b", "paged", "serial", 512),
+                ("qwen3-1.7b", "paged", "pipelined", 512),
+                ("rwkv6-7b", "dense", "serial", 128),
+                ("rwkv6-7b", "dense", "pipelined", 128)]
+# zero-initialised RWKV6 params that get random values, so every path works
+BUCKET_RWKV_NOISE = ("ln1_b", "ln2_b", "mu_base", "mu", "lora_b", "w0", "wd2",
+                     "bonus", "mu_ck", "mu_cr")
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_models(arch):
+    """The 2-layer smoke config in float32, one set of weights for both."""
+    jm = jax_build_model(jax_smoke_config(arch).replace(dtype="float32"))
+    jp = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    if arch == "rwkv6-7b":
+        rng = np.random.RandomState(4)
+        blocks = dict(jp["blocks"])
+        for name in BUCKET_RWKV_NOISE:
+            blocks[name] = 0.3 * rng.randn(*blocks[name].shape).astype(np.float32)
+        jp = dict(jp, blocks=blocks)
+    tm = build_model(get_smoke_config(arch).replace(dtype="float32"))
+    return jm, jax.tree.map(jnp.asarray, jp), tm, params_from_numpy(jp)
+
+
+def _bucket_keys(ex, backend):
+    if backend == "dense":
+        return sorted(ex._prefill_fn), ex._decode_fn is not None
+    return tuple(sorted(getattr(ex, f"_{n}_fn"))
+                 for n in ("prefill", "scatter", "decode"))
+
+
+def _record_prestage(ex):
+    """The prefill keys each ``prestage`` call adds, in call order."""
+    added, inner = [], ex.prestage
+
+    def prestage(batch):
+        before = set(ex._prefill_fn)
+        inner(batch)
+        added.append(sorted(set(ex._prefill_fn) - before))
+
+    ex.prestage = prestage
+    return added
+
+
+def _jax_bucket_trace(vocab):
+    return jax_build_trace(jax_make_dataset("beer", num_rows=64, seed=1),
+                           JaxTraceConfig(**BUCKET_TRACE),
+                           tokenizer=JaxHashTokenizer(vocab_size=vocab))
+
+
+def _one_at_a_time(ex, trace):
+    """Greedy streams of the reference's dense executor ``ex`` (its slots
+    free) serving each request alone (no batch decodes beside a prefill):
+    the streams the port's off-batch rule keeps for a recurrent model
+    (test_torch_engine.py)."""
+    streams = []
+    for rq in trace:
+        for r in rq.requests:
+            batch = JaxBatch("prefill", prefill_requests=[r])
+            while True:
+                _, res = ex.execute(batch, 0.0)
+                tok, done = res.outputs[r.req_id]
+                r.output_tokens.append(tok)
+                if done:
+                    break
+                batch = JaxBatch("decode", decode_requests=[r])
+            ex.release_request(r.req_id)
+            streams.append(tuple(r.output_tokens))
+    return streams
+
+
+@pytest.mark.parametrize("arch,backend,loop,mnbt", BUCKET_CASES)
+def test_executor_buckets_match_the_references(arch, backend, loop, mnbt):
+    """The keys of the port's steps (dense ``_prefill_fn``, ``_decode_fn``;
+    paged ``_prefill_fn``, ``_scatter_fn``, ``_decode_fn``) equal the
+    reference executor's compiled ones after one trace, the keys each
+    ``prestage`` adds equal the reference's, and the f32 streams equal the
+    reference's (rwkv6: served one request at a time)."""
+    jm, jp, tm, tp = _bucket_models(arch)
+    vocab = tm.cfg.vocab_size - 2
+    jtrace = _jax_bucket_trace(vocab)
+    ttrace = build_trace(make_dataset("beer", num_rows=64, seed=1),
+                         TraceConfig(**BUCKET_TRACE),
+                         tokenizer=HashTokenizer(vocab_size=vocab))
+    jengine = jax_build_real_engine(
+        arch, "relserve", backend, model=jm, params=jp, max_len=256,
+        engine_loop=loop,
+        limits=JaxBatchLimits(max_num_batched_tokens=mnbt, cap=100_000))
+    jadded = _record_prestage(jengine.executor)
+    jengine.run_trace(jtrace)
+    engine = build_real_engine(
+        arch, "relserve", backend, model=tm, params=tp, max_len=256,
+        engine_loop=loop, device="cpu",
+        limits=BatchLimits(max_num_batched_tokens=mnbt, cap=100_000))
+    ex = engine.executor
+    added = _record_prestage(ex)
+    engine.run_trace(ttrace)
+    assert _bucket_keys(ex, backend) == _bucket_keys(jengine.executor, backend)
+    assert added == jadded
+    assert any(added) == (loop == "pipelined")
+    assert ex.num_graphs == 0 and ex.capture_s > 0
+    assert ex.prefill_calls == sum(s.calls for s in ex._prefill_fn.values()) > 0
+    port = [tuple(r.output_tokens) for rq in ttrace for r in rq.requests]
+    if arch == "rwkv6-7b":
+        want = _one_at_a_time(jengine.executor, _jax_bucket_trace(vocab))
+    else:
+        want = [tuple(r.output_tokens) for rq in jtrace for r in rq.requests]
+    assert port == want and all(port)

@@ -25,7 +25,9 @@ records, for qwen3-1.7b's attention shapes and ``chip_smoke.ATTN_SHAPES``:
   of rwkv6-7b's dense serve, the path that calls it (the same serve, one
   warm-up, then 5 timed), and nothing else. Each serve also gives the
   executor's prefill and decode seconds, and there the host seconds spent
-  inside its ``rwkv6_chunk`` calls and their count.
+  inside its ``rwkv6_chunk`` calls and their count. A checkout whose
+  executors replay CUDA graphs calls the wrapper only while it captures a
+  bucket, so there those are the captures' calls and seconds.
 
 Runs go in the order given, so parent, change, change, parent brackets the
 card's drift. Prints each run's record and, last, a JSON object with all of
