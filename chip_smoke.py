@@ -135,14 +135,25 @@ Phases (each raises on failure; none catches its own):
                512, 1500 encoder frames, max_target_len 448): ragged frame
                lengths, a prefill of 64 tokens and 4 decode steps vs one
                decoder pass, float32 held (1e-5), bf16 reported
- 20. train   — qwen3-1.7b at full width and depth through make_train_step
-               (bf16 params, float32 masters, batch 8 x 128, lr 1e-3, remat):
+ 20. train   — qwen3-1.7b at full width and depth through the captured train
+               step (TrainStep: the first call a real step run eagerly,
+               then one CUDA graph of the whole step replayed; bf16
+               params, float32 masters, batch 8 x 128, lr 1e-3, remat):
                25 steps on one batch, the last loss below 0.8 x the first;
-               step time and peak memory; a checkpoint written, read back
-               bit for bit, and a resumed step bit-identical to the unbroken
-               one (deterministic algorithms)
- 21. train   — one train step of each family (dense, MoE, rwkv6, hymba,
-     families  whisper) at full width cut to 2 layers: finite loss and grads
+               two replays traced on the device; then the eager in-place
+               step on the same trees, two of its steps traced: step time,
+               host launches per step, idle share, capture seconds, graph
+               pool and peak memory side by side; 3 replays of a step
+               captured under deterministic algorithms against 3 eager
+               steps from the same state, bit for bit; a checkpoint
+               written, read back bit for bit, and a replay after
+               load_state of it bit-identical to one from the live state
+ 21. train   — one train step of each family (qwen3 and qwen2 dense,
+     families  granite and qwen3-moe, rwkv6, hymba, whisper) at full width
+               cut to 2 layers, under deterministic algorithms: the eager
+               step with synchronising CUDA calls made errors, then one
+               replay of the captured step from the same state: loss, grad
+               norm and new parameters bit for bit
                Phases 19-21 launch no kernel of this repo (checked); phases 22
                and 23 launch flash_prefill once per layer per qwen3 prefill,
                phase 23 also rwkv6_chunk once per layer per rwkv6 prefill.
@@ -178,8 +189,12 @@ Phases (each raises on failure; none catches its own):
                phases and waited for here; then qwen3-1.7b's prefill_32k,
                decode_32k and train_4k cells (launch/cells.py) run for real
                at full width and depth in bf16, cut in batch only (32 -> 1,
-               128 -> 8, 256 -> 2), each step timed (median of 5 after a
-               warm-up) beside its roofline bound, mfu and bound_share;
+               128 -> 8, 256 -> 2), each step eager (median of 3 after a
+               warm-up) and captured (CellStep: a warm-up, a real step, the
+               capture, then median of 5 replays; the prefill's and
+               decode's replays equal to the eager step bit for bit) beside
+               its roofline bound, mfu and bound_share, with the capture
+               seconds, graph pool and peak memory;
                flash_prefill at S 32768 on layer 0's q/k/v against its plain
                version over query blocks (q_offset), its grid under 65535
  24. times   — each kernel, its plain version and (flash_prefill only) torch's
@@ -236,7 +251,7 @@ from repro_torch.engine import graphs  # noqa: E402
 from repro_torch.engine.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, flash_prefill, ops, ref  # noqa: E402
 from repro_torch.launch.cells import (  # noqa: E402
-    TRAIN_GRAD_ACCUM, build_cell, materialize, use_kernels)
+    TRAIN_GRAD_ACCUM, CellStep, build_cell, materialize, use_kernels)
 from repro_torch.launch.roofline import PEAK_FLOPS, roofline_row  # noqa: E402
 from repro_torch.launch.train import token_stream  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -253,7 +268,7 @@ from repro_torch.serving import Frontend, build_real_engine  # noqa: E402
 from repro_torch.training.optimizer import (  # noqa: E402
     AdamWConfig, adamw_update, init_opt_state, shard_opt_state)
 from repro_torch.training.train_step import (  # noqa: E402
-    TrainConfig, loss_and_grads, make_train_step)
+    TrainConfig, TrainStep, loss_and_grads)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
@@ -387,11 +402,17 @@ TRAIN_STEPS = 25
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_LR = 1e-3
 TRAIN_LOSS_DROP = 0.8
-TRAIN_FAMILIES = ("qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-7b",
-                  "hymba-1.5b", "whisper-base")
+TRAIN_FAMILIES = ("qwen3-1.7b", "qwen2-0.5b", "granite-moe-3b-a800m",
+                  "qwen3-moe-30b-a3b", "rwkv6-7b", "hymba-1.5b", "whisper-base")
 TRAIN_FAMILY_LAYERS = 2
 # the steps of the 25 traced on the device (first, count)
 TRAIN_PROFILE = (20, 2)
+# the eager in-place step on the same trees, for comparison: steps run and
+# the steps of them traced (first, count)
+TRAIN_EAGER_STEPS = 6
+TRAIN_EAGER_PROFILE = (2, 2)
+# captured replays held against as many eager steps, bit for bit
+TRAIN_CHECK_STEPS = 3
 # multi-device (phase 22): a one-rank NCCL process group and a (1, 1)
 # ("data", "model") DeviceMesh. qwen3-1.7b's sequence-parallel decode is held
 # against the single-device decode_step from the same prefill cache, in
@@ -471,6 +492,9 @@ CELLS = (("prefill_32k", 32768, 1, "batch 32 -> 1"),
          ("decode_32k", 32768, 8, "batch 128 -> 8"),
          ("train_4k", 4096, 2, "batch 256 -> 2 (grad_accum 2 kept)"))
 CELL_STEPS = 5
+# eager steps of each cell timed after its warm-up: fewer than the replays,
+# since an eager train_4k step takes ~10 s of host time
+CELL_EAGER_STEPS = 3
 # flash_prefill at S = 32768 against its plain version, evaluated over query
 # blocks of FLASH_BLOCK rows with q_offset (32768^2 scores at once would not
 # fit): each block at the bf16 tolerance and, since a late block's outputs
@@ -1924,10 +1948,9 @@ def graph_vs_eager(label: str, fn, arrays, reset, card: str) -> None:
     state ``reset`` leaves: logs whether the logits are equal bit for bit,
     and else the largest difference."""
     dev = torch.device("cuda")
-    shapes = [a.shape for a in arrays]
     reset()
-    want = graphs.capture(fn, shapes, arrays, dev)[0](*arrays)[0]
-    step, secs = graphs.capture(fn, shapes, arrays, dev,
+    want = graphs.capture(fn, arrays, dev)[0](*arrays)[0]
+    step, secs = graphs.capture(fn, arrays, dev,
                                 pool=torch.cuda.graph_pool_handle(),
                                 stream=torch.cuda.Stream())
     reset()
@@ -2456,91 +2479,176 @@ def same_leaves(paths, leaves, by_path) -> bool:
         for p, x in zip(paths, leaves))
 
 
-def phase_train(device="cuda") -> dict:
-    """qwen3-1.7b at full width and depth through ``make_train_step``:
-    TRAIN_STEPS steps on one batch of the reference CLI's token stream;
-    every loss finite and the last below TRAIN_LOSS_DROP of the first; no
-    kernel of this repo launched. Then a checkpoint: written, read back bit
-    for bit, and a step from the loaded state equal to a step from the live
-    one, both under deterministic algorithms (the backward of the embedding
-    gather and of the loss's gather would otherwise add with atomics in
-    any order). Steps TRAIN_PROFILE are traced on the device. Returns the
-    launch counts."""
-    cfg, model, params = load_model("qwen3-1.7b")
-    tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
-    ds = make_dataset("rotten", num_rows=2000, seed=SEED)
-    batch = {k: torch.as_tensor(v, device=device) for k, v in
-             next(token_stream(ds, tok, TRAIN_BATCH, TRAIN_SEQ, SEED)).items()}
+def run_train(step, batch, n_steps: int, window, what: str) -> tuple:
+    """``n_steps`` calls of the train step ``step`` on the host ``batch``,
+    each timed between two device synchronisations, steps ``window``
+    (first, count) traced on the device. Returns (losses, seconds, the last
+    metrics, log_device_profile's figures)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = make_train_step(model, TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR)))
-    opt = init_opt_state(params)
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    prof = profile(activities=[ProfilerActivity.CUDA] if device == "cuda"
-                   else [ProfilerActivity.CPU])
-    first, n = TRAIN_PROFILE
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    first, n = window
     losses, secs = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         if i == first:
             prof.start()
-        (params, opt, m), dt = sync_seconds(lambda: step(params, opt, batch))
+        m, dt = sync_seconds(lambda: step(batch))
         if i == first + n - 1:
             prof.stop()
         losses.append(float(m["loss"]))
         secs.append(dt)
-    peak = torch.cuda.max_memory_allocated()
+    fig = log_device_profile(prof, sum(secs[first:first + n]), what, n, "step")
+    return losses, secs, m, fig
+
+
+def per(x, n):
+    """``x / n``, None where ``x`` was not measured."""
+    return None if x is None else x / n
+
+
+def host_trees(trees):
+    """``trees`` copied to the host."""
+    return tree_map(lambda x: x.cpu(), trees)
+
+
+def same_trees(live, host) -> bool:
+    """Two trees of the same paths, dtypes and bits (``host`` anywhere)."""
+    return same_leaves(*tree_flatten(live), dict(zip(*tree_flatten(host))))
+
+
+def phase_train(device="cuda") -> dict:
+    """qwen3-1.7b at full width and depth through the captured train step
+    (``TrainStep``: the first call a real step run eagerly, then one CUDA
+    graph replayed): TRAIN_STEPS steps on one batch of the reference CLI's
+    token stream; every loss finite and the last below TRAIN_LOSS_DROP of
+    the first; no kernel of this repo launched; steps TRAIN_PROFILE traced
+    on the device. Then the eager in-place step on the same trees for
+    comparison (TRAIN_EAGER_STEPS, steps TRAIN_EAGER_PROFILE traced): step
+    time, host launches per step, idle share, capture seconds, graph pool
+    and peak memory side by side. Under deterministic algorithms (the
+    backward of the embedding gather and of the loss's gather would
+    otherwise add with atomics in any order), TRAIN_CHECK_STEPS replays of
+    a step captured under them against as many eager steps from the same
+    state: losses, grad norms and every leaf bit for bit. Then a
+    checkpoint: written, read back bit for bit, and a step after
+    ``load_state`` of it equal to a step from the live state. Returns the
+    launch counts."""
+    cfg, model, params = load_model("qwen3-1.7b")
+    tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
+    ds = make_dataset("rotten", num_rows=2000, seed=SEED)
+    batch = next(token_stream(ds, tok, TRAIN_BATCH, TRAIN_SEQ, SEED))
+    card = nvidia_smi_line()
+    tc = TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR))
+    opt = init_opt_state(params)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step = TrainStep(model, tc, params, opt)
+    first, n = TRAIN_PROFILE
+    losses, secs, m, cap = run_train(
+        step, batch, TRAIN_STEPS, TRAIN_PROFILE,
+        f"{cfg.name} captured train steps {first}..{first + n - 1}")
+    peak, pool = torch.cuda.max_memory_allocated(), graphs.pool_bytes(step.pool)
     counts = ops.launch_counts()
     plain = secs[1:first] + secs[first + n:]
     log(f"[train] {cfg.name} {cfg.num_layers} layers bf16 params, f32 masters "
         f"({model.param_count() / 1e9:.3f}B params), batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}, lr {TRAIN_LR:g}, remat on: losses "
+        f"{TRAIN_SEQ}, lr {TRAIN_LR:g}, remat on, captured: losses "
         + " ".join(f"{x:.4f}" for x in losses))
-    log(f"[train] step time: first {secs[0] * 1e3:.1f} ms, median of the "
-        f"unprofiled rest {float(np.median(plain)) * 1e3:.1f} ms, min "
-        f"{min(plain) * 1e3:.1f} ms; torch.cuda.max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB; grad norm last {float(m['grad_norm']):.4f}; "
-        f"launches {counts}; {nvidia_smi_line()}")
-    log_device_profile(prof, sum(secs[first:first + n]),
-                       f"{cfg.name} train steps {first}..{first + n - 1}",
-                       n, "step")
+    log(f"[train] captured step time: first (a real step run eagerly, then "
+        f"the capture) {secs[0] * 1e3:.1f} ms, of it the capture "
+        f"{step.capture_s * 1e3:.1f} ms; median of the unprofiled replays "
+        f"{float(np.median(plain)) * 1e3:.1f} ms, min {min(plain) * 1e3:.1f} "
+        f"ms; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; graph "
+        f"pool {gib(pool)}; grad norm last {float(m['grad_norm']):.4f}; "
+        f"launches {counts}; {card}")
     check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
     check(losses[-1] < TRAIN_LOSS_DROP * losses[0],
           f"no learning: {losses[0]:.4f} -> {losses[-1]:.4f}")
     check(not any(counts.values()), f"training launched a kernel: {counts}")
+    capture_s = step.capture_s
+    del step
+    free()
 
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    trees = {"params": params, "opt": opt}
-    _, dt = sync_seconds(lambda: save_checkpoint(CKPT_DIR, TRAIN_STEPS, trees,
-                                                 {"arch": cfg.name}))
-    (at, host), dt_read = sync_seconds(lambda: load_checkpoint(CKPT_DIR))
-    check(at == TRAIN_STEPS, f"the checkpoint reads back as step {at}")
-    for name, tree in trees.items():
-        check(same_leaves(*tree_flatten(tree), host[name]),
-              f"checkpoint {name} did not read back bit for bit")
-    nbytes = sum(x.numel() * x.element_size() for x in tree_flatten(trees)[1])
-    del host
-    skeleton = tree_map(lambda x: x.new_empty(0), trees)
+    torch.cuda.reset_peak_memory_stats()
+    eager = TrainStep(model, tc, params, opt, eager=True)
+    first, n = TRAIN_EAGER_PROFILE
+    _, e_secs, _, eag = run_train(
+        eager, batch, TRAIN_EAGER_STEPS, TRAIN_EAGER_PROFILE,
+        f"{cfg.name} eager train steps {first}..{first + n - 1}")
+    e_peak = torch.cuda.max_memory_allocated()
+    e_plain = e_secs[1:first] + e_secs[first + n:]
+    del eager
+    free()
+    row = {"step_ms": float(np.median(plain)) * 1e3,
+           "eager_step_ms": float(np.median(e_plain)) * 1e3,
+           "host_per_step": cap["host_per"], "eager_host_per_step": eag["host_per"],
+           "idle": cap["idle"], "eager_idle": eag["idle"],
+           "busy_ms_per_step": per(cap.get("busy_ms"), TRAIN_PROFILE[1]),
+           "eager_busy_ms_per_step": per(eag.get("busy_ms"),
+                                         TRAIN_EAGER_PROFILE[1]),
+           "capture_s": capture_s, "pool_bytes": pool, "peak_bytes": peak,
+           "eager_peak_bytes": e_peak, "card": card}
+    log(f"[train] captured vs eager ({cfg.name}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}): step median {row['step_ms']:.1f} vs "
+        f"{row['eager_step_ms']:.1f} ms; host launches per step "
+        f"{row['host_per_step']} vs {row['eager_host_per_step']}; idle "
+        f"{row['idle']} vs {row['eager_idle']}; device busy per step "
+        f"{row['busy_ms_per_step']} vs {row['eager_busy_ms_per_step']} ms; "
+        f"capture {capture_s:.2f}s; graph pool {gib(pool)}; peak "
+        f"{peak / 2**30:.2f} vs {e_peak / 2**30:.2f} GiB; {card}")
+    log("[train] json " + json.dumps(row))
+
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        p_live, o_live, m_live = step(params, opt, batch)
-        del params, opt, trees, o_live     # the live state is donated
-        free()
-        _, back = load_checkpoint(CKPT_DIR, template_trees=skeleton)
-        p_back, o_back, m_back = step(back["params"], back["opt"], batch)
-        del back, o_back
+        start = host_trees({"params": params, "opt": opt})
+        eager = TrainStep(model, tc, params, opt, eager=True)
+        want = [eager(batch) for _ in range(TRAIN_CHECK_STEPS)]
+        want = [(float(x["loss"]), float(x["grad_norm"])) for x in want]
+        after = host_trees(eager.trees)
+        del eager
+        step = TrainStep(model, tc, params, opt)
+        step(batch)                         # the warm-up and the capture
+        step.load_state(start)
+        got = [step(batch) for _ in range(TRAIN_CHECK_STEPS)]
+        got = [(float(x["loss"]), float(x["grad_norm"])) for x in got]
+        same = same_trees(step.trees, after)
+        del start, after
+        log(f"[train] {TRAIN_CHECK_STEPS} captured steps vs as many eager ones "
+            f"from the same state (deterministic algorithms): (loss, grad "
+            f"norm) {got} vs {want}; params, m, v, master and step equal bit "
+            f"for bit: {same}")
+        check(got == want and same, "the captured train step differs from "
+                                    "the eager one")
+
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        _, dt = sync_seconds(lambda: save_checkpoint(
+            CKPT_DIR, TRAIN_STEPS, step.trees, {"arch": cfg.name}))
+        skeleton = tree_map(lambda x: x.new_empty(0, device="cpu"), step.trees)
+        (at, host), dt_read = sync_seconds(
+            lambda: load_checkpoint(CKPT_DIR, template_trees=skeleton))
+        check(at == TRAIN_STEPS, f"the checkpoint reads back as step {at}")
+        for name, tree in step.trees.items():
+            check(same_trees(tree, host[name]),
+                  f"checkpoint {name} did not read back bit for bit")
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in tree_flatten(step.trees)[1])
+        m_live = step(batch)
+        p_live = tree_map(torch.clone, step.params)
+        step.load_state(host)
+        del host
+        m_back = step(batch)
+        same = same_trees(step.params, p_live)
     finally:
         torch.use_deterministic_algorithms(False)
-    same = same_leaves(*tree_flatten(p_live), dict(zip(*tree_flatten(p_back))))
     log(f"[train] checkpoint at step {TRAIN_STEPS}: {nbytes / 2**30:.2f} GiB "
-        f"written in {dt:.1f}s, read back bit for bit in {dt_read:.1f}s; step "
-        f"{TRAIN_STEPS + 1} from the loaded state vs from the live one "
+        f"written in {dt:.1f}s, read back bit for bit in {dt_read:.1f}s; the "
+        f"captured step after load_state of it vs from the live state "
         f"(deterministic algorithms): loss {float(m_back['loss']):.6f} vs "
         f"{float(m_live['loss']):.6f}, params equal: {same}")
     check(float(m_back["loss"]) == float(m_live["loss"]) and same,
           "a run resumed from the checkpoint differs from the unbroken one")
     shutil.rmtree(CKPT_DIR)
-    del p_live, p_back, skeleton
+    del step, p_live, params, opt
     free()
     return counts
 
@@ -2566,30 +2674,82 @@ def family_batch(cfg, device="cuda") -> dict:
     return batch
 
 
+def reset_train_state(step, p0) -> None:
+    """A train step's live trees set back, in place, to ``p0`` and
+    ``init_opt_state(p0)``'s state (zero moments and step, the masters
+    ``p0`` in float32)."""
+    leaves = lambda t: tree_flatten(t)[1]  # noqa: E731
+    with torch.no_grad():
+        for p, w, x in zip(leaves(step.params), leaves(step.opt["master"]),
+                           leaves(p0)):
+            p.copy_(x)
+            w.copy_(x)
+        for t in leaves(step.opt["m"]) + leaves(step.opt["v"]):
+            t.zero_()
+        step.opt["step"].zero_()
+
+
 def phase_train_families(device="cuda") -> dict:
     """One train step (bf16, remat) of each family at full width cut to
-    TRAIN_FAMILY_LAYERS layers: loss and grad norm finite, no kernel of
-    this repo launched. Returns the launch counts over all of them."""
+    TRAIN_FAMILY_LAYERS layers, under deterministic algorithms: the eager
+    in-place step, with the CUDA runtime set to raise on a synchronising
+    call (a step that syncs the host cannot be captured), and one replay of
+    the captured step from the same state (``TrainStep``; its first call,
+    the warm-up, a real step, is undone by ``reset_train_state``): loss and
+    grad norm finite, losses, grad norms and the new parameters equal bit
+    for bit (every leaf of the state: tests/test_torch_gpu.py); no kernel
+    of this repo launched. Returns the launch counts over all of them."""
     ops.reset_launch_counts()
-    for arch in TRAIN_FAMILIES:
-        n = TRAIN_FAMILY_LAYERS
-        cfg = get_config(arch).replace(num_layers=n)
-        if cfg.is_encoder_decoder:
-            cfg = cfg.replace(num_encoder_layers=n)
-        model = build_model(cfg)
-        params = model.init_params(torch.Generator(device=device).manual_seed(SEED))
-        batch = family_batch(cfg, device)
-        step = make_train_step(model, TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR)))
-        opt = init_opt_state(params)
-        (_, _, m), dt = sync_seconds(lambda: step(params, opt, batch))
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        log(f"[train family] {cfg.name} ({cfg.family}) {n} layers, "
-            f"{model.param_count() / 1e9:.3f}B params: loss {loss:.4f}, grad "
-            f"norm {gnorm:.4f}, {dt * 1e3:.1f} ms")
-        check(math.isfinite(loss) and math.isfinite(gnorm),
-              f"{cfg.name}: non-finite loss or gradient")
-        del model, params, batch, step, opt, m
-        free()
+    tc = TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch in TRAIN_FAMILIES:
+            n = TRAIN_FAMILY_LAYERS
+            cfg = get_config(arch).replace(num_layers=n)
+            if cfg.is_encoder_decoder:
+                cfg = cfg.replace(num_encoder_layers=n)
+            model = build_model(cfg)
+            params = model.init_params(
+                torch.Generator(device=device).manual_seed(SEED))
+            p0 = tree_map(torch.clone, params)
+            batch = {k: v.cpu() for k, v in family_batch(cfg, device).items()}
+            eager = TrainStep(model, tc, params, init_opt_state(params),
+                              eager=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m_e = eager(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            dt_e = time.perf_counter() - t0
+            want_params = tree_map(torch.clone, params)
+            step = TrainStep(model, tc, params, eager.opt)
+            del eager
+            _, dt_first = sync_seconds(lambda: step(batch))
+            reset_train_state(step, p0)
+            m_c, dt_c = sync_seconds(lambda: step(batch))
+            got = (float(m_c["loss"]), float(m_c["grad_norm"]))
+            want = (float(m_e["loss"]), float(m_e["grad_norm"]))
+            same = same_trees(step.params, want_params)
+            log(f"[train family] {cfg.name} ({cfg.family}) {n} layers, "
+                f"{model.param_count() / 1e9:.3f}B params: loss {got[0]:.4f}, "
+                f"grad norm {got[1]:.4f}; eager step {dt_e * 1e3:.1f} ms "
+                f"(no synchronising call), first captured call (a real step, "
+                f"then the capture) {dt_first * 1e3:.1f} ms, of it the "
+                f"capture {step.capture_s * 1e3:.1f} ms, a replay "
+                f"{dt_c * 1e3:.1f} ms; graph pool {gib(graphs.pool_bytes(step.pool))}; "
+                f"captured vs eager (deterministic algorithms): (loss, grad "
+                f"norm) {got} vs {want}, new params equal bit for bit: {same}")
+            check(all(map(math.isfinite, got)),
+                  f"{cfg.name}: non-finite loss or gradient")
+            check(got == want and same,
+                  f"{cfg.name}: the captured train step differs from the eager one")
+            del model, params, p0, want_params, batch, step
+            free()
+    finally:
+        torch.use_deterministic_algorithms(False)
     counts = ops.launch_counts()
     check(not any(counts.values()), f"a family's train step launched a "
                                     f"kernel: {counts}")
@@ -3125,21 +3285,22 @@ def flash_prefill_at_32k(cell, args) -> dict:
     return rec
 
 
-def run_cell_steps(cell, args, steps: int) -> tuple:
-    """One warm-up call of the cell, then ``steps`` timed ones (host clock
-    around torch.cuda.synchronize()). Returns (the last output, seconds per
-    step, peak bytes allocated during the timed steps, launches in one
-    step). Each step takes the same arguments, so the last step's output
-    is let go before the next (a train step's new parameters, a prefill's
-    cache: GiBs the step itself does not hold)."""
-    out, _ = sync_seconds(lambda: cell.fn(*args))
-    del out
-    torch.cuda.reset_peak_memory_stats()
+def run_cell_steps(fn, steps: int, warm: bool = True) -> tuple:
+    """A warm-up call of ``fn`` (unless ``warm`` is False), then ``steps``
+    timed ones (host clock around torch.cuda.synchronize()). Returns (the
+    last output, seconds per step, peak bytes allocated since the warm-up,
+    launches in one step). Each step takes the same arguments, so the last
+    step's output is let go before the next (a train step's new parameters,
+    a prefill's cache: GiBs the step itself does not hold)."""
+    if warm:
+        out, _ = sync_seconds(fn)
+        del out
+        torch.cuda.reset_peak_memory_stats()
     secs = []
     for i in range(steps):
         out = None
         before = ops.launch_counts()
-        out, dt = sync_seconds(lambda: cell.fn(*args))
+        out, dt = sync_seconds(fn)
         secs.append(dt)
         after = ops.launch_counts()
         if i == 0:
@@ -3147,12 +3308,26 @@ def run_cell_steps(cell, args, steps: int) -> tuple:
     return out, secs, torch.cuda.max_memory_allocated(), one
 
 
+def cell_outputs(kind: str, out):
+    """The tensors a cell's step gives back: (logits, and a prefill's
+    cache), or a train step's loss and grad norm."""
+    if kind == "train":
+        m = out[2] if isinstance(out, tuple) else out
+        return [m["loss"], m["grad_norm"]]
+    return [out[0]] + (tree_flatten(out[1])[1] if kind == "prefill" else [])
+
+
 def phase_cells(device="cuda") -> tuple:
     """qwen3-1.7b's prefill_32k, decode_32k and train_4k cells (CELLS) built
     by launch/cells.py, run for real at full width and depth in bf16 on
-    random weights from SEED through the kernels (use_kernels), each beside
-    roofline_row's bound at its cut shape. Returns (the path's launch
-    counts, flash_prefill's record at S 32768)."""
+    random weights from SEED through the kernels (use_kernels): each step
+    eager (the cell's function) and captured (``CellStep``: a warm-up, a
+    real step, then one CUDA graph replayed; train_4k through the captured
+    train step, grad_accum 2), each timed beside roofline_row's bound at
+    its cut shape, with the capture seconds, graph pool and peak memory.
+    A prefill's or decode's replay equals its eager step bit for bit.
+    Returns (the path's launch counts, flash_prefill's record at S
+    32768)."""
     card = nvidia_smi_line()
     rows = []
     built = {}
@@ -3176,9 +3351,11 @@ def phase_cells(device="cuda") -> tuple:
         else:
             cell = use_kernels(build_cell(CELL_ARCH, name, None, shape=shape))
             args = materialize(cell, device, SEED)
-        out, secs, peak, one = run_cell_steps(cell, args, CELL_STEPS)
+        out, secs, peak, one = run_cell_steps(lambda: cell.fn(*args),
+                                              CELL_EAGER_STEPS)
         for k in counted:
-            counted[k] += one[k] * (CELL_STEPS + 1)
+            counted[k] += one[k] * (CELL_EAGER_STEPS + 1)
+        want = [x.clone() for x in cell_outputs(kind, out)]
         if kind == "prefill":
             lg, cache = out
             check(tuple(lg.shape) == (B, cell.model.cfg.vocab_size)
@@ -3188,7 +3365,7 @@ def phase_cells(device="cuda") -> tuple:
                   f"{name}: launches per prefill {one}")
             what = f"logits {list(lg.shape)} finite, cache k_full {list(cache['k_full'].shape)}"
         elif kind == "serve":
-            lg, _ = out
+            lg = out[0]     # its cache (28 GiB) goes with ``out`` below
             check(tuple(lg.shape) == (B, cell.model.cfg.vocab_size)
                   and bool(torch.isfinite(lg.float()).all()), f"{name}: logits")
             check(not any(one.values()), f"{name}: launches per step {one}")
@@ -3198,31 +3375,71 @@ def phase_cells(device="cuda") -> tuple:
             check(math.isfinite(loss) and not any(one.values()),
                   f"{name}: loss {loss}, launches {one}")
             what = f"loss {loss:.4f}, grad norm {float(out[2]['grad_norm']):.4f}"
-        out = lg = cache = args = None
+        out = lg = cache = None
         free()
-        t = float(np.median(secs))
+
+        # captured: the warm-up (a real step) and the capture, then replays
+        torch.cuda.reset_peak_memory_stats()
+        cs, first_s = sync_seconds(lambda: CellStep(cell, args))
+        c_out, c_secs, c_peak, c_one = run_cell_steps(cs.step, CELL_STEPS,
+                                                      warm=False)
+        pool = graphs.pool_bytes(cs.pool)
+        for k in counted:
+            counted[k] += c_one[k] * CELL_STEPS
+        got = cell_outputs(kind, c_out)
+        check(c_one == one, f"{name}: launches per replay {c_one}, per eager "
+                            f"step {one}")
+        check(all(bool(torch.isfinite(x.float()).all()) for x in got),
+              f"{name}: a captured step's output is not finite")
+        if kind == "train":
+            same = "not compared (each step moves the state)"
+        else:
+            equal = len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want))
+            same = f"equal to the eager step's bit for bit: {equal}"
+            check(equal, f"{name}: the captured step's outputs differ from "
+                         f"the eager step's")
+        capture_s = cs.capture_s
+        del cs, c_out, got, want
+        args = None
+        free()
+
+        t, tc = float(np.median(secs)), float(np.median(c_secs))
         row = roofline_row(CELL_ARCH, name, None, shape=shape)
-        mfu = row["model_flops_global"] / (PEAK_FLOPS * t)
+        bound = row["step_time_bound_s"]
         rec = {"cell": name, "reduced": cut, "seq_len": S, "batch": B,
-               "step_s": t, "step_s_min": min(secs), "steps": CELL_STEPS,
-               "peak_bytes": peak, "compute_term_s": row["compute_term_s"],
+               "step_s": tc, "step_s_min": min(c_secs),
+               "eager_step_s": t, "eager_step_s_min": min(secs),
+               "steps": CELL_STEPS, "eager_steps": CELL_EAGER_STEPS,
+               "first_s": first_s, "capture_s": capture_s,
+               "pool_bytes": pool, "peak_bytes": c_peak, "eager_peak_bytes": peak,
+               "compute_term_s": row["compute_term_s"],
                "memory_term_s": row["memory_term_s"],
                "collective_term_s": row["collective_term_s"],
-               "bound_s": row["step_time_bound_s"], "bound_by": row["bottleneck"],
+               "bound_s": bound, "bound_by": row["bottleneck"],
                "model_flops": row["model_flops_global"],
-               "dot_flops": row["dot_flops_per_device"], "mfu": mfu,
-               "bound_share": row["step_time_bound_s"] / t, "card": card}
+               "dot_flops": row["dot_flops_per_device"],
+               "mfu": row["model_flops_global"] / (PEAK_FLOPS * tc),
+               "eager_mfu": row["model_flops_global"] / (PEAK_FLOPS * t),
+               "bound_share": bound / tc, "eager_bound_share": bound / t,
+               "card": card}
         rows.append(rec)
         log(f"[cells] {CELL_ARCH} {name} ({cut}; {S} tokens x {B}) on {card}: "
-            f"step {t * 1e3:.2f} ms (median of {CELL_STEPS} after a warm-up; "
-            f"min {min(secs) * 1e3:.2f}), peak {peak / 2**30:.2f} GiB; bound "
-            f"{row['step_time_bound_s'] * 1e3:.2f} ms ({row['bottleneck']}: "
-            f"compute {row['compute_term_s'] * 1e3:.2f} ms, memory "
+            f"captured step {tc * 1e3:.2f} ms (median of {CELL_STEPS} replays; "
+            f"min {min(c_secs) * 1e3:.2f}), eager {t * 1e3:.2f} ms (median of "
+            f"{CELL_EAGER_STEPS} after a warm-up; min {min(secs) * 1e3:.2f}); first "
+            f"captured call (a real step, then the capture) {first_s:.3f}s, of "
+            f"it the capture {capture_s:.3f}s; graph pool {gib(pool)}; peak "
+            f"{c_peak / 2**30:.2f} GiB captured, {peak / 2**30:.2f} eager; "
+            f"bound {bound * 1e3:.2f} ms ({row['bottleneck']}: compute "
+            f"{row['compute_term_s'] * 1e3:.2f} ms, memory "
             f"{row['memory_term_s'] * 1e3:.2f} ms, collective "
             f"{row['collective_term_s'] * 1e3:.2f} ms); model FLOPs "
             f"{row['model_flops_global']:.4e}, dot FLOPs "
-            f"{row['dot_flops_per_device']:.4e}; mfu {mfu:.4f}, bound_share "
-            f"{rec['bound_share']:.4f}; {what}")
+            f"{row['dot_flops_per_device']:.4e}; mfu {rec['mfu']:.4f} "
+            f"(eager {rec['eager_mfu']:.4f}), bound_share "
+            f"{rec['bound_share']:.4f} (eager {rec['eager_bound_share']:.4f}); "
+            f"{what}; captured outputs {same}")
         del cell
         free()
     check(ops.launch_counts() == counted,

@@ -161,11 +161,11 @@ class _ExecutorBase:
                     f"the executor with a larger max_len")
 
     # ------------------------------------------------------------- steps
-    def _capture(self, fn, shapes, init, state) -> Tuple[graphs.Step, float]:
+    def _capture(self, fn, init, state) -> Tuple[graphs.Step, float]:
         """One bucket's step (``graphs.capture``) and its seconds. A captured
         step must return the executor's own ``state`` tensors: it writes
         them in place, where every replay writes them again."""
-        step, dt = graphs.capture(fn, shapes, init, self.device,
+        step, dt = graphs.capture(fn, init, self.device,
                                   pool=self._pool, stream=self._stream)
         if step.graph is not None and any(
                 step.outputs[1][name] is not x for name, x in state.items()):
@@ -276,7 +276,7 @@ class RealExecutor(_ExecutorBase):
 
         n = self.max_slots
         zeros = np.zeros((n,), np.int32)
-        step, _ = self._capture(decode, [(n,), (n,)], [zeros, zeros], cache)
+        step, _ = self._capture(decode, [zeros, zeros], cache)
         for c in cache.values():
             c.zero_()
         return step
@@ -290,9 +290,8 @@ class RealExecutor(_ExecutorBase):
             return model.prefill(params, toks, seq_lens=seq_lens,
                                  max_len=max_len)
 
-        return self._capture(prefill, [(1, bucket), (1,)],
-                             [np.zeros((1, bucket), np.int32),
-                              np.ones((1,), np.int32)], {})
+        return self._capture(prefill, [np.zeros((1, bucket), np.int32),
+                                       np.ones((1,), np.int32)], {})
 
     # ------------------------------------------------------------------ slots
     def _slot_view(self, name: str, i: int) -> torch.Tensor:
@@ -703,9 +702,8 @@ class PagedRealExecutor(_ExecutorBase):
 
         nblk = L // self.block_size
         return self._capture(
-            prefill, [(B, L), (B,), (B, nblk)],
-            [np.zeros((B, L), np.int32), np.ones((B,), np.int32),
-             np.full((B, nblk), self.scratch_block, np.int32)], pools)
+            prefill, [np.zeros((B, L), np.int32), np.ones((B,), np.int32),
+                      np.full((B, nblk), self.scratch_block, np.int32)], pools)
 
     def _decode_step(self, B: int, NB: int) -> Tuple[graphs.Step, float]:
         """The paged decode step of a (B, NB) bucket; its warm-up writes
@@ -719,9 +717,8 @@ class PagedRealExecutor(_ExecutorBase):
 
         zeros = np.zeros((B,), np.int32)
         return self._capture(
-            decode, [(B,), (B,), (B, NB), (B,)],
-            [zeros, zeros, np.full((B, NB), self.scratch_block, np.int32),
-             np.ones((B,), np.int32)], pools)
+            decode, [zeros, zeros, np.full((B, NB), self.scratch_block, np.int32),
+                     np.ones((B,), np.int32)], pools)
 
     def prestage(self, batch: Batch) -> None:
         """Capture the (batch, length) prefill buckets ``batch`` will group

@@ -29,6 +29,14 @@ so by default, as the reference's cells do. A cell run for real on the card
 (``materialize``) goes through ``use_kernels`` first: its prefill then
 launches ``flash_prefill``.
 
+``CellStep`` takes the place of ``lower_cell(...).compile()``: a built,
+materialised cell as a step captured once as a CUDA graph and replayed
+(``engine/graphs.py``). A train cell goes through the captured train step
+(``training/train_step.py::TrainStep``), a prefill or decode cell through
+``graphs.capture`` with its parameters (and a decode's cache, updated in
+place) held where they are and its token inputs static; ``flash_prefill``'s
+TMA maps are baked in at capture, as in the paged prefill graphs.
+
 A fake-tensor trace costs host time per operator, so a full-depth cell at
 production shapes takes minutes. ``trace_composed`` traces the cell at two
 and three layer groups and composes the full depth: the FLOPs and the
@@ -79,6 +87,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import ParallelConfig, placements
+from repro_torch.engine import graphs
 from repro_torch.launch.hlo_stats import (
     CollectiveRecord, CollectiveRecorder, CollectiveStats, collective_stats,
     dot_flops)
@@ -86,7 +95,7 @@ from repro_torch.models.param_utils import tree_flatten, tree_map
 from repro_torch.models.registry import build_model
 from repro_torch.training.optimizer import (
     abstract_opt_state, init_opt_state, opt_state_specs, zero1_spec)
-from repro_torch.training.train_step import TrainConfig, make_train_step
+from repro_torch.training.train_step import TrainConfig, TrainStep, make_train_step
 
 WHISPER_PROMPT_LEN = 64          # decoder prompt tokens at prefill
 
@@ -130,6 +139,7 @@ class Cell:
     donate_argnums: Tuple[int, ...]
     model: Any
     pc: ParallelConfig
+    train_config: Optional[TrainConfig] = None   # a train cell's
 
 
 def _meta(shape, dtype=torch.int32):
@@ -175,7 +185,7 @@ def build_cell(arch: str, shape_name: str, mesh=None,
         batch = _train_batch(cfg, B, S)
         return Cell(arch, shape, "train", step, (params, opt, batch),
                     (p_specs, opt_sh, None) if mesh is not None else None,
-                    (0, 1), model, pc)
+                    (0, 1), model, pc, tc)
 
     if shape.kind == "prefill":
         return _prefill_cell(arch, cfg, model, shape, B, S, pc, mesh, params,
@@ -311,6 +321,62 @@ def materialize(cell: Cell, device, seed: int = 0):
     # prefill: every row S long
     return ((params,) + tuple(draw(a) for a in cell.args[1:-1])
             + (full(cell.args[-1], S),))
+
+
+class CellStep:
+    """A materialised cell (``args`` from ``materialize``) as a replayable
+    step, the counterpart of the reference's ``lower_cell`` + ``.compile()``.
+    On CUDA the constructor runs the cell once (the warm-up, a real step)
+    and captures it; ``eager=True``, or the CPU, calls the cell at every
+    step instead. ``step()`` copies the cell's token inputs
+    (and a train cell's batch) from the host and replays: a train cell
+    returns ``{"loss", "grad_norm"}`` (its parameters and optimizer state
+    updated in place), a prefill ``(logits, cache)``, a decode ``(logits,
+    cache)`` with the cache written in place. ``capture_s`` is the
+    capture's seconds, the warm-up not counted; ``pool`` the graph's
+    memory pool (None when eager). Raises if a capture fails."""
+
+    def __init__(self, cell: Cell, args, *, eager: bool = False):
+        if cell.model.mesh is not None:
+            raise ValueError("a CellStep runs a cell at mesh=None")
+        self.cell = cell
+        device = tree_flatten(args[0])[1][0].device
+        if cell.kind == "train":
+            params, opt, batch = args
+            self.inputs = [{k: v.cpu() for k, v in batch.items()}]
+            self._step = TrainStep(cell.model, cell.train_config, params, opt,
+                                   eager=eager)
+            if self._step.pool is not None:
+                self._step(*self.inputs)
+            self.capture_s, self.pool = self._step.capture_s, self._step.pool
+            return
+        params = args[0]
+        if cell.kind == "serve":            # (params, cache, tokens, positions)
+            cache = args[1]
+            self.inputs = [a.cpu() for a in args[2:]]
+
+            def fn(*inputs):
+                return cell.fn(params, cache, *inputs)
+        else:                               # (params, *inputs)
+            cache = None
+            self.inputs = [a.cpu() for a in args[1:]]
+
+            def fn(*inputs):
+                return cell.fn(params, *inputs)
+        graphed = device.type == "cuda" and not eager
+        self.pool = torch.cuda.graph_pool_handle() if graphed else None
+        self._step, _ = graphs.capture(
+            fn, self.inputs, device, pool=self.pool,
+            stream=torch.cuda.Stream(device) if graphed else None)
+        self.capture_s = self._step.capture_s
+        if self._step.graph is not None and cache is not None and any(
+                a is not b for a, b in zip(tree_flatten(self._step.outputs[1])[1],
+                                           tree_flatten(cache)[1])):
+            raise RuntimeError("a captured decode cell returned a cache other "
+                               "than its own")
+
+    def step(self):
+        return self._step(*self.inputs)
 
 
 # --------------------------------------------------------------------------

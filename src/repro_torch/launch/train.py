@@ -5,6 +5,9 @@ Trains an --arch model (smoke config by default; --layers/--d-model override)
 on synthetic relational text, with checkpoint/restart via
 repro_torch.distributed.fault_tolerance — kill it mid-run and rerun with the
 same --ckpt-dir to resume. The checkpoints are the reference's format.
+On CUDA the step is captured once as a CUDA graph and replayed
+(``training/train_step.py::TrainStep``, the counterpart of the reference's
+jitted step); on the CPU it runs eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
@@ -25,7 +28,7 @@ from repro_torch.engine.tokenizer import HashTokenizer
 from repro_torch.models.registry import build_model
 from repro_torch.serving.factory import resolve_device
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
-from repro_torch.training.train_step import TrainConfig, make_train_step
+from repro_torch.training.train_step import TrainConfig, TrainStep
 
 
 def token_stream(dataset, tokenizer, batch: int, seq: int, seed: int):
@@ -82,7 +85,7 @@ def main() -> None:
         print(f"resumed from step {start}")
 
     tc = TrainConfig(grad_accum=args.grad_accum, adamw=AdamWConfig(lr=args.lr))
-    step_fn = make_train_step(model, tc)
+    step_fn = TrainStep(model, tc, params, opt)
     ds = make_dataset("rotten", num_rows=2000, seed=args.seed)
     tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
     stream = token_stream(ds, tok, args.batch, args.seq, args.seed + start)
@@ -90,16 +93,13 @@ def main() -> None:
     t0 = time.time()
     for step in range(start, args.steps):
         batch = next(stream)
-        params, opt, metrics = step_fn(
-            params, opt, {k: torch.as_tensor(v, device=device)
-                          for k, v in batch.items()})
+        metrics = step_fn(batch)
         if step % 10 == 0 or step == args.steps - 1:
             print(f"step {step:4d} loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({(time.time()-t0):.1f}s)")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, step + 1,
-                            {"params": params, "opt": opt},
+            save_checkpoint(args.ckpt_dir, step + 1, step_fn.trees,
                             {"arch": cfg.name})
             print(f"  checkpointed step {step + 1}")
 

@@ -383,8 +383,11 @@ class RWKV6Model(TP.MeshModel, nn.Module):
 
         for pp in unstack(params["blocks"]):
             if remat:
+                # no RNG state kept: the loss draws no random numbers, and
+                # reading the CUDA generator's state fails under capture
                 x, caches = checkpoint(block_seq, x, pp, collect_cache,
-                                       seq_lens, use_reentrant=False)
+                                       seq_lens, use_reentrant=False,
+                                       preserve_rng_state=False)
             else:
                 x, caches = self._block_seq(x, pp, collect_cache, seq_lens)
             per_layer.append(caches)

@@ -494,8 +494,11 @@ class DenseTransformer(TP.MeshModel, nn.Module):
         for pp in unstack(params["blocks"]):
             args = (pp, x, aux, positions, seq_lens, collect_cache, max_len)
             if remat:
+                # no RNG state kept: the loss draws no random numbers, and
+                # reading the CUDA generator's state fails under capture
                 x, aux, caches = checkpoint(group_seq, *args,
-                                            use_reentrant=False)
+                                            use_reentrant=False,
+                                            preserve_rng_state=False)
             else:
                 x, aux, caches = self._group_seq(*args)
             per_group.append(caches)

@@ -115,14 +115,21 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *,
+                 in_place: bool = False):
     """One AdamW step on the float32 masters -> (params in the first leaf's
     dtype, state, metrics). ``state``'s m, v and master are updated in place
     (the reference's jit wrapper donates them); each is computed as the
     reference's expression, operation for operation. On DTensor state each
     rank updates its own shards; the parameters come back in the placements
-    of ``params``."""
-    step = state["step"] + 1
+    of ``params``.
+
+    With ``in_place`` everything the reference donates is written where it
+    is, for a captured step (``train_step.TrainStep``): the step counter
+    through ``add_``, each parameter through ``copy_`` from its master (the
+    cast's rounding and bits), and the returned trees are ``params`` and
+    ``state`` themselves."""
+    step = state["step"].add_(1) if in_place else state["step"] + 1
     # each gradient to its state's shard first (ZeRO-1: from Partial, a
     # reduce-scatter), so the norm sums shards, not whole gradients
     grads = tree_map(lambda g, m: g.redistribute(m.device_mesh, m.placements)
@@ -139,9 +146,11 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        mhat, vhat = m / c1, v / c2
-        master.sub_(cfg.lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                              + cfg.weight_decay * master))
+        del g
+        # master -= lr * (mhat / (sqrt(vhat) + eps) + weight_decay * master),
+        # operation for operation, its temporaries reused in place
+        upd = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps))
+        master.sub_(upd.add_(cfg.weight_decay * master).mul_(cfg.lr))
 
     tree_map(upd, grads, state["m"], state["v"], state["master"])
     dtype = tree_flatten(params)[1][0].dtype
@@ -152,6 +161,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
             w = w.redistribute(p.device_mesh, p.placements)
         return w
 
+    def write(w, p):
+        return p.copy_(cast(w, p) if isinstance(w, DTensor) else w)
+
+    if in_place:
+        tree_map(write, state["master"], params)
+        return params, state, {"grad_norm": gnorm}
     new_params = tree_map(cast, state["master"], params)
     new_state = {"m": state["m"], "v": state["v"], "master": state["master"],
                  "step": step, "err": state.get("err")}

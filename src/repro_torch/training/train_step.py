@@ -15,6 +15,15 @@ rank's local tensors, so their placements carry through. With
 shard first, then rounded to bf16: the reference rounds its logical
 gradient, the sum over the data-parallel ranks, not each rank's part of it;
 the error feedback ``err`` lies on the same shards.
+
+``TrainStep`` is the counterpart of the reference's ``jax.jit(
+make_train_step(model, tc), donate_argnums=(0, 1))`` on one device: the
+in-place step (``make_train_step(..., in_place=True)``, every tensor the
+reference donates written where it is) captured once as a CUDA graph
+(``engine/graphs.py``), the gradient accumulation loop, the compression,
+the norm and clip and AdamW's update of every leaf inside it; each later
+step is one input copy and one replay. On the CPU the same object calls the
+in-place step eagerly.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from dataclasses import dataclass
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.engine import graphs
 from repro_torch.models.param_utils import tree_flatten, tree_map, tree_unflatten
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
 
@@ -61,9 +71,34 @@ def leafwise(fn):
     return apply
 
 
-def make_train_step(model, tc: TrainConfig):
+def consume(fn, tree, *rest):
+    """``tree_map(fn, tree, *rest)`` over trees that the caller gives up:
+    each leaf is taken out of its tree as ``fn`` reaches it, so that it can
+    be freed once its result exists. Gradient trees of a model's size are
+    summed so with about two of them held, not three."""
+    out = {}
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            out[k] = consume(fn, tree[k], *(r[k] for r in rest))
+        else:
+            out[k] = fn(tree.pop(k), *(r.pop(k) for r in rest))
+    return out
+
+
+def init_err(opt_state):
+    """The error feedback before the first compressed step on one device:
+    float32 zeros of each gradient's shape (``m``'s), what the first step
+    makes where ``err`` is None."""
+    return tree_map(torch.zeros_like, opt_state["m"])
+
+
+def make_train_step(model, tc: TrainConfig, *, in_place: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt,
-    metrics)``; ``opt_state`` is updated in place (see ``adamw_update``)."""
+    metrics)``; ``opt_state`` is updated in place (see ``adamw_update``),
+    the caller's ``params`` are not. With ``in_place`` the step writes
+    every tensor the reference donates where it is, the parameters, the
+    step counter and the error feedback too (``err`` must exist:
+    ``init_err``), and returns the trees it was given."""
 
     def train_step(params, opt_state, batch):
         ga = tc.grad_accum
@@ -87,10 +122,10 @@ def make_train_step(model, tc: TrainConfig):
                 l_i, g_i = loss_and_grads(model, params, mb, tc.remat)
                 g_i = tree_map(cast, g_i, opt_state["m"])
                 # the first term is the sum's start: 0 + g is g
-                grads = g_i if i == 0 else tree_map(leafwise(torch.add),
-                                                    grads, g_i)
+                grads = g_i if i == 0 else consume(leafwise(torch.add),
+                                                   grads, g_i)
                 loss = loss + l_i
-            grads = tree_map(leafwise(lambda g: g / ga), grads)
+            grads = consume(leafwise(lambda g: g / ga), grads)
             loss = loss / ga
 
         if tc.compress_grads:
@@ -98,16 +133,96 @@ def make_train_step(model, tc: TrainConfig):
             # instead of vanishing
             err = opt_state.get("err")
             if err is None:
+                if in_place:
+                    raise ValueError("an in-place step with compress_grads "
+                                     "needs opt_state['err'] (init_err)")
                 err = tree_map(leafwise(lambda g: torch.zeros(
                     g.shape, dtype=torch.float32, device=g.device)), grads)
             g32 = tree_map(leafwise(lambda g, e: g.float() + e), grads, err)
             gq = tree_map(leafwise(lambda g: g.to(torch.bfloat16)), g32)
             new_err = tree_map(leafwise(lambda g, q: g - q.float()), g32, gq)
             grads = gq
-            opt_state = dict(opt_state, err=new_err)
+            if in_place:
+                tree_map(leafwise(torch.Tensor.copy_), err, new_err)
+            else:
+                opt_state = dict(opt_state, err=new_err)
 
-        new_params, new_opt, opt_metrics = adamw_update(params, grads,
-                                                        opt_state, tc.adamw)
+        new_params, new_opt, opt_metrics = adamw_update(
+            params, grads, opt_state, tc.adamw, in_place=in_place)
         return new_params, new_opt, {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+class TrainStep:
+    """One device's train step over the live trees ``params`` and
+    ``opt_state``, which it owns and updates in place (the module
+    docstring). ``step(batch)`` takes host arrays (numpy or CPU tensors)
+    and returns ``{"loss", "grad_norm"}`` as device scalars.
+
+    On CUDA the first call is the warm-up, a real step run eagerly on the
+    capture stream; then the allocator's cache is released (the warm-up's
+    transient memory would sit beside the pool's copy of it) and the step
+    is captured into a private pool. Every later call copies the batch into
+    the step's static inputs (one pinned copy) and replays the graph. A
+    failed capture raises. ``eager=True`` calls the in-place step at every
+    call instead, as on the CPU. Every batch has the first one's keys,
+    shapes and dtypes. ``capture_s`` is the capture's seconds (the warm-up
+    not counted), ``pool`` the graph's memory pool (None when eager)."""
+
+    def __init__(self, model, tc: TrainConfig, params, opt_state, *,
+                 eager: bool = False):
+        self.params, self.opt = params, opt_state
+        if tc.compress_grads and opt_state.get("err") is None:
+            opt_state["err"] = init_err(opt_state)
+        self.device = tree_flatten(params)[1][0].device
+        self._fn = make_train_step(model, tc, in_place=True)
+        graphed = self.device.type == "cuda" and not eager
+        self.pool = torch.cuda.graph_pool_handle() if graphed else None
+        self._stream = torch.cuda.Stream(self.device) if graphed else None
+        self.keys = None
+        self.step = None           # graphs.Step, made at the first call
+        self.capture_s = 0.0
+
+    @property
+    def trees(self):
+        return {"params": self.params, "opt": self.opt}
+
+    def __call__(self, batch):
+        if self.step is None:
+            self.keys = keys = list(batch)
+            arrays = [batch[k] for k in keys]
+            step_fn, trees = self._fn, self.trees
+
+            def run(*inputs):   # holds no reference to self: no cycle
+                _, _, m = step_fn(trees["params"], trees["opt"],
+                                  dict(zip(keys, inputs)))
+                return (m["loss"], m["grad_norm"]), trees
+
+            self.step = graphs.Step(run, graphs.specs_of(arrays), self.device)
+            if self.pool is not None:
+                return self._warm_up_and_capture(arrays)
+        (loss, gnorm), _ = self.step(*(batch[k] for k in self.keys))
+        return {"loss": loss, "grad_norm": gnorm}
+
+    def _warm_up_and_capture(self, arrays):
+        self.step.load(arrays)
+        self.step.calls += 1
+        loss, gnorm = self.step.capture(self.pool, self._stream, release=True)
+        self.capture_s = self.step.capture_s
+        live, out = tree_flatten(self.trees), tree_flatten(self.step.outputs[1])
+        if live[0] != out[0] or any(a is not b for a, b in zip(live[1], out[1])):
+            raise RuntimeError("the captured train step returned tensors "
+                               "other than its live trees")
+        return {"loss": loss, "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def load_state(self, trees) -> None:
+        """Copy ``trees`` (``{"params", "opt"}``, e.g. a checkpoint's, on
+        any device) into the live trees, where every replay reads them."""
+        for name, live in self.trees.items():
+            (pa, la), (pb, lb) = tree_flatten(live), tree_flatten(trees[name])
+            if pa != pb:
+                raise ValueError(f"{name}: the trees' leaves differ")
+            for a, b in zip(la, lb):
+                a.copy_(b)

@@ -11,9 +11,15 @@ attention, 3e-2 for flash prefill; rwkv6_chunk 5e-4 in f32, 1e-3 over a chain
 of chunks against the sequential oracle). TF32 is off: the plain versions'
 float32 products must run in full float32.
 """
+import contextlib
+import os
+
 import numpy as np
 import pytest
 
+# cuBLAS reads this when CUDA starts: deterministic algorithms (the train
+# step's captured-against-eager tests) need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -1188,3 +1194,198 @@ def test_rwkv6_chunk_replay_equals_eager(card, B, S, H, K, c):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --------------------------------------------------------------------------
+# the captured train step (training/train_step.py::TrainStep) and the
+# captured cells (launch/cells.py::CellStep) against their eager steps,
+# bit for bit under deterministic algorithms
+# --------------------------------------------------------------------------
+TRAIN_ARCHS = ["qwen3-1.7b", "qwen2-0.5b", "granite-moe-3b-a800m",
+               "qwen3-moe-30b-a3b", "rwkv6-7b", "hymba-1.5b", "whisper-base"]
+STEP_CASES = {"ga1": {}, "ga2": {"grad_accum": 2},
+              "compress": {"compress_grads": True}}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_setup(card, arch, layers=2):
+    """The arch at full width cut to ``layers`` layers, bf16, random
+    weights on the card, and a host batch of 4 rows (whisper: 64 tokens
+    beside 200 frames of ragged length)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch).replace(num_layers=layers)
+    if cfg.is_encoder_decoder:
+        cfg = cfg.replace(num_encoder_layers=layers)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    rng = np.random.RandomState(1)
+    batch = {k: rng.randint(0, cfg.vocab_size, size=(4, 64)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.randn(4, 200, cfg.d_model).astype(np.float32)
+        batch["frame_lens"] = np.array([200, 150, 101, 200], np.int32)
+    return model, params, batch
+
+
+def _same_trees(a, b):
+    from repro_torch.models.param_utils import tree_flatten
+
+    (pa, la), (pb, lb) = tree_flatten(a), tree_flatten(b)
+    assert pa == pb
+    for p, x, y in zip(pa, la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y.to(x.device)), p
+
+
+def _captured_vs_eager(model, tc, params, batch, steps):
+    """``steps`` eager in-place steps, then as many replays of the step
+    captured from the same state (its first call, the warm-up, undone by
+    ``load_state``): losses, grad norms and every leaf equal bit for bit;
+    no kernel of this repo launched."""
+    from repro_torch.models.param_utils import tree_map
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainStep
+
+    opt = init_opt_state(params)
+    ops.reset_launch_counts()
+    with _deterministic():
+        eager = TrainStep(model, tc, params, opt, eager=True)
+        # host copies: qwen3-moe's trees at 2 layers take 26 GB
+        start = tree_map(lambda x: x.cpu(), eager.trees)
+        want = [eager(batch) for _ in range(steps)]
+        after = tree_map(lambda x: x.cpu(), eager.trees)
+        step = TrainStep(model, tc, params, opt)
+        step(batch)
+        assert step.step.graph is not None and step.capture_s > 0
+        step.load_state(start)
+        got = [step(batch) for _ in range(steps)]
+    for g, w in zip(got, want):
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(g[k], w[k]), k
+    _same_trees(step.trees, after)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_captured_train_step_equals_eager_bit_for_bit(card, case):
+    """qwen3-1.7b at full width cut to 2 layers, bf16: three replays of the
+    captured step against three eager in-place steps from the same state,
+    at grad_accum 1 and 2 and with compressed gradients."""
+    from repro_torch.training.train_step import TrainConfig
+
+    model, params, batch = _train_setup(card, "qwen3-1.7b")
+    _captured_vs_eager(model, TrainConfig(**STEP_CASES[case]), params, batch, 3)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_every_family_captured_train_step_equals_eager(card, arch):
+    """One replay of each family's captured step (full width, 2 layers,
+    bf16, remat) against one eager step from the same state."""
+    from repro_torch.training.train_step import TrainConfig
+
+    model, params, batch = _train_setup(card, arch)
+    _captured_vs_eager(model, TrainConfig(), params, batch, 1)
+
+
+def test_captured_train_step_resumes_through_load_state(card, tmp_path):
+    """A checkpoint of the captured step's trees, read back to the host and
+    copied in by ``load_state``: the next replay equals the replay from the
+    live state bit for bit, and the live trees stay where they were."""
+    from repro_torch.distributed.fault_tolerance import (load_checkpoint,
+                                                         save_checkpoint)
+    from repro_torch.models.param_utils import tree_flatten, tree_map
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, TrainStep
+
+    model, params, batch = _train_setup(card, "qwen3-1.7b")
+    with _deterministic():
+        step = TrainStep(model, TrainConfig(), params, init_opt_state(params))
+        for _ in range(3):
+            step(batch)
+        save_checkpoint(str(tmp_path), 3, step.trees)
+        live = step(batch)
+        after = tree_map(torch.clone, step.trees)
+        where = [x.data_ptr() for x in tree_flatten(step.trees)[1]]
+        _, back = load_checkpoint(str(tmp_path), template_trees=tree_map(
+            lambda x: x.new_empty(0, device="cpu"), step.trees))
+        step.load_state(back)
+        got = step(batch)
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(got[k], live[k]), k
+    _same_trees(step.trees, after)
+    assert [x.data_ptr() for x in tree_flatten(step.trees)[1]] == where
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k", "train_4k"])
+def test_captured_cells_equal_eager_cells(card, shape_name):
+    """qwen3-1.7b's three cells at full width cut to 2 layers (512 tokens x
+    2 rows), each a CellStep captured against one called eagerly, both from
+    the same materialised arguments, two steps each (the captured one's
+    first is its warm-up): a prefill's logits and cache, a decode's logits
+    and cache, a train cell's loss, grad norm, parameters and optimizer
+    state equal bit for bit (deterministic algorithms); a prefill replay
+    adds one flash_prefill launch per layer."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import (CellStep, build_cell, materialize,
+                                          use_kernels)
+
+    cfg = get_config("qwen3-1.7b").replace(num_layers=2)
+    base = get_shape(shape_name)
+    shape = ShapeConfig(base.name, base.kind, 512, 2)
+
+    def made():
+        cell = use_kernels(build_cell("qwen3-1.7b", shape_name, None,
+                                      cfg_override=cfg, shape=shape))
+        return cell, materialize(cell, card, 0)
+
+    with _deterministic():
+        cell, args = made()
+        eager = CellStep(cell, args, eager=True)
+        eager.step()
+        want = eager.step()
+        cell, cargs = made()
+        cap = CellStep(cell, cargs)
+        assert cap.pool is not None
+        before = ops.launch_counts()["flash_prefill"]
+        got = cap.step()
+        launched = ops.launch_counts()["flash_prefill"] - before
+    if cell.kind == "train":
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(got[k], want[k]), k
+        _same_trees({"p": cargs[0], "o": cargs[1]}, {"p": args[0], "o": args[1]})
+        assert launched == 0
+        return
+    assert torch.equal(got[0], want[0])
+    _same_trees(got[1], want[1])
+    assert launched == (cfg.num_layers if cell.kind == "prefill" else 0)
+
+
+def test_train_step_whose_loss_syncs_the_host_raises_at_capture(card):
+    """A loss that reads a value back to the host (a synchronising call)
+    runs eagerly, its warm-up included, and raises at capture: nothing
+    falls back to eager."""
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, TrainStep
+
+    model, params, batch = _train_setup(card, "qwen3-1.7b")
+    inner = model.train_loss
+
+    def train_loss(p, b, *, remat=True):
+        loss, metrics = inner(p, b, remat=remat)
+        return loss * (1.0 if float(loss) >= 0 else -1.0), metrics
+
+    model.train_loss = train_loss
+    step = TrainStep(model, TrainConfig(), params, init_opt_state(params))
+    with pytest.raises(RuntimeError):
+        step(batch)
+    torch.cuda.synchronize()

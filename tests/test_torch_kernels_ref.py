@@ -575,6 +575,40 @@ def _port_flops(arch, shape_name, layers=None):
 
 
 @pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k", "decode_32k"])
+def test_cell_step_on_the_cpu_equals_the_cells_function(shape_name):
+    """``CellStep`` (the captured cell; eager on the CPU) at smoke size
+    against the cell's own function on the same materialised arguments: a
+    prefill's logits and cache, a decode's logits and cache, a train step's
+    loss, grad norm, parameters and optimizer state (written in place,
+    against the eager step's new ones), bit for bit."""
+    from repro_torch.launch.cells import CellStep, materialize
+    from repro_torch.models.param_utils import tree_flatten
+
+    cfg = get_smoke_config("qwen3-1.7b")
+
+    def made():
+        cell = build_cell("qwen3-1.7b", shape_name, None, cfg_override=cfg,
+                          shape=_small(shape_name))
+        return cell, materialize(cell, "cpu", 0)
+
+    cell, args = made()
+    want = cell.fn(*args)
+    cell, cargs = made()
+    cs = CellStep(cell, cargs)
+    assert cs.pool is None
+    got = cs.step()
+    if cell.kind == "train":
+        assert all(torch.equal(got[k], want[2][k]) for k in ("loss", "grad_norm"))
+        got_trees = {"params": cargs[0], "opt": cargs[1]}
+        want_trees = {"params": want[0], "opt": want[1]}
+    else:
+        assert torch.equal(got[0], want[0])
+        got_trees, want_trees = got[1], want[1]
+    (pa, la), (pb, lb) = tree_flatten(got_trees), tree_flatten(want_trees)
+    assert pa == pb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch", FLOP_ARCHS)
 def test_dot_flops_equal_the_references_scan_corrected(arch, shape_name):
     """One device, smoke configs, shapes shrunk to 64 tokens x 8 rows: the

@@ -989,6 +989,190 @@ def test_checkpoint_resume_continues_identically(tmp_path):
         assert torch.equal(a, b)
 
 
+# ----------------------------------------------------------------------------
+# the in-place train step (``TrainStep``: captured on CUDA, eager on the CPU)
+# against make_train_step and the reference's jitted, donating step
+# ----------------------------------------------------------------------------
+STEP_CASES = {"ga1": {}, "ga2": {"grad_accum": 2},
+              "compress": {"compress_grads": True}}
+
+
+def _step_batches(cfg, n=3, seed=9):
+    rng = np.random.RandomState(seed)
+    return [{k: rng.randint(0, cfg.vocab_size, size=(4, 32)).astype(np.int32)
+             for k in ("tokens", "labels")} for _ in range(n)]
+
+
+def _port_step(case, dtype):
+    """A TrainStep on a fresh copy of the qwen3 smoke pair's weights (the
+    smoke config's 2 layers), its model and the TrainConfig."""
+    from repro_torch.models.param_utils import tree_map
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, TrainStep
+
+    _, _, tm, tp = _pair("qwen3-1.7b", dtype)
+    params = tree_map(torch.clone, tp)
+    tc = TrainConfig(**STEP_CASES[case])
+    return TrainStep(tm, tc, params, init_opt_state(params)), tm, tc
+
+
+def _bits_equal(a, b):
+    assert list(_flat(a)) == list(_flat(b))
+    for p, x, y in zip(_flat(a), _flat(a).values(), _flat(b).values()):
+        assert x.dtype == y.dtype and torch.equal(x, y), p
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_in_place_train_step_equals_make_train_step_bit_for_bit(case):
+    """Three steps of the in-place step, driven through ``TrainStep`` (eager
+    on the CPU), against three of ``make_train_step`` from the same trees,
+    bf16 params (the in-place cast ``copy_``'s against ``to``'s): losses,
+    grad norms, params, m, v, master, step and err equal bit for bit; the
+    eager step leaves its caller's params untouched."""
+    dtype = "bfloat16"
+    from repro_torch.models.param_utils import tree_map
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    ts, tm, tc = _port_step(case, dtype)
+    params = tree_map(torch.clone, ts.params)
+    before = tree_map(torch.clone, params)
+    opt = init_opt_state(params)
+    eager = make_train_step(tm, tc)
+    for b in _step_batches(tm.cfg):
+        got = ts(b)
+        params, opt, want = eager(params, opt, {k: torch.from_numpy(v)
+                                                for k, v in b.items()})
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(got[k], want[k]), k
+        if case == "ga1":
+            _bits_equal(before, _pair("qwen3-1.7b", dtype)[3])
+    _bits_equal(ts.params, params)
+    _bits_equal(ts.opt, opt)
+    assert int(ts.opt["step"]) == 3
+
+
+def _well_conditioned(vs, eps):
+    """Per leaf, the elements where every step's AdamW update was well
+    conditioned: v_hat >= eps * sqrt(max v_hat) at each step t (at t = 1,
+    g ** 2 >= eps * max |g|). Elsewhere the step's size and sign come from
+    digits of the gradient below the two frameworks' rounding (the first
+    step moves an element by lr g / (|g| + eps))."""
+    masks = None
+    for t, v in enumerate(vs, 1):
+        out = {}
+        for p, x in _flat(v).items():
+            vh = x.double() / (1 - 0.95 ** t)
+            out[p] = vh >= eps * vh.max().sqrt()
+        masks = out if masks is None else {p: masks[p] & out[p] for p in out}
+    return masks
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_in_place_train_step_matches_the_jitted_reference(case):
+    """Three steps of ``TrainStep`` against the reference's ``jax.jit(
+    make_train_step(...), donate_argnums=(0, 1))`` in float32 on the same
+    weights and batches: each step's loss and grad norm to 1e-5; m, v and
+    err to 1e-5 of each leaf's largest value (m and v to 2 ** -8, the bf16
+    cast's, where the gradients are compressed); params and master to 1e-5
+    at the elements where every step's update is well conditioned
+    (``_well_conditioned``, at least 80% of each leaf), as
+    tests/_torch_mesh_worker.py::_adam_rel holds the mesh steps; the step
+    counter exactly."""
+    from repro.training.optimizer import init_opt_state as jax_init_opt_state
+    from repro.training.train_step import TrainConfig as JaxTrainConfig
+    from repro.training.train_step import make_train_step as jax_make_train_step
+
+    ts, tm, tc = _port_step(case, "float32")
+    jm, jp, _, _ = _pair("qwen3-1.7b", "float32")
+    jp = jax.tree.map(jnp.copy, jp)        # donated below
+    jo = jax_init_opt_state(jp)
+    # float32 masters are the params' own buffers: one donation each; err
+    # as zeros, what the reference's first compressed step starts from
+    # (None would compile the step a second time at step 2)
+    jo = dict(jo, master=jax.tree.map(jnp.copy, jo["master"]))
+    if STEP_CASES[case].get("compress_grads"):
+        jo["err"] = jax.tree.map(lambda x: jnp.zeros(x.shape, jnp.float32), jp)
+    jstep = jax.jit(jax_make_train_step(jm, JaxTrainConfig(**STEP_CASES[case])),
+                    donate_argnums=(0, 1))
+    vs = []
+    for b in _step_batches(tm.cfg):
+        jp, jo, jmet = jstep(jp, jo, {k: jnp.asarray(v) for k, v in b.items()})
+        got = ts(b)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(got[k]), float(jmet[k]), rtol=1e-5)
+        vs.append(params_from_numpy(jax.tree.map(np.asarray, jo["v"])))
+    assert int(ts.opt["step"]) == int(jo["step"]) == 3
+    well = _well_conditioned(vs, tc.adamw.eps)
+    state_tol = 2 ** -8 if tc.compress_grads else 1e-5
+    trees = [("params", ts.params, jp, 1e-5), ("master", ts.opt["master"],
+                                               jo["master"], 1e-5),
+             ("m", ts.opt["m"], jo["m"], state_tol),
+             ("v", ts.opt["v"], jo["v"], state_tol)]
+    if tc.compress_grads:
+        trees.append(("err", ts.opt["err"], jo["err"], 1e-5))
+    for name, tree, jtree, tol in trees:
+        want = _flat(params_from_numpy(jax.tree.map(np.asarray, jtree)))
+        assert list(_flat(tree)) == list(want)
+        for p, got in _flat(tree).items():
+            w = want[p].double()
+            d = (got.double() - w).abs()
+            if name in ("params", "master"):
+                assert float(well[p].double().mean()) >= 0.8, p
+                d = d * well[p]
+            assert float(d.max()) <= tol * max(float(w.abs().max()), 1e-30), \
+                (name, p, float(d.max()))
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_in_place_train_step_keeps_every_tensor_where_it_is(case):
+    """Every tensor the step writes keeps its storage across three steps:
+    params, m, v, master, the step counter, err (allocated before the first
+    step when compressing) and the static inputs, which hold each batch."""
+    ts, tm, tc = _port_step(case, "bfloat16")
+    assert (ts.opt["err"] is not None) == tc.compress_grads
+
+    def ptrs():
+        return {p: x.data_ptr() for p, x in _flat(ts.trees).items()}
+
+    where = ptrs()
+    inputs = None
+    for b in _step_batches(tm.cfg):
+        ts(b)
+        assert ptrs() == where
+        now = [x.data_ptr() for x in ts.step.inputs]
+        assert inputs is None or now == inputs
+        inputs = now
+        for k, x in zip(ts.keys, ts.step.inputs):
+            assert np.array_equal(x.numpy(), b[k])
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_train_step_load_state_resumes_bit_for_bit(case):
+    """``load_state`` of a step's trees (copied to other storage, as a
+    checkpoint reads back) into a step that has run, then a step: equal bit
+    for bit to a fresh TrainStep made from those trees, and its live trees
+    stay where they were."""
+    from repro_torch.models.param_utils import tree_map
+    from repro_torch.training.train_step import TrainStep
+
+    a, tm, tc = _port_step(case, "bfloat16")
+    b, _, _ = _port_step(case, "bfloat16")
+    batches = _step_batches(tm.cfg)
+    a(batches[0])
+    saved = tree_map(torch.clone, a.trees)
+    b(batches[1])
+    b(batches[2])
+    where = {p: x.data_ptr() for p, x in _flat(b.trees).items()}
+    b.load_state(saved)
+    fresh = TrainStep(tm, tc, *tree_map(torch.clone, saved).values())
+    got, want = b(batches[1]), fresh(batches[1])
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(got[k], want[k]), k
+    _bits_equal(b.trees, fresh.trees)
+    assert {p: x.data_ptr() for p, x in _flat(b.trees).items()} == where
+
+
 def test_hymba_bf16_decode_departs_from_one_pass_as_the_reference_does():
     """In bf16 a prefill past the window plus decode steps departs from one
     pass over the extended rows in the reference too (its prefill sums the
