@@ -1644,6 +1644,49 @@ def watch_cow(ex, bad: list) -> None:
     bm.append_token_cow = append_token_cow
 
 
+SWAP_HOOKS = {"swap_out": "swap-outs", "swap_in": "swap-ins",
+              "prefetch_swap_in": "prefetches",
+              "cancel_swap_prefetch": "prefetch cancels"}
+
+
+def watch_swaps(ex) -> dict:
+    """Time the executor's swap hooks on the host: for each hook its calls,
+    host seconds and the MB (1e6 bytes) of KV of the stashes it moved.
+    Returns the dict the wrappers fill in."""
+    stats = {hook: {"calls": 0, "s": 0.0, "mb": 0.0} for hook in SWAP_HOOKS}
+
+    def mb(req_id):
+        entry = ex._host_stash.get(req_id)
+        return 0.0 if entry is None else sum(
+            x.numel() * x.element_size() for x in entry[-1].values()) / 1e6
+
+    for hook in SWAP_HOOKS:
+        def timed(req_id, tokens, inner=getattr(ex, hook), st=stats[hook],
+                  out=hook == "swap_out", back=hook.endswith("swap_in")):
+            moved = mb(req_id) if back else 0.0
+            t0 = time.perf_counter()
+            extra = inner(req_id, tokens)
+            st["s"] += time.perf_counter() - t0
+            st["calls"] += 1
+            st["mb"] += mb(req_id) if out else moved
+            return extra
+        setattr(ex, hook, timed)
+    return stats
+
+
+def swaps_line(stats: dict, cow: int, wall: float) -> str:
+    """The hooks' calls, MB and host seconds, their host seconds per MB
+    moved (the cancels move nothing) and their share of a serve's ``wall``
+    seconds."""
+    parts = [f"{st['calls']} {SWAP_HOOKS[h]} ({st['mb']:.1f} MB, "
+             f"{st['s'] * 1e3:.3f} ms host)" for h, st in stats.items()]
+    mb = sum(st["mb"] for st in stats.values())
+    sec = sum(st["s"] for st in stats.values())
+    per = f"{sec / mb * 1e3:.4f} ms of host per MB" if mb else "no MB moved"
+    return (f"{', '.join(parts)}, {cow} copy-on-write copies; {per}, "
+            f"{sec / wall:.4f} of the serve's wall")
+
+
 def planned_cap(trace) -> int:
     return int(PLANNED_CAP_FACTOR * max(r.num_prompt_tokens + r.max_output_tokens
                                         for rq in trace for r in rq.requests))
@@ -1660,11 +1703,13 @@ def planned_engine(model, params, loop: str, cap: int, device="cuda"):
 
 
 def run_planned(model, params, trace, loop: str, cap: int, device="cuda",
-                card: str = "", on_engine=None) -> list:
+                card: str = "", on_engine=None) -> tuple:
     """Replay ``trace`` through the planner (dedup + prefix-maximizing
     reorder) on the tight-cap, prefix-shared, KV-tiered paged engine and
-    check it. Returns every logical row's stream, in trace order.
-    ``on_engine`` gets the engine before the replay starts."""
+    check it; the swap hooks are timed on the host (watch_swaps). Returns
+    every logical row's stream, in trace order, and the steps the serve
+    captured (``precapture``'s ``run``). ``on_engine`` gets the engine
+    before the replay starts."""
     trace = copy.deepcopy(trace)
     engine = planned_engine(model, params, loop, cap, device)
     if on_engine is not None:
@@ -1672,6 +1717,7 @@ def run_planned(model, params, trace, loop: str, cap: int, device="cuda",
     ex = engine.executor
     bad_cow: list = []
     watch_cow(ex, bad_cow)
+    swaps = watch_swaps(ex)
     tok = HashTokenizer(vocab_size=model.cfg.vocab_size - 2)
     planner = Planner("full", tokenizer=tok)
     planned = planner.plan_trace(trace)
@@ -1728,27 +1774,42 @@ def run_planned(model, params, trace, loop: str, cap: int, device="cuda",
         f"({report.swapped_out_tokens} tokens), {report.swap_ins} swap-ins "
         f"({report.swapped_in_tokens} tokens), {report.proactive_offloads} "
         f"proactive offloads, {report.swap_prefetches} prefetches; {card}")
+    check(swaps["swap_out"]["calls"] == report.swap_outs
+          and swaps["swap_in"]["calls"] == report.swap_ins,
+          f"planned {loop}: the executor's swap hooks ran "
+          f"{swaps['swap_out']['calls']} swap-outs and "
+          f"{swaps['swap_in']['calls']} swap-ins")
+    log(f"[planned] swap hooks {loop}: "
+        f"{swaps_line(swaps, ex.cow_copies, wall)}; {card}")
     streams = [tuple(r.output_tokens) for r in rows]
+    steps = {"buckets": dict.fromkeys(ex._prefill_fn),
+             "decode_keys": list(ex._decode_fn), "cow": ex._copy_fn is not None}
     del engine, ex
     if device == "cuda":
         torch.cuda.empty_cache()
-    return streams
+    return streams, steps
 
 
-def phase_planned(model, params, device="cuda") -> dict:
+def phase_planned(model, params, device="cuda") -> tuple:
     """The planned, prefix-shared, KV-tiered serve, serial then pipelined;
     each loop must launch both attention kernels. Then the same engine
     serves the trace unplanned, and the share of rows whose streams match is
     reported (not checked: in bf16 another batch composition may change a
-    greedy token). Returns the two loops' launch counts."""
+    greedy token). Returns the two loops' launch counts and the steps both
+    loops captured (to warm the planned profile window)."""
     card = nvidia_smi_line() if device == "cuda" else "cpu"
     trace = serve_trace(model.cfg.vocab_size - 2, **PLANNED_TRACE)
     cap = planned_cap(trace)
     ops.reset_launch_counts()
-    serial = run_planned(model, params, trace, "serial", cap, device, card)
+    serial, warm = run_planned(model, params, trace, "serial", cap, device, card)
     after_serial = ops.launch_counts()
-    pipelined = run_planned(model, params, trace, "pipelined", cap, device, card)
+    pipelined, more = run_planned(model, params, trace, "pipelined", cap,
+                                  device, card)
     counts = ops.launch_counts()
+    warm = {"buckets": {**warm["buckets"], **more["buckets"]},
+            "decode_keys": list(dict.fromkeys(warm["decode_keys"]
+                                              + more["decode_keys"])),
+            "cow": warm["cow"] or more["cow"]}
     log(f"[planned] launches: serial {after_serial}, serial + pipelined {counts}")
     for name in model.KERNELS:
         check(after_serial[name] > 0, f"planned serial serve never launched {name}")
@@ -1762,7 +1823,7 @@ def phase_planned(model, params, device="cuda") -> dict:
         f"{sum(a == b for a, b in zip(serial, pipelined)) / n:.3f}, planned "
         f"vs unplanned {sum(a == b for a, b in zip(serial, unplanned)) / n:.3f} "
         f"({n} rows; {card})")
-    return {name: counts[name] for name in model.KERNELS}
+    return {name: counts[name] for name in model.KERNELS}, warm
 
 
 def host_issue_ms(fn, n: int = 20) -> float:
@@ -2137,6 +2198,8 @@ def precapture(ex, run: dict) -> None:
     for key in run["decode_keys"]:
         if key not in ex._decode_fn:
             ex._decode_fn[key] = ex._decode_step(*key)[0]
+    if run.get("cow") and ex._copy_fn is None:
+        ex._copy_fn = ex._copy_step()[0]
 
 
 def phase_profile(model, params, device="cuda", planned: bool = False,
@@ -2202,6 +2265,10 @@ def phase_profile(model, params, device="cuda", planned: bool = False,
     captured = (f" ({ex.num_graphs - span['graphs']} graphs captured in it, "
                 f"{ex.capture_s - span['capture_s']:.3f}s)"
                 if ex.num_graphs else "")
+    if warm is not None:
+        check(ex.num_graphs == span["graphs"],
+              f"a warmed profile window captured "
+              f"{ex.num_graphs - span['graphs']} graphs")
     del engine, ex, inner
     free()
     return log_device_profile(
@@ -3556,9 +3623,9 @@ def phases(t_start: float, t: float, dry: DryRun) -> None:
     t = lap("qwen3 serve", t)
     phase_graphs(model, params, loops=("serial", "pipelined"))
     t = lap("qwen3 graphs", t)
-    paths["qwen3 planned serve"] = phase_planned(model, params)
+    paths["qwen3 planned serve"], warm = phase_planned(model, params)
     t = lap("qwen3 planned serve", t)
-    phase_profile(model, params, planned=True)
+    phase_profile(model, params, planned=True, warm=warm)
     t = lap("qwen3 planned profile", t)
     del cfg, model, params
     free()

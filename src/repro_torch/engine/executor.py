@@ -36,8 +36,23 @@ reference keeps its compile seconds out; ``prestage``'s are counted apart in
 of the constructors only) runs eager steps on CUDA, to hold the graphs
 against. The build of the model's kernels happens in the constructors. KV
 pools and caches are updated in place and never move: the graphs write them
-where they were captured. Swapped-out KV is copied synchronously to host
-memory.
+where they were captured. The paged executor's copy-on-write is one step
+too, the reference's ``_copy_fn``.
+
+Swaps do not block the host, as the reference's ``copy_to_host_async`` does
+not (``repro/engine/executor.py:227-316``). On CUDA ``swap_out`` gathers the
+request's KV on the compute stream (before this tick's batch, which may
+write the freed slot or blocks), then a copy stream of the executor's copies
+the gather into pinned host memory and returns; ``wait()`` finishes the
+copies (``_materialize_host_stash``) after the batch's sampling. A swap-in
+or prefetch issued before that takes the device gather itself. A prefetch
+copies from the pinned stash on the copy stream, and the compute stream
+waits on that copy's event before the first step that reads it. No swap
+hook synchronises with the device. So the host no longer waits for a
+copy; on the card the copies ran in the host's gap before a batch's
+replay, not under its kernels (PERF.md §5). A new executor's first
+swap-outs still pay for the pinned memory they allocate. On the CPU the
+same bookkeeping runs around plain copies.
 
 Both are the calibration source for the linear batch-cost model (paper
 Fig. 7): ``fitted_model()`` fits α/β from measured (tokens, duration) /
@@ -144,6 +159,13 @@ class _ExecutorBase:
         # batch's device compute (never charged to any batch duration)
         self.prestage_compile_s = 0.0
         self._compile_s = 0.0         # capture time to subtract from a phase
+        # the host KV tier's copies run on this stream (none on the CPU)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        # swap-outs whose copy to host memory ``wait`` has not finished:
+        # req_id -> (the device gather, the copy's event; None on the CPU)
+        self._pending_host: Dict[str, Tuple[Dict[str, torch.Tensor],
+                                            Optional[torch.cuda.Event]]] = {}
 
     # ------------------------------------------------------------- admission
     def validate_relquery(self, rq: RelQuery) -> None:
@@ -191,6 +213,75 @@ class _ExecutorBase:
         """Device bytes held by this executor's graph pool (None: eager, or
         not told by the allocator)."""
         return None if self._pool is None else graphs.pool_bytes(self._pool)
+
+    # ------------------------------------------------------------- host tier
+    def _compute(self) -> torch.cuda.Stream:
+        return torch.cuda.current_stream(self.device)
+
+    def _on_copy_stream(self, write) -> torch.cuda.Event:
+        """Run ``write()`` on the copy stream after all the compute stream's
+        work so far; returns the event the compute stream waits on
+        (``_settle``) before it reads what was written."""
+        copy = self._copy_stream
+        copy.wait_stream(self._compute())
+        with torch.cuda.stream(copy):
+            write()
+        return copy.record_event()
+
+    def _to_host(self, req_id: str, gathered: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Start copying ``gathered`` (a swap-out's KV, just gathered on the
+        compute stream) to host memory and put the request on
+        ``_pending_host``; returns the host tensors. On CUDA the copy runs on
+        the copy stream into pinned memory, after the gather; on the CPU the
+        gather is the host copy."""
+        if self._copy_stream is None:
+            self._pending_host[req_id] = (gathered, None)
+            return gathered
+        host = {name: torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                for name, x in gathered.items()}
+
+        def write():
+            for name, x in gathered.items():
+                x.record_stream(self._copy_stream)
+                host[name].copy_(x, non_blocking=True)
+
+        self._pending_host[req_id] = (gathered, self._on_copy_stream(write))
+        return host
+
+    def _to_device(self, host: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
+        """Device copies of a stash's host tensors, written on the copy
+        stream, and the event the compute stream waits on before it reads
+        them (``_settle``); the host tensors themselves on the CPU. The
+        device tensors come from the compute stream's memory, which the
+        swap-out's gather of the same size left cached."""
+        if self._copy_stream is None:
+            return host, None
+        dev = {name: torch.empty(h.shape, dtype=h.dtype, device=self.device)
+               for name, h in host.items()}
+
+        def write():
+            for name, h in host.items():
+                dev[name].record_stream(self._copy_stream)
+                dev[name].copy_(h, non_blocking=True)
+
+        return dev, self._on_copy_stream(write)
+
+    def _settle(self, event: Optional[torch.cuda.Event]) -> None:
+        """Order the compute stream after a copy-stream write (its event)."""
+        if event is not None:
+            self._compute().wait_event(event)
+
+    def _materialize_host_stash(self) -> None:
+        """Finish the pending copies to host memory (from ``wait``, after
+        the batch's own sampling): wait for each copy's event and drop its
+        device gather. A request released (a cancel) or swapped back in
+        since is skipped, as in the reference."""
+        for req_id, (_, event) in self._pending_host.items():
+            if req_id in self._host_stash and event is not None:
+                event.synchronize()
+        self._pending_host.clear()
 
     # ------------------------------------------------------------- shared bits
     def _ints(self, arr: np.ndarray) -> torch.Tensor:
@@ -257,9 +348,11 @@ class RealExecutor(_ExecutorBase):
         self._slot_of: Dict[str, int] = {}
         # host KV tier: req_id -> (request, slot position, {name: host slice})
         self._host_stash: Dict[str, Tuple[Request, int, Dict[str, torch.Tensor]]] = {}
-        # swap-in prefetch: req_id -> device copy of its stash, staged ahead
-        # of the commit (the stash itself stays authoritative until commit)
-        self._prestaged: Dict[str, Dict[str, torch.Tensor]] = {}
+        # swap-in prefetch: req_id -> (device copy of its stash, staged ahead
+        # of the commit, and the copy's event); the stash itself stays
+        # authoritative until commit
+        self._prestaged: Dict[str, Tuple[Dict[str, torch.Tensor],
+                                         Optional[torch.cuda.Event]]] = {}
 
     def _steps(self) -> List[graphs.Step]:
         return [*self._prefill_fn.values(), self._decode_fn]
@@ -321,27 +414,33 @@ class RealExecutor(_ExecutorBase):
 
     # --------------------------------------------------------------- swapping
     def swap_out(self, req_id: str, tokens: int) -> float:
-        """Copy ``req_id``'s KV slot to host memory and free the slot.
+        """Stash ``req_id``'s KV slot in host memory and free the slot: the
+        copy is issued here and finished by the next ``wait()``.
         Unknown req_ids (already released) are a no-op. Returns the extra
         seconds to charge: 0.0, as the reference does."""
         i = self._slot_of.get(req_id)
         if i is None:
             return 0.0
         slot = self.slots[i]
-        stash = {name: self._slot_view(name, i).to("cpu", copy=True)
-                 for name in self.cache}
-        self._host_stash[req_id] = (slot.req, slot.position, stash)
+        gathered = {name: self._slot_view(name, i).clone(
+                        memory_format=torch.contiguous_format)
+                    for name in self.cache}
+        self._host_stash[req_id] = (slot.req, slot.position,
+                                    self._to_host(req_id, gathered))
         self._free_slot(req_id)
         return 0.0
 
     def prefetch_swap_in(self, req_id: str, tokens: int) -> float:
         """Stage a stashed request's KV back onto the device ahead of its
-        swap-in commit. Unknown/already-staged req_ids are a no-op."""
+        swap-in commit: a copy on the copy stream, or the device gather of a
+        swap-out not yet finished. Unknown/already-staged req_ids are a
+        no-op."""
         entry = self._host_stash.get(req_id)
         if entry is None or req_id in self._prestaged:
             return 0.0
-        self._prestaged[req_id] = {n: x.to(self.device)
-                                   for n, x in entry[2].items()}
+        pending = self._pending_host.get(req_id)
+        self._prestaged[req_id] = ((pending[0], None) if pending is not None
+                                   else self._to_device(entry[2]))
         return 0.0
 
     def cancel_swap_prefetch(self, req_id: str, tokens: int) -> float:
@@ -353,15 +452,23 @@ class RealExecutor(_ExecutorBase):
     def swap_in(self, req_id: str, tokens: int) -> float:
         """Restore a stashed request into a fresh slot; it resumes decoding
         at its stashed position — no re-prefill. A prefetched request's
-        staged device copy is consumed instead of the host stash."""
+        staged device copy is consumed instead of the host stash, and so is
+        the device gather of a swap-out not yet finished; otherwise the slot
+        is written from pinned memory on the compute stream."""
         entry = self._host_stash.pop(req_id, None)
         if entry is None:
             return 0.0
         req, position, stash = entry
-        stash = self._prestaged.pop(req_id, None) or stash
+        staged = self._prestaged.pop(req_id, None)
+        pending = self._pending_host.get(req_id)
+        if staged is not None:
+            stash, event = staged
+            self._settle(event)
+        elif pending is not None:
+            stash = pending[0]
         i = self._alloc_slot(req)
         for name in self.cache:
-            self._slot_view(name, i).copy_(stash[name])
+            self._slot_view(name, i).copy_(stash[name], non_blocking=True)
         self.slots[i].position = position
         return 0.0
 
@@ -515,6 +622,7 @@ class RealExecutor(_ExecutorBase):
                     self._free_slot(r.req_id)
             decode_dur += _time.perf_counter() - t1
             self.decode_samples.append((len(inflight.decode_reqs), decode_dur))
+        self._materialize_host_stash()
         return prefill_dur + decode_dur, BatchResult(outputs)
 
     def execute(self, batch: Batch, now: float) -> Tuple[float, BatchResult]:
@@ -577,9 +685,11 @@ class PagedRealExecutor(_ExecutorBase):
         # host KV tier: req_id -> (request, {"k": blocks, "v": blocks}) with
         # blocks gathered along the pool's block axis in table order
         self._host_stash: Dict[str, Tuple[Request, Dict[str, torch.Tensor]]] = {}
-        # swap-in prefetch: req_id -> staged copy plan; the blocks were
-        # written at prefetch time, so the commit is pure accounting
-        self._staged_swap_in: Dict[str, List[Tuple[int, int]]] = {}
+        # swap-in prefetch: req_id -> (staged copy plan, the copy's event);
+        # the blocks were written at prefetch time, so the commit is
+        # accounting and one stream wait
+        self._staged_swap_in: Dict[str, Tuple[List[Tuple[int, int]],
+                                              Optional[torch.cuda.Event]]] = {}
         # one step per (B, L) covers the prefill and its scatter into the
         # pools; _scatter_fn holds the keys whose scatter has run, which the
         # reference compiles at first dispatch (its prestage compiles only
@@ -587,6 +697,7 @@ class PagedRealExecutor(_ExecutorBase):
         self._prefill_fn: Dict[Tuple[int, int], graphs.Step] = {}
         self._scatter_fn: Dict[Tuple[int, int], graphs.Step] = {}
         self._decode_fn: Dict[Tuple[int, int], graphs.Step] = {}
+        self._copy_fn: Optional[graphs.Step] = None    # copy-on-write
         self.cow_copies = 0
         self.shared_block_hits = 0    # physically shared prefix blocks reused
 
@@ -613,67 +724,99 @@ class PagedRealExecutor(_ExecutorBase):
         swapped request's host blocks and stash go too."""
         known = self._active.pop(req_id, None) is not None
         known = (self._host_stash.pop(req_id, None) is not None) or known
-        self._staged_swap_in.pop(req_id, None)
+        self._unstage(req_id)
         if known:
             self.bm.free(req_id)   # staged prefetch blocks go back too
 
+    def _unstage(self, req_id: str) -> bool:
+        """Drop a staged prefetch; the compute stream waits for its copy,
+        so nothing it runs later (a write into the blocks, once freed, or a
+        decode reading them) overtakes the copy. False if none was staged."""
+        staged = self._staged_swap_in.pop(req_id, None)
+        if staged is None:
+            return False
+        self._settle(staged[1])
+        return True
+
     def _write_blocks(self, dst_ids: List[int], data: Dict[str, torch.Tensor]) -> None:
+        """Write ``data`` (blocks gathered along the pools' block axis, on
+        the device or in pinned host memory) into blocks ``dst_ids``, on the
+        current stream."""
         dst = self._ints(np.asarray(dst_ids, np.int64))
         for name, pool in self.pools.items():
-            pool[:, :, dst] = data[name].to(self.device, pool.dtype)
+            pool.index_copy_(2, dst, data[name].to(self.device,
+                                                    non_blocking=True))
 
     # --------------------------------------------------------------- swapping
     def swap_out(self, req_id: str, tokens: int) -> float:
-        """Copy ``req_id``'s blocks to host memory per the BlockManager's
+        """Move ``req_id``'s blocks to host memory per the BlockManager's
         copy plan. Every block is gathered (shared prefix blocks included —
-        the host image is self-contained) before the manager drops the device
-        references. Returns 0.0 extra seconds, as the reference does."""
+        the host image is self-contained) on the compute stream, before this
+        tick's batch may write the freed blocks; the copy to host memory is
+        issued here and finished by the next ``wait()``. Returns 0.0 extra
+        seconds, as the reference does."""
         r = self._active.pop(req_id, None)
         if r is None:
             return 0.0
         plan = self.bm.swap_out(req_id)        # [(device_bid, host_bid)]
         dev = self._ints(np.asarray([d for d, _ in plan], np.int64))
-        data = {name: pool.index_select(2, dev).cpu()
-                for name, pool in self.pools.items()}
-        self._host_stash[req_id] = (r, data)
+        gathered = {name: pool.index_select(2, dev)
+                    for name, pool in self.pools.items()}
+        self._host_stash[req_id] = (r, self._to_host(req_id, gathered))
         return 0.0
 
     def prefetch_swap_in(self, req_id: str, tokens: int) -> float:
         """Write a swapped request's host image into freshly allocated device
-        blocks ahead of the swap-in commit, which is then pure accounting.
-        No-op when the request is unknown, already staged, or the pool lacks
-        free blocks (the commit then takes the synchronous path)."""
+        blocks ahead of the swap-in commit: on the copy stream from the
+        pinned stash, or on the compute stream from the device gather of a
+        swap-out not yet finished. No batch reads those blocks before the
+        commit, which waits for the copy. No-op when the request is unknown,
+        already staged, or the pool lacks free blocks (the commit then
+        writes the blocks itself)."""
         entry = self._host_stash.get(req_id)
         if entry is None or req_id in self._staged_swap_in:
             return 0.0
         plan = self.bm.prefetch_swap_in(req_id)
         if plan is None:
             return 0.0
-        self._write_blocks([d for _, d in plan], entry[1])
-        self._staged_swap_in[req_id] = plan
+        dst = [d for _, d in plan]
+        pending = self._pending_host.get(req_id)
+        event = None
+        if pending is not None or self._copy_stream is None:
+            self._write_blocks(dst, entry[1] if pending is None else pending[0])
+        else:
+            # on the copy stream, after the compute stream's work so far:
+            # the fresh blocks may be ones this tick's swap-outs still read
+            staged, _ = self._to_device(entry[1])
+            event = self._on_copy_stream(lambda: self._write_blocks(dst, staged))
+        self._staged_swap_in[req_id] = (plan, event)
         return 0.0
 
     def cancel_swap_prefetch(self, req_id: str, tokens: int) -> float:
         """Return a staged prefetch's device blocks (the request was
         cancelled before commit); freed blocks are rewritten before reuse.
         Idempotent."""
-        if self._staged_swap_in.pop(req_id, None) is not None:
+        if self._unstage(req_id):
             self.bm.cancel_prefetch(req_id)
         return 0.0
 
     def swap_in(self, req_id: str, tokens: int) -> float:
         """Restore a swapped request into fresh private device blocks and
-        resume decode at its stashed context length — no re-prefill."""
+        resume decode at its stashed context length — no re-prefill. The
+        blocks are written from the device gather of a swap-out not yet
+        finished, else from pinned memory on the compute stream."""
         entry = self._host_stash.pop(req_id, None)
         if entry is None:
             return 0.0
         r, data = entry
-        if self._staged_swap_in.pop(req_id, None) is not None:
+        if self._unstage(req_id):
             self.bm.commit_prefetch(req_id)
             self._active[req_id] = r
             return 0.0
         plan = self.bm.swap_in(req_id)         # [(host_bid, device_bid)]
-        self._write_blocks([d for _, d in plan], data)
+        pending = self._pending_host.get(req_id)
+        self._write_blocks([d for _, d in plan],
+                           data if pending is None else pending[0])
         self._active[req_id] = r
         return 0.0
 
@@ -687,7 +830,8 @@ class PagedRealExecutor(_ExecutorBase):
 
     # ------------------------------------------------------------- steps
     def _steps(self) -> List[graphs.Step]:
-        return [*self._prefill_fn.values(), *self._decode_fn.values()]
+        cow = [] if self._copy_fn is None else [self._copy_fn]
+        return [*self._prefill_fn.values(), *self._decode_fn.values(), *cow]
 
     def _prefill_step(self, B: int, L: int) -> Tuple[graphs.Step, float]:
         """Prefill of a (B, L) group and its scatter into the pools. Its
@@ -800,11 +944,28 @@ class PagedRealExecutor(_ExecutorBase):
         return pending, utok
 
     # ------------------------------------------------------------- decode
+    def _copy_step(self) -> Tuple[graphs.Step, float]:
+        """The copy-on-write step over an int32 ``(src, dst)``: clone page
+        ``src`` into ``dst`` across all layers, in place. Its warm-up copies
+        the scratch block onto itself."""
+        pools = self.pools
+
+        def copy(blocks):
+            idx = blocks.long()
+            for pool in pools.values():
+                pool.index_copy_(2, idx[1:], pool.index_select(2, idx[:1]))
+            return (), pools
+
+        s = self.scratch_block
+        return self._capture(copy, [np.array([s, s], np.int32)], pools)
+
     def _copy_block(self, src: int, dst: int) -> None:
         """Device-side CoW: clone page ``src`` into ``dst`` across all layers
-        before the diverging write."""
-        for pool in self.pools.values():
-            pool[:, :, dst] = pool[:, :, src]
+        before the diverging write, as one step (captured at first use)."""
+        if self._copy_fn is None:
+            self._copy_fn, dt = self._copy_step()
+            self._compile_s += dt
+        self._copy_fn(np.array([src, dst], np.int32))
         self.cow_copies += 1
 
     def _decode_issue(self, reqs: List[Request]) -> object:
@@ -905,6 +1066,7 @@ class PagedRealExecutor(_ExecutorBase):
                     self.release_request(r.req_id)
             decode_dur += _time.perf_counter() - t1
             self.decode_samples.append((len(inflight.decode_reqs), decode_dur))
+        self._materialize_host_stash()
         return prefill_dur + decode_dur, BatchResult(outputs)
 
     def execute(self, batch: Batch, now: float) -> Tuple[float, BatchResult]:

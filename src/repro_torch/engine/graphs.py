@@ -1,8 +1,9 @@
-"""One CUDA graph per shape bucket of the real executors' steps, and of the
-captured train step and cells: the port's counterpart of the reference's
-``_aot`` (``repro/engine/executor.py:128-138``), which lowers and compiles a
-step once per bucket and then runs the executable, and of its jitted train
-step and compiled cells.
+"""One CUDA graph per shape bucket of the real executors' steps (the paged
+executor's copy-on-write among them), and of the captured train step and
+cells: the port's counterpart of the reference's ``_aot``
+(``repro/engine/executor.py:128-138``), which lowers and compiles a step
+once per bucket and then runs the executable, and of its jitted train step
+and compiled cells.
 
 ``capture(fn, init, device, pool=..., stream=...)`` returns a ``Step`` and
 the seconds it took. ``fn`` takes device tensors of the shapes and dtypes of

@@ -184,6 +184,18 @@ class WhisperModel(TP.MeshModel, nn.Module):
                 "v_cross": meta(Ld, batch, max_len, *kv),
                 "frame_lens": meta(batch, dtype=torch.int32)}
 
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Zeros of ``cache_struct(batch, max_len)`` on ``device``."""
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                for k, s in self.cache_struct(batch, max_len).items()}
+
+    def with_layers(self, num_layers: int) -> "WhisperModel":
+        """Same arch with ``num_layers`` encoder and decoder layers."""
+        m = type(self)(self.cfg.replace(num_layers=num_layers,
+                                        num_encoder_layers=num_layers), self.pc)
+        m.mesh = self.mesh
+        return m
+
     @property
     def scan_trip_count(self) -> int:
         return self.n_groups

@@ -1389,3 +1389,252 @@ def test_train_step_whose_loss_syncs_the_host_raises_at_capture(card):
     with pytest.raises(RuntimeError):
         step(batch)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# the host KV tier's overlapped swaps and the captured copy-on-write, at the
+# smoke configs in float32 (graphed executors unless a test says otherwise)
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def _no_sync():
+    """Any synchronising CUDA call inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _ids(n, seed):
+    """``n`` token ids inside the smoke configs' vocabularies."""
+    return [(seed + 7 * j) % 250 + 1 for j in range(n)]
+
+
+def _run_batch(ex, kind, reqs):
+    """Execute one batch and append each request's token."""
+    from repro_torch.core.batch import Batch
+
+    batch = (Batch("prefill", prefill_requests=reqs) if kind == "prefill"
+             else Batch("decode", decode_requests=reqs))
+    _, res = ex.execute(batch, 0.0)
+    for r in reqs:
+        r.output_tokens.append(res.outputs[r.req_id][0])
+
+
+def _kv(ex, r):
+    """A copy of request ``r``'s KV: its dense slot or its paged blocks."""
+    if hasattr(ex, "slots"):
+        i = ex._slot_of[r.req_id]
+        return {n: ex._slot_view(n, i).clone() for n in ex.cache}
+    table = torch.tensor(ex.bm.block_table(r.req_id), device=ex.device)
+    return {n: p.index_select(2, table) for n, p in ex.pools.items()}
+
+
+def _tier_executor(card, arch, backend, eager=False):
+    from repro_torch.engine.executor import make_real_executor
+
+    model, params = _smoke(card, arch)
+    return make_real_executor(backend, model, params, max_slots=2,
+                              max_len=256, num_blocks=40, block_size=8,
+                              num_host_blocks=64, eager=eager)
+
+
+@pytest.mark.parametrize("arch,backend", [("qwen3-1.7b", "paged"),
+                                          ("qwen3-1.7b", "dense"),
+                                          ("rwkv6-7b", "dense")])
+def test_swap_out_races_the_prefill_that_reuses_its_kv(card, arch, backend):
+    """A swap-out frees a slot or blocks that the same tick's prefill writes
+    while the copy to host memory is in flight: after ``wait()`` the stash,
+    and after a swap-in the request's KV, equal a snapshot taken before the
+    swap, bit for bit."""
+    from repro_torch.core.batch import Batch
+
+    ex = _tier_executor(card, arch, backend)
+    a, = _requests([_ids(119, 1)])
+    _run_batch(ex, "prefill", [a])
+    before = _kv(ex, a)
+    held = (ex.bm.block_table(a.req_id) if backend == "paged"
+            else [ex._slot_of[a.req_id]])
+    ex.swap_out(a.req_id, 0)
+    b, = _requests([_ids(119, 50)])
+    inflight = ex.dispatch(Batch("prefill", prefill_requests=[b]), 0.0)
+    now = (ex.bm.block_table(b.req_id) if backend == "paged"
+           else [ex._slot_of[b.req_id]])
+    assert set(now) & set(held), "the prefill did not reuse the freed KV"
+    assert a.req_id in ex._pending_host
+    ex.wait(inflight)
+    assert not ex._pending_host
+    stash = ex._host_stash[a.req_id][-1]
+    for n, x in before.items():
+        assert stash[n].is_pinned() and torch.equal(stash[n], x.cpu()), n
+    ex.swap_in(a.req_id, 0)
+    for n, x in _kv(ex, a).items():
+        assert torch.equal(x, before[n]), n
+
+
+@pytest.mark.parametrize("before_wait", [True, False])
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_prefetched_swap_in_decodes_at_once(card, backend, before_wait):
+    """A request swapped out, prefetched (before its copy is materialised:
+    from the device gather; or after: from pinned memory on the copy
+    stream), swapped in and decoded in the very next step gives the logits
+    of the same step in a run that never swapped, bit for bit, at the same
+    batch shape."""
+    from repro_torch.core.batch import Batch
+
+    def logits(swap):
+        ex = _tier_executor(card, "qwen3-1.7b", backend)
+        a, b = _requests([_ids(119, 1), _ids(40, 90)])
+        _run_batch(ex, "prefill", [a, b])
+        if swap:
+            ex.swap_out(a.req_id, 0)
+            if before_wait:
+                ex.prefetch_swap_in(a.req_id, 0)
+        _run_batch(ex, "decode", [b])
+        if swap:
+            if not before_wait:
+                ex.prefetch_swap_in(a.req_id, 0)
+                staged = (ex._staged_swap_in if backend == "paged"
+                          else ex._prestaged)[a.req_id]
+                assert staged[1] is not None    # the copy stream's event
+            ex.swap_in(a.req_id, 0)
+        inflight = ex.dispatch(Batch("decode", decode_requests=[a, b]), 0.0)
+        out = inflight.decode_pending.clone()
+        rows = inflight.decode_rows or [0, 1]
+        ex.wait(inflight)
+        return out[rows]
+
+    assert torch.equal(logits(True), logits(False))
+
+
+FORCED_SWAPS = [("qwen3-1.7b", "paged", "serial"),
+                ("qwen3-1.7b", "paged", "pipelined"),
+                ("rwkv6-7b", "dense", "serial"),
+                ("rwkv6-7b", "dense", "pipelined")]
+
+
+def _forced_swap_streams(device, arch, backend, loop, force):
+    """The ``_swap_roundtrip`` of tests/test_torch_engine.py at three
+    requests, two of them running (``max_num_seqs``): at steps 2 and 4 the
+    two running requests are swapped out, so swap-ins come back through
+    prefetches. Returns the streams and the executor's hook calls."""
+    import collections
+
+    from repro_torch.core.latency_model import a100_opt13b
+    from repro_torch.core.policies import SCHEDULERS
+    from repro_torch.core.priority import BatchLimits
+    from repro_torch.core.relquery import make_relquery
+    from repro_torch.engine.engine import EngineCore
+    from repro_torch.engine.executor import make_real_executor
+    from repro_torch.engine.tokenizer import HashTokenizer
+
+    model, params = _smoke(device, arch)
+    tok = HashTokenizer(vocab_size=model.cfg.vocab_size - 2)
+    prompts = [tok.encode(f"row {i} of the relational table") for i in range(3)]
+    rq = make_relquery("R", prompts, 0.0, 12)
+    sched = SCHEDULERS["relserve"](
+        limits=BatchLimits(cap=4096, max_num_seqs=2),
+        latency_model=a100_opt13b(), kv_admission="optimistic",
+        kv_tiering=True, host_kv_cap=100_000, swap_prefetch=True)
+    ex = make_real_executor(backend, model, params, max_slots=8, max_len=256,
+                            num_blocks=128, block_size=16, num_host_blocks=128)
+    calls = collections.Counter()
+    for hook in ("swap_out", "swap_in", "prefetch_swap_in"):
+        def counted(*args, inner=getattr(ex, hook), hook=hook):
+            calls[hook] += 1
+            return inner(*args)
+        setattr(ex, hook, counted)
+    core = EngineCore(sched, ex, engine_loop=loop, debug_invariants=True)
+    core.admit(rq, 0.0)
+    now, steps = 0.0, 0
+    while core.has_work():
+        now = core.tick(now).end
+        steps += 1
+        if force and steps in (2, 4) and len(sched._running) >= 2:
+            core._flush_plan()
+            for r in list(sched._running[-2:]):
+                sched.swap_out_request(r, now)
+    assert rq.is_finished() and not ex._pending_host and not ex._host_stash
+    return [list(r.output_tokens) for r in rq.requests], calls
+
+
+@pytest.mark.parametrize("arch,backend,loop", FORCED_SWAPS)
+def test_forced_swaps_keep_the_streams_on_the_card(card, arch, backend, loop):
+    """Swap-outs (some swapped back in before their copy landed), swap-ins
+    and prefetches through the graphed engine keep the streams of a serve
+    that never swapped."""
+    base, none = _forced_swap_streams(card, arch, backend, loop, False)
+    swapped, calls = _forced_swap_streams(card, arch, backend, loop, True)
+    assert not none and calls["swap_out"] >= 4
+    assert calls["swap_in"] == calls["swap_out"] and calls["prefetch_swap_in"]
+    assert swapped == base
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_swap_hooks_never_synchronise(card, backend):
+    """Every swap hook on each of its paths (swap-out; prefetch from the
+    device gather and from pinned memory; its cancel; swap-in after a
+    prefetch, from the device gather and from pinned memory) and the
+    copy-on-write step run under ``set_sync_debug_mode("error")``; the
+    streams after them equal those of the same batches without swaps."""
+    def run(swap):
+        ex = _tier_executor(card, "qwen3-1.7b", backend)
+        a, b = _requests([_ids(59, 1), _ids(40, 90)], out=16)
+        _run_batch(ex, "prefill", [a, b])
+        if swap:
+            with _no_sync():
+                ex.swap_out(a.req_id, 0)
+                ex.prefetch_swap_in(a.req_id, 0)       # the device gather
+                ex.cancel_swap_prefetch(a.req_id, 0)
+        _run_batch(ex, "decode", [b])
+        if swap:
+            with _no_sync():
+                ex.prefetch_swap_in(a.req_id, 0)       # the copy stream
+                ex.swap_in(a.req_id, 0)
+                ex.swap_out(b.req_id, 0)
+        _run_batch(ex, "decode", [a])
+        if swap:
+            with _no_sync():
+                ex.swap_in(b.req_id, 0)                # pinned memory
+                ex.swap_out(a.req_id, 0)
+                ex.swap_in(a.req_id, 0)                # the device gather
+        if swap and backend == "paged":
+            used = {x for r in (a, b) for x in ex.bm.block_table(r.req_id)}
+            spare = [x for x in range(ex.num_blocks) if x not in used]
+            with _no_sync():
+                ex._copy_block(spare[0], spare[1])     # captures
+                ex._copy_block(spare[1], spare[2])     # replays
+            assert ex.cow_copies == 2 and ex._copy_fn.graph is not None
+        for _ in range(3):
+            _run_batch(ex, "decode", [a, b])
+        return [a.output_tokens, b.output_tokens]
+
+    assert run(True) == run(False)
+
+
+def test_captured_copy_on_write_equals_eager(card):
+    """The copy-on-write step, captured and replayed, writes the pools the
+    eager step writes, bit for bit: one block cloned across every layer's K
+    and V, every other block untouched."""
+    from repro_torch.engine.executor import PagedRealExecutor
+
+    model, params = _smoke(card, "qwen3-1.7b")
+    pools = {}
+    for eager in (False, True):
+        ex = PagedRealExecutor(model, params, num_blocks=8, block_size=4,
+                               max_len=64, eager=eager)
+        gen = torch.Generator(device=card).manual_seed(3)
+        for p in ex.pools.values():
+            p.copy_(torch.randn(p.shape, generator=gen, device=card))
+        want = {n: p.clone() for n, p in ex.pools.items()}
+        for src, dst in ((2, 5), (1, 6), (5, 0)):
+            for x in want.values():
+                x[:, :, dst] = x[:, :, src]
+            ex._copy_block(src, dst)
+        assert ex.cow_copies == 3
+        assert (ex._copy_fn.graph is None) == eager
+        for n, p in ex.pools.items():
+            assert torch.equal(p, want[n]), (eager, n)
+        pools[eager] = {n: p.clone() for n, p in ex.pools.items()}
+    for n in pools[False]:
+        assert torch.equal(pools[False][n], pools[True][n]), n

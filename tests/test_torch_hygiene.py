@@ -3,7 +3,14 @@
 neither jax nor anything of the JAX package ``repro``; a real serve (a dense,
 an MoE and a hybrid smoke model), a simulated multi-replica replay with a
 crash, a planned real serve and a training run with a checkpoint run with
-jax blocked; and the entry points never fall back to the CPU on their own."""
+jax blocked; and the entry points never fall back to the CPU on their own.
+
+Beside those, small CPU cases of the real executors that need no trace
+(2 layers, narrow widths, f32): the swap hooks' pending list and its
+materialisation in ``wait()``, a release between a swap-out and that
+``wait()``, a swap-in or prefetch issued before it; copy-on-write held
+against the JAX executor on a forked sequence; and whisper's ``init_cache``
+and ``with_layers`` against the reference."""
 import ast
 import os
 import subprocess
@@ -200,3 +207,204 @@ def test_snapshot_codec_is_the_serving_half_of_the_reference():
     for name in ("save_checkpoint", "load_checkpoint", "latest_step"):
         assert f"def {name}" in ref[:ref.index(header)]
         assert f"def {name}" in port[:port.index(header)]
+
+
+# ----------------------------------------------------------------------------
+# the real executors' host tier and copy-on-write, on the CPU
+# ----------------------------------------------------------------------------
+def _executor(backend, **kw):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine.executor import make_real_executor
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_smoke_config("qwen3-1.7b").replace(dtype="float32"))
+    params = model.init_params(torch.Generator().manual_seed(0))
+    return make_real_executor(backend, model, params, max_slots=4, max_len=128,
+                              num_blocks=32, block_size=16, num_host_blocks=32,
+                              **kw)
+
+
+def _two_requests(prefix="swap"):
+    from repro_torch.core.relquery import make_relquery
+
+    prompts = [[(7 * i + 3 * j) % 200 + 1 for j in range(21 + 9 * i)]
+               for i in range(2)]
+    return make_relquery(prefix, prompts, 0.0, 8).requests
+
+
+def _step(ex, batch):
+    """Execute ``batch`` and append each request's token."""
+    _, res = ex.execute(batch, 0.0)
+    for r in (*batch.prefill_requests, *batch.decode_requests):
+        r.output_tokens.append(res.outputs[r.req_id][0])
+
+
+def _kv_of(ex, r):
+    """A copy of request ``r``'s KV: its dense slot or its paged blocks."""
+    if hasattr(ex, "slots"):
+        i = ex._slot_of[r.req_id]
+        return {n: ex._slot_view(n, i).clone() for n in ex.cache}
+    table = torch.tensor(ex.bm.block_table(r.req_id))
+    return {n: p.index_select(2, table) for n, p in ex.pools.items()}
+
+
+def _prefilled(backend):
+    from repro_torch.core.batch import Batch
+
+    ex = _executor(backend)
+    a, b = _two_requests()
+    _step(ex, Batch("prefill", prefill_requests=[a, b]))
+    return ex, a, b
+
+
+def _stash_kv(ex, r):
+    return ex._host_stash[r.req_id][-1]
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_swap_out_stays_pending_until_wait(backend):
+    """A swap-out puts its request on ``_pending_host`` with the KV it
+    gathered; the next ``wait()`` materialises it, leaving the stash equal
+    to the KV before the swap."""
+    from repro_torch.core.batch import Batch
+
+    ex, a, b = _prefilled(backend)
+    want = _kv_of(ex, a)
+    assert ex.swap_out(a.req_id, 0) == 0.0
+    assert list(ex._pending_host) == [a.req_id]
+    gathered, event = ex._pending_host[a.req_id]
+    assert event is None     # the CPU: the gather is the host copy
+    assert _stash_kv(ex, a) is gathered
+    _step(ex, Batch("decode", decode_requests=[b]))
+    assert ex._pending_host == {}
+    for n, x in want.items():
+        assert torch.equal(_stash_kv(ex, a)[n], x), n
+    ex.swap_in(a.req_id, 0)
+    for n, x in _kv_of(ex, a).items():
+        assert torch.equal(x, want[n]), n
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_release_before_wait_skips_the_pending_swap(backend):
+    """A request released (cancelled) between its swap-out and the next
+    ``wait()`` is skipped there, as in the reference, and leaves nothing
+    behind."""
+    from repro_torch.core.batch import Batch
+
+    ex, a, b = _prefilled(backend)
+    ex.swap_out(a.req_id, 0)
+    ex.release_request(a.req_id)
+    assert a.req_id in ex._pending_host and a.req_id not in ex._host_stash
+    _step(ex, Batch("decode", decode_requests=[b]))
+    assert ex._pending_host == {} and not ex._host_stash
+    if backend == "paged":
+        ex.bm.check_invariants()
+        assert ex.bm.host_free_blocks == ex.bm.num_host_blocks
+        assert ex.kv_tokens_resident() == ex.bm.context_len(b.req_id)
+    else:
+        assert list(ex._slot_of) == [b.req_id]
+
+
+@pytest.mark.parametrize("hook", ["swap_in", "prefetch"])
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_swap_back_before_wait_keeps_the_stream(backend, hook):
+    """A swap-in, or a prefetch, issued before the swap-out's ``wait()``
+    takes the device gather of the pending swap; the request then decodes
+    the stream of a run that never swapped."""
+    from repro_torch.core.batch import Batch
+
+    def run(swap):
+        ex, a, b = _prefilled(backend)
+        if swap:
+            ex.swap_out(a.req_id, 0)
+            gathered = ex._pending_host[a.req_id][0]
+            if hook == "prefetch":
+                ex.prefetch_swap_in(a.req_id, 0)
+                if backend == "dense":
+                    assert ex._prestaged[a.req_id][0] is gathered
+                else:
+                    assert ex._staged_swap_in[a.req_id][1] is None
+                _step(ex, Batch("decode", decode_requests=[b]))
+                assert ex._pending_host == {}
+            ex.swap_in(a.req_id, 0)
+            if hook == "swap_in":
+                _step(ex, Batch("decode", decode_requests=[b]))
+        else:
+            _step(ex, Batch("decode", decode_requests=[b]))
+        for _ in range(4):
+            _step(ex, Batch("decode", decode_requests=[a, b]))
+        if backend == "paged":
+            ex.bm.check_invariants()
+        return [list(a.output_tokens), list(b.output_tokens)]
+
+    assert run(True) == run(False)
+
+
+def test_copy_on_write_matches_the_jax_executor():
+    """A sequence forked after its prefill shares its parent's partial tail
+    block; the parent's first decode copies it (``_copy_block``, one step
+    per executor). Greedy streams and ``cow_copies`` equal the JAX paged
+    executor's, after the reference's own copy-on-write tests
+    (tests/test_paged_parity.py, tests/test_engine_real.py)."""
+    import jax
+    import numpy as np
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.core.batch import Batch as JaxBatch
+    from repro.core.relquery import make_relquery as jax_make_relquery
+    from repro.engine.executor import PagedRealExecutor as JaxPaged
+    from repro.models.registry import build_model as jax_build_model
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.batch import Batch
+    from repro_torch.core.relquery import make_relquery
+    from repro_torch.engine.executor import PagedRealExecutor
+    from repro_torch.models.registry import build_model
+
+    arch = "qwen3-1.7b"
+    jm = jax_build_model(jax_smoke_config(arch).replace(dtype="float32"))
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = build_model(get_smoke_config(arch).replace(dtype="float32"))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    prompt = [(5 * j) % 150 + 2 for j in range(21)]   # a partial tail block
+    kw = dict(num_blocks=16, block_size=16, max_len=128)
+    runs = []
+    for ex, make, batch in ((JaxPaged(jm, jp, **kw), jax_make_relquery,
+                             JaxBatch),
+                            (PagedRealExecutor(tm, tp, **kw), make_relquery,
+                             Batch)):
+        parent, child = make("cow", [prompt, prompt], 0.0, 8).requests
+        _step(ex, batch("prefill", prefill_requests=[parent]))
+        ex.bm.fork(parent.req_id, child.req_id)
+        ex._active[child.req_id] = child
+        child.output_tokens = list(parent.output_tokens)
+        for _ in range(5):
+            _step(ex, batch("decode", decode_requests=[parent, child]))
+        ex.bm.check_invariants()
+        assert parent.output_tokens == child.output_tokens
+        runs.append((ex.cow_copies, parent.output_tokens))
+    assert runs[0] == runs[1] and runs[1][0] == 1, runs
+
+
+def test_whisper_cache_and_depth_match_the_reference():
+    """``WhisperModel.init_cache`` (zeros of ``cache_struct``) and
+    ``with_layers`` (encoder and decoder depth) against the reference's."""
+    import numpy as np
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models.registry import build_model as jax_build_model
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+
+    jm = jax_build_model(jax_smoke_config("whisper-base")).with_layers(1)
+    tm = build_model(get_smoke_config("whisper-base")).with_layers(1)
+    assert tm.cfg.num_layers == jm.cfg.num_layers == 1
+    assert tm.cfg.num_encoder_layers == jm.cfg.num_encoder_layers == 1
+    assert tm.param_count() == jm.param_count()
+    assert tm.param_count() < build_model(get_smoke_config("whisper-base")
+                                          ).param_count()
+    want = jm.init_cache(2, 24)
+    got = tm.init_cache(2, 24)
+    assert sorted(got) == sorted(want)
+    for k, x in got.items():
+        assert tuple(x.shape) == want[k].shape, k
+        assert str(x.dtype).removeprefix("torch.") == np.dtype(want[k].dtype).name, k
+        assert x.device.type == "cpu" and not x.any(), k

@@ -3,6 +3,7 @@
     python3 tools/kernel_ab.py --tree parent=build/parent --tree change=. \
         --order parent,change,change,parent [--out chiprun_out/kernel_ab.json]
     python3 tools/kernel_ab.py ... --rwkv-only --rwkv-shape 1,128,16
+    python3 tools/kernel_ab.py ... --swaps-only
 
 Each run is a process of its own: it imports one checkout's ``repro_torch``
 (whose kernels build into that checkout's ``build/kernels``) and takes its
@@ -29,6 +30,24 @@ records, for qwen3-1.7b's attention shapes and ``chip_smoke.ATTN_SHAPES``:
   executors replay CUDA graphs calls the wrapper only while it captures a
   bucket, so there those are the captures' calls and seconds.
 
+``--swaps-only`` times the host KV tier's swaps in qwen3-1.7b's paged
+executor (full width and depth, bf16, graphed) and nothing else:
+``chip_smoke.py``'s planned serve, serial then pipelined, each on an
+executor of its own as chip_smoke runs it; then one executor serves
+SWAP_REQUESTS prompts of SWAP_PROMPT random tokens (seed 0), SWAP_OUTPUT
+tokens out, all arriving at once, at most SWAP_MAX_SEQS decoding, three
+times: a first serial serve (its captures and the pinned and device
+memory of its first swaps start cold), then a serial and a pipelined one.
+Every SWAP_EVERY-th tick the two last running requests are swapped out and
+the scheduler swaps them back in, prefetching the next candidate, so the
+batches follow from the tick count alone. Each serve records the host
+seconds, calls and MB (1e6 bytes) of each swap hook (``chip_smoke.
+watch_swaps``); the forced serves also the host seconds of the engine's
+``_apply_swaps`` (the ticks' hooks together) per MB, and in the last two
+the ticks SWAP_WINDOW under ``torch.profiler``: the wall, the kernels'
+busy time (the union of their intervals), and each kind of copy's time
+and the part of it that lies under a kernel.
+
 Runs go in the order given, so parent, change, change, parent brackets the
 card's drift. Prints each run's record and, last, a JSON object with all of
 them and the card's name and power limit.
@@ -47,6 +66,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# --swaps-only's forced-swap serve: ~104 MB of KV a swap at qwen3-1.7b's
+# 0.114688 MB a token
+SWAP_REQUESTS, SWAP_PROMPT, SWAP_OUTPUT, SWAP_MAX_SEQS = 8, 896, 32, 4
+SWAP_EVERY = 3
+SWAP_WINDOW = (6, 17)   # first and last tick profiled
 
 
 def _bind_checkout(src: Path):
@@ -164,7 +188,163 @@ def _rwkv(cs, shapes) -> dict:
     return out
 
 
-def worker(src: Path, rwkv_shapes, rwkv_only: bool) -> dict:
+def _union(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _device_window(prof, wall_s: float) -> dict:
+    """The kernels' busy ms (their intervals' union) and each kind of
+    copy's ms and ms under a kernel, in a profiled window of ``wall_s``."""
+    from torch.autograd import DeviceType
+
+    kernels, copies = [], {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy"):
+            copies.setdefault(e.name, []).append(span)
+        elif not e.name.startswith("Memset"):
+            kernels.append(span)
+    busy = _union(kernels)
+    busy_us = sum(b - a for a, b in busy)
+    under = lambda a, b: sum(max(0.0, min(b, d) - max(a, c))  # noqa: E731
+                             for c, d in busy)
+    return {"wall_ms": wall_s * 1e3, "kernel_busy_ms": busy_us / 1e3,
+            "idle": 1 - busy_us / (wall_s * 1e6),
+            "copies": {name: {"n": len(spans),
+                              "ms": sum(b - a for a, b in spans) / 1e3,
+                              "under_kernels_ms": sum(under(a, b)
+                                                      for a, b in spans) / 1e3}
+                       for name, spans in copies.items()}}
+
+
+def _forced_swaps(cs, ex, prompts, loop: str, profiled: bool) -> dict:
+    """One serve of the forced-swap trace on ``ex`` (module docstring)."""
+    import torch
+    from repro_torch.core.latency_model import a100_opt13b
+    from repro_torch.core.policies import SCHEDULERS
+    from repro_torch.core.priority import BatchLimits
+    from repro_torch.core.relquery import make_relquery
+    from repro_torch.engine.engine import EngineCore
+    from torch.profiler import ProfilerActivity, profile
+
+    sched = SCHEDULERS["relserve"](
+        limits=BatchLimits(cap=1 << 20, max_num_seqs=SWAP_MAX_SEQS),
+        latency_model=a100_opt13b(), kv_admission="optimistic",
+        kv_tiering=True, host_kv_cap=1 << 20, swap_prefetch=True)
+    core = EngineCore(sched, ex, engine_loop=loop)
+    hooks = cs.watch_swaps(ex)
+    apply_inner, applied = core._apply_swaps, []
+
+    def apply_swaps(now=0.0):
+        t0 = time.perf_counter()
+        extra = apply_inner(now)
+        applied.append(time.perf_counter() - t0)
+        return extra
+
+    core._apply_swaps = apply_swaps
+    rq = make_relquery("S", prompts, 0.0, SWAP_OUTPUT)
+    core.admit(rq, 0.0)
+    prof, window, ticks, now = None, {}, 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while core.has_work():
+        if profiled and ticks == SWAP_WINDOW[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            window = {"t0": time.perf_counter(), "graphs": ex.num_graphs}
+        now = core.tick(now).end
+        ticks += 1
+        if prof is not None and ticks == SWAP_WINDOW[1] + 1:
+            torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+            prof.stop()
+        if ticks % SWAP_EVERY == 0 and len(sched._running) >= 2:
+            core._flush_plan()
+            for r in list(sched._running[-2:]):
+                sched.swap_out_request(r, now)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in cs.SWAP_HOOKS:
+        delattr(ex, h)          # the executor's own hooks again
+    mb = sum(st["mb"] for st in hooks.values())
+    rec = {"loop": loop, "wall_s": wall, "ticks": ticks,
+           "apply_swaps_s": sum(applied), "mb": mb,
+           "apply_swaps_ms_per_mb": sum(applied) * 1e3 / mb, "hooks": hooks,
+           "streams": [list(r.output_tokens) for r in rq.requests]}
+    if prof is not None:
+        rec["window"] = dict(_device_window(prof, window["t1"] - window["t0"]),
+                             ticks=SWAP_WINDOW[1] - SWAP_WINDOW[0] + 1,
+                             captured=ex.num_graphs - window["graphs"])
+    return rec
+
+
+def _swaps(cs) -> dict:
+    """--swaps-only: the planned serves, then the forced-swap serves."""
+    import numpy as np
+    from repro_torch.engine.executor import make_real_executor
+
+    cfg, model, params = cs.full_model("qwen3-1.7b")
+    card = cs.nvidia_smi_line()
+    trace = cs.serve_trace(cfg.vocab_size - 2, **cs.PLANNED_TRACE)
+    serves = []
+    for loop in ("serial", "pipelined"):
+        got = {}
+
+        def on_engine(engine):
+            ex = engine.executor
+            if not hasattr(ex, "_copy_fn"):   # copy-on-write not yet a step
+                ex._copy_fn = None
+            got["hooks"] = cs.watch_swaps(ex)
+
+        streams, _ = cs.run_planned(model, params, trace, loop,
+                                    cs.planned_cap(trace), card=card,
+                                    on_engine=on_engine)
+        serves.append({"loop": f"planned {loop}", "hooks": got["hooks"],
+                       "streams": [list(x) for x in streams]})
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size - 2, size=SWAP_PROMPT).tolist()
+               for _ in range(SWAP_REQUESTS)]
+    blocks = -(-SWAP_REQUESTS * (SWAP_PROMPT + SWAP_OUTPUT) // 16) + 64
+    ex = make_real_executor("paged", model, params, max_slots=SWAP_MAX_SEQS,
+                            max_len=SWAP_PROMPT + SWAP_OUTPUT + 16,
+                            num_blocks=blocks, block_size=16,
+                            num_host_blocks=blocks)
+    for loop, profiled in (("serial", False), ("serial", True),
+                           ("pipelined", True)):
+        serves.append(_forced_swaps(cs, ex, prompts, loop, profiled))
+    return {"serves": serves}
+
+
+def _brief_swaps(s: dict) -> str:
+    hooks = ", ".join(f"{h} {v['calls']}x {v['mb']:.1f} MB {v['s'] * 1e3:.2f} ms"
+                      for h, v in s["hooks"].items() if v["calls"])
+    mb = sum(v["mb"] for v in s["hooks"].values())
+    sec = sum(v["s"] for v in s["hooks"].values())
+    line = f"{s['loop']}: hooks {sec * 1e3 / mb:.5f} ms/MB ({hooks})"
+    if "wall_s" in s:
+        line += (f"; wall {s['wall_s']:.3f}s, {s['ticks']} ticks, "
+                 f"_apply_swaps {s['apply_swaps_ms_per_mb']:.5f} ms/MB")
+    w = s.get("window")
+    if w:
+        copies = "; ".join(f"{k} {v['n']}x {v['ms']:.2f} ms, "
+                           f"{v['under_kernels_ms']:.2f} under kernels"
+                           for k, v in w["copies"].items())
+        line += (f"; window {w['ticks']} ticks: wall {w['wall_ms']:.1f} ms, "
+                 f"kernels busy {w['kernel_busy_ms']:.2f} ms, idle "
+                 f"{w['idle']:.3f}, {w['captured']} captures; {copies}")
+    return line
+
+
+def worker(src: Path, rwkv_shapes, mode: str) -> dict:
     cs = _bind_checkout(src)
     import torch
 
@@ -174,10 +354,12 @@ def worker(src: Path, rwkv_shapes, rwkv_only: bool) -> dict:
         raise SystemExit("kernel_ab.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.build.build()
+    if mode == "swaps":
+        return dict(_swaps(cs), src=str(src))
     ops, dt = cs.ops, torch.bfloat16
     rec = {"src": str(src), "paged": {}, "prefill": {},
            "rwkv": _rwkv(cs, rwkv_shapes)}
-    if rwkv_only:
+    if mode == "rwkv":
         cfg, model, params = cs.full_model("rwkv6-7b")
         trace = cs.serve_trace(cfg.vocab_size - 2)
         _serve(cs, model, params, trace)   # warm-up: cuBLAS, allocator
@@ -224,12 +406,15 @@ def main() -> None:
                     help="B,S,chunk of an rwkv6_chunk call to time (repeat)")
     ap.add_argument("--rwkv-only", action="store_true",
                     help="time rwkv6_chunk and the rwkv6-7b serve only")
+    ap.add_argument("--swaps-only", action="store_true",
+                    help="time the swap hooks of qwen3-1.7b's serves only")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args()
+    mode = "swaps" if a.swaps_only else "rwkv" if a.rwkv_only else "all"
     if a.worker:
         extra = [tuple(int(x) for x in sh.split(",")) for sh in a.rwkv_shape]
-        print("RECORD " + json.dumps(worker(Path(a.worker), extra,
-                                            a.rwkv_only)), flush=True)
+        print("RECORD " + json.dumps(worker(Path(a.worker), extra, mode)),
+              flush=True)
         return
     trees = dict(t.split("=", 1) for t in a.tree)
     order = a.order.split(",") if a.order else list(trees)
@@ -238,7 +423,8 @@ def main() -> None:
         src = Path(trees[name]).resolve() / "src"
         t0 = time.perf_counter()
         flags = [f"--rwkv-shape={sh}" for sh in a.rwkv_shape]
-        flags += ["--rwkv-only"] if a.rwkv_only else []
+        flags += {"swaps": ["--swaps-only"], "rwkv": ["--rwkv-only"],
+                  "all": []}[mode]
         res = subprocess.run([sys.executable, __file__, "--worker", str(src),
                               *flags], capture_output=True, text=True,
                              env=dict(os.environ, PYTHONPATH=""))
@@ -249,6 +435,10 @@ def main() -> None:
         rec = dict(json.loads(line[len("RECORD "):]), name=name,
                    seconds=time.perf_counter() - t0)
         runs.append(rec)
+        if mode == "swaps":
+            for s in rec["serves"]:
+                print(f"[ab] {name} {_brief_swaps(s)}", flush=True)
+            continue
         brief = {k: {s: {m: round(x, 4) for m, x in v.items()}
                      for s, v in rec[k].items()}
                  for k in ("paged", "prefill", "rwkv")}
@@ -258,15 +448,16 @@ def main() -> None:
                                                   "rwkv6_chunk_host_s")]
                         for s in rec["serves"]])
                  + f", {rec['serves'][0]['decode_steps']} decode steps")
-        if a.rwkv_only:
+        if mode == "rwkv":
             print(f"[ab] {name}: {walls}; {brief['rwkv']}", flush=True)
             continue
         print(f"[ab] {name}: encode {rec['encode_us']:.3f} us; {walls}; "
               f"{brief}", flush=True)
-    # token streams of each serve against the first run's first serve
-    first = runs[0]["serves"][0]["streams"]
+    # token streams of each serve against the first run's same serve (with
+    # --swaps-only) or first serve
     for rec in runs:
-        for s in rec["serves"]:
+        for i, s in enumerate(rec["serves"]):
+            first = runs[0]["serves"][i if mode == "swaps" else 0]["streams"]
             s["streams_equal_to_first"] = sum(
                 x == y for x, y in zip(s["streams"], first)) / len(first)
     out = {"card": smi(), "runs": runs}
