@@ -8,7 +8,8 @@ wall-clock time). ``ServingEngine`` is the single-replica convenience wrapper
 that replays a whole arrival trace.
 
 Works with either the simulated-clock executor (paper-scale traces) or the
-real JAX executor (smoke-scale models). One tick = one scheduled batch.
+real PyTorch executors (``engine/executor.py``). One tick = one scheduled
+batch.
 
 Two engine loops share the tick interface (``engine_loop=`` selects one):
 
@@ -24,6 +25,13 @@ Two engine loops share the tick interface (``engine_loop=`` selects one):
   ticks — rolls the scheduler back and replays the real completion, so every
   externally observable state (token streams, simulated-clock reports, ledger
   invariants) is bit-identical to the serial loop.
+
+A ``Tracer`` (``engine/trace.py``) set as ``EngineCore.tracer`` (and as the
+executor's) records each batch's ``tick`` span, its composition and device
+times, and its children: ``schedule`` (``schedule.retry`` for a preemption
+round's), ``swaps``, the executor's ``dispatch`` and ``wait``, ``complete``
+and ``listener`` (the ``on_batch`` callback); and each request's admission
+and first scheduling. With ``tracer`` None no site records anything.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import numpy as np
 from repro_torch.core.batch import Batch
 from repro_torch.core.relquery import RelQuery, Request
 from repro_torch.core.scheduler import BatchResult, SchedulerBase
+from repro_torch.engine import trace
 
 ENGINE_LOOPS = ("serial", "pipelined")
 
@@ -229,6 +238,7 @@ class EngineCore:
         # Frontend subscribes here to stream tokens and observe completions.
         self.on_batch: Optional[
             Callable[[BatchEvent, Batch, BatchResult], None]] = None
+        self.tracer: Optional[trace.Tracer] = None
 
     # ------------------------------------------------------------------ steps
     def admit(self, rq: RelQuery, now: float) -> None:
@@ -242,6 +252,8 @@ class EngineCore:
         if validate is not None:
             validate(rq)
         self.scheduler.add_relquery(rq, now)
+        if self.tracer is not None:
+            self.tracer.admitted(rq.rel_id, [r.req_id for r in rq.requests], now)
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
@@ -257,6 +269,16 @@ class EngineCore:
         lowest-priority running relQueries and retry; ``EngineDeadlockError``
         is reserved for work that can never be scheduled no matter what is
         evicted (a single request that does not fit under the cap)."""
+        tr = self.tracer
+        if tr is None:
+            return self._tick(now)
+        with tr.span("tick", batch=self.iterations) as s:
+            event = self._tick(now)
+        if event is None:
+            tr.drop(s)
+        return event
+
+    def _tick(self, now: float) -> Optional[BatchEvent]:
         if self.engine_loop == "pipelined":
             return self._tick_pipelined(now)
         return self._tick_serial(now)
@@ -268,7 +290,8 @@ class EngineCore:
         swap_s = self._apply_swaps(now)
         duration, result = self.executor.execute(batch, now)
         start, end = now, now + duration + swap_s
-        self.scheduler.complete_batch(batch, result, start, end)
+        with trace.span(self.tracer, "complete"):
+            self.scheduler.complete_batch(batch, result, start, end)
         return self._finish_tick(batch, result, start, end)
 
     def _tick_pipelined(self, now: float) -> Optional[BatchEvent]:
@@ -345,6 +368,10 @@ class EngineCore:
         ops = self.scheduler.drain_swap_ops()
         if not ops:
             return 0.0
+        with trace.span(self.tracer, "swaps"):
+            return self._apply_swap_ops(ops, now)
+
+    def _apply_swap_ops(self, ops, now: float) -> float:
         begin = getattr(self.executor, "begin_swap_tick", None)
         if begin is not None:
             begin(now)
@@ -397,22 +424,29 @@ class EngineCore:
                            self.replica_id)
         if self.record_events:
             self.events.append(event)
+        tr = self.tracer
+        if tr is not None:
+            tr.note(kind=batch.kind, prefill=len(batch.prefill_requests),
+                    decode=len(batch.decode_requests))
+            tr.scheduled(batch.prefill_requests, start)
         if self.on_batch is not None:
-            self.on_batch(event, batch, result)
+            with trace.span(tr, "listener"):
+                self.on_batch(event, batch, result)
         return event
 
     def _schedule(self, now: float, retry: bool = False) -> Optional[Batch]:
         """One timed scheduler call, then free executor slots of any requests
         the scheduler preempted while choosing (headroom or retry preemption
         both funnel through ``drain_preempt_releases``)."""
-        t0 = _time.perf_counter()
-        batch = self.scheduler.schedule(now)
-        dt = _time.perf_counter() - t0
-        if retry:
-            self.schedule_retry_time += dt
-        else:
-            self.schedule_time += dt
-        self._release_preempted()
+        with trace.span(self.tracer, "schedule.retry" if retry else "schedule"):
+            t0 = _time.perf_counter()
+            batch = self.scheduler.schedule(now)
+            dt = _time.perf_counter() - t0
+            if retry:
+                self.schedule_retry_time += dt
+            else:
+                self.schedule_time += dt
+            self._release_preempted()
         return batch
 
     # ------------------------------------------------------- speculative window

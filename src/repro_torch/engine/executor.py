@@ -54,6 +54,18 @@ replay, not under its kernels (PERF.md §5). A new executor's first
 swap-outs still pay for the pinned memory they allocate. On the CPU the
 same bookkeeping runs around plain copies.
 
+With a ``Tracer`` set as ``tracer`` (``engine/trace.py``; None by
+default) both executors record each step's ``step.load`` and
+``step.replay`` spans, a ``capture`` span for a step made at first use, and
+one ``sample`` span per sampled phase (prefill group or request, decode);
+on CUDA one pair of CUDA events around each step call, from before its load
+to after its outputs' clone, whose milliseconds ``wait`` reads after its
+samples and notes on the batch's tick per phase (``device_prefill_ms``,
+``device_decode_ms``; a copy-on-write counts to the decode), beside the
+measured ``uncached_tokens``. The paged executor also records ``dispatch``
+(with ``prefill.prep``, ``decode.prep`` and ``cow`` in it) and ``wait``
+(with ``finish`` and ``stash``).
+
 Both are the calibration source for the linear batch-cost model (paper
 Fig. 7): ``fitted_model()`` fits α/β from measured (tokens, duration) /
 (reqs, duration) samples.
@@ -71,7 +83,7 @@ from repro_torch.core import latency_model as lm_mod
 from repro_torch.core.batch import Batch
 from repro_torch.core.relquery import RelQuery, Request
 from repro_torch.core.scheduler import BatchResult
-from repro_torch.engine import graphs
+from repro_torch.engine import graphs, trace
 from repro_torch.engine.kv_cache import BlockManager, OutOfBlocks
 from repro_torch.engine.prefix_cache import PrefixCache, block_hashes
 from repro_torch.kernels import build, paged_attention
@@ -107,6 +119,8 @@ class InFlight:
     # ``output_tokens`` while the batch is in flight, so ``wait`` must not
     # re-derive progress from live request state.
     produced: Dict[str, int] = field(default_factory=dict)
+    # traced on CUDA: (phase, start event, end event) of each step call
+    timed: Optional[List] = None
 
 
 def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
@@ -166,6 +180,8 @@ class _ExecutorBase:
         # req_id -> (the device gather, the copy's event; None on the CPU)
         self._pending_host: Dict[str, Tuple[Dict[str, torch.Tensor],
                                             Optional[torch.cuda.Event]]] = {}
+        self.tracer: Optional[trace.Tracer] = None
+        self._timed: List = []        # this dispatch's timed steps
 
     # ------------------------------------------------------------- admission
     def validate_relquery(self, rq: RelQuery) -> None:
@@ -195,6 +211,55 @@ class _ExecutorBase:
                                "than the executor's own")
         self.capture_s += dt
         return step, dt
+
+    def _first_use(self, make, *key) -> graphs.Step:
+        """A bucket's step made at its first use, its seconds kept out of
+        the phase's sample."""
+        with trace.span(self.tracer, "capture", key=key):
+            step, dt = make(*key)
+        self._compile_s += dt
+        return step
+
+    def _run_step(self, step: graphs.Step, arrays: Sequence, phase: str):
+        """``step(*arrays)``; traced, in its spans and, on CUDA, between two
+        timed events kept for ``wait``."""
+        tr = self.tracer
+        if tr is None:
+            return step(*arrays)
+        start = None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        with tr.span("step.load"):
+            step.load(arrays)
+        with tr.span("step.replay"):
+            out = step.run()
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._timed.append((phase, start, end))
+        return out
+
+    def _take_timed(self) -> Optional[List]:
+        timed = self._timed
+        if not timed:
+            return None
+        self._timed = []
+        return timed
+
+    def _note_device_ms(self, inflight: InFlight) -> None:
+        """Onto the batch's tick: the measured uncached prefill tokens and
+        each phase's device milliseconds from its steps' events (None where
+        no step of the phase was timed: the CPU, or a phase the batch
+        lacks). Called after the samples, which waited for the events."""
+        if self.tracer is None:
+            return
+        ms = {"prefill": None, "decode": None}
+        for phase, start, end in inflight.timed or ():
+            ms[phase] = (ms[phase] or 0.0) + start.elapsed_time(end)
+        self.tracer.note(uncached_tokens=inflight.utok,
+                         device_prefill_ms=ms["prefill"],
+                         device_decode_ms=ms["decode"])
 
     def _steps(self) -> List[graphs.Step]:
         raise NotImplementedError
@@ -485,9 +550,9 @@ class RealExecutor(_ExecutorBase):
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = seq
         if bucket not in self._prefill_fn:
-            self._prefill_fn[bucket], dt = self._prefill_step(bucket)
-            self._compile_s += dt
-        logits, kv = self._prefill_fn[bucket](toks, np.array([n], np.int32))
+            self._prefill_fn[bucket] = self._first_use(self._prefill_step, bucket)
+        logits, kv = self._run_step(self._prefill_fn[bucket],
+                                    (toks, np.array([n], np.int32)), "prefill")
         # the slot differs from call to call: this copy stays outside
         slot = self._alloc_slot(req)
         for name in self.cache:
@@ -547,7 +612,7 @@ class RealExecutor(_ExecutorBase):
             rows = self._ints(np.asarray(off, np.int64))
             kept = {name: c.index_select(self.slot_axes[name], rows)
                     for name, c in self.cache.items()}
-        logits, _ = self._decode_fn(tokens, positions)
+        logits, _ = self._run_step(self._decode_fn, (tokens, positions), "decode")
         if off:
             for name, c in self.cache.items():
                 c.index_copy_(self.slot_axes[name], rows, kept[name])
@@ -588,7 +653,8 @@ class RealExecutor(_ExecutorBase):
                         decode_pending=decode_logits, decode_reqs=reqs,
                         decode_rows=rows, utok=total_utok,
                         prefill_issue_s=prefill_issue,
-                        decode_issue_s=decode_issue, produced=produced)
+                        decode_issue_s=decode_issue, produced=produced,
+                        timed=self._take_timed())
 
     def wait(self, inflight: InFlight) -> Tuple[float, BatchResult]:
         """Materialize a dispatched batch: sample every pending logits row
@@ -599,7 +665,8 @@ class RealExecutor(_ExecutorBase):
         if inflight.prefill_pending:
             t0 = _time.perf_counter()
             for r, logits in inflight.prefill_pending:
-                tok = int(self._sample(logits)[0])
+                with trace.span(self.tracer, "sample", phase="prefill"):
+                    tok = int(self._sample(logits)[0])
                 # a restarted (preempted) request already produced its
                 # preserved tokens; this prefill emits the (len + 1)-th
                 finished = self._is_finish_token(r, tok,
@@ -612,7 +679,8 @@ class RealExecutor(_ExecutorBase):
         decode_dur = inflight.decode_issue_s
         if inflight.decode_pending is not None:
             t1 = _time.perf_counter()
-            out = self._sample(inflight.decode_pending)
+            with trace.span(self.tracer, "sample", phase="decode"):
+                out = self._sample(inflight.decode_pending)
             for r, row in zip(inflight.decode_reqs, inflight.decode_rows):
                 tok = int(out[row])
                 finished = self._is_finish_token(r, tok,
@@ -623,6 +691,7 @@ class RealExecutor(_ExecutorBase):
             decode_dur += _time.perf_counter() - t1
             self.decode_samples.append((len(inflight.decode_reqs), decode_dur))
         self._materialize_host_stash()
+        self._note_device_ms(inflight)
         return prefill_dur + decode_dur, BatchResult(outputs)
 
     def execute(self, batch: Batch, now: float) -> Tuple[float, BatchResult]:
@@ -892,56 +961,64 @@ class PagedRealExecutor(_ExecutorBase):
         """Batched multi-request prefill, bucketed on (batch, length): each
         group runs as one model call followed by one scatter into the pools.
         Returns ([(group requests, device logits)], utok)."""
-        seqs = {r.req_id: r.prefill_token_ids() for r in reqs}
-        utok = 0
-        for r in reqs:                      # accounting in dense batch order
-            utok += self._account_prefill(r, seqs[r.req_id])
-        bs = self.block_size
-        groups: Dict[int, List[Request]] = {}
-        for r in reqs:
-            groups.setdefault(self._prefill_group_key(r), []).append(r)
+        with trace.span(self.tracer, "prefill.prep"):
+            seqs = {r.req_id: r.prefill_token_ids() for r in reqs}
+            utok = 0
+            for r in reqs:                      # accounting in dense batch order
+                utok += self._account_prefill(r, seqs[r.req_id])
+            groups: Dict[int, List[Request]] = {}
+            for r in reqs:
+                groups.setdefault(self._prefill_group_key(r), []).append(r)
         pending: List = []
         for L in sorted(groups):
             grp = groups[L]
-            B = _pow2_bucket(len(grp))
-            nblk = L // bs
-            toks = np.zeros((B, L), np.int32)
-            seq_lens = np.ones((B,), np.int32)
-            tables = np.full((B, nblk), self.scratch_block, np.int32)
-            for i, r in enumerate(grp):
-                seq = seqs[r.req_id]
-                n = len(seq)
-                toks[i, :n] = seq
-                seq_lens[i] = n
-                keys = self._prompt_keys(r) if self.share_prefix_blocks else ()
-                try:
-                    alloc = self.bm.allocate(r.req_id, n, prefix_keys=keys)
-                    self.shared_block_hits += alloc.shared_prefix_blocks
-                except OutOfBlocks as e:
-                    raise RuntimeError(
-                        f"paged KV pool exhausted during prefill of "
-                        f"{r.req_id}: {e} — the scheduler's cap admitted more "
-                        f"resident tokens than num_blocks*block_size covers"
-                    ) from e
-                if keys:
-                    self.bm.register_prefix(r.req_id, keys)
-                self._active[r.req_id] = r
-                row = self.bm.padded_block_table(r.req_id, nblk,
-                                                 self.scratch_block)
-                # a follower never rewrites pages its leader already owns
-                # (the leader may be mid-decode attending them): shared
-                # leading pages route to scratch in the follower's scatter
-                for j in range(alloc.shared_prefix_blocks):
-                    row[j] = self.scratch_block
-                tables[i] = row
-            key = (B, L)
+            with trace.span(self.tracer, "prefill.prep"):
+                inputs = self._prefill_inputs(grp, L, seqs)
+            key = (_pow2_bucket(len(grp)), L)
             if key not in self._prefill_fn:
-                self._prefill_fn[key], dt = self._prefill_step(B, L)
-                self._compile_s += dt
+                self._prefill_fn[key] = self._first_use(self._prefill_step, *key)
             self._scatter_fn.setdefault(key, self._prefill_fn[key])
-            logits, _ = self._prefill_fn[key](toks, seq_lens, tables)
+            logits, _ = self._run_step(self._prefill_fn[key], inputs, "prefill")
             pending.append((grp, logits))
         return pending, utok
+
+    def _prefill_inputs(self, grp: List[Request], L: int,
+                        seqs: Dict[str, List[int]]) -> Tuple[np.ndarray, ...]:
+        """A prefill group's blocks, allocated, and its step's inputs:
+        tokens, lengths and block tables, padded to the (batch, L)
+        bucket."""
+        B = _pow2_bucket(len(grp))
+        nblk = L // self.block_size
+        toks = np.zeros((B, L), np.int32)
+        seq_lens = np.ones((B,), np.int32)
+        tables = np.full((B, nblk), self.scratch_block, np.int32)
+        for i, r in enumerate(grp):
+            seq = seqs[r.req_id]
+            n = len(seq)
+            toks[i, :n] = seq
+            seq_lens[i] = n
+            keys = self._prompt_keys(r) if self.share_prefix_blocks else ()
+            try:
+                alloc = self.bm.allocate(r.req_id, n, prefix_keys=keys)
+                self.shared_block_hits += alloc.shared_prefix_blocks
+            except OutOfBlocks as e:
+                raise RuntimeError(
+                    f"paged KV pool exhausted during prefill of "
+                    f"{r.req_id}: {e} — the scheduler's cap admitted more "
+                    f"resident tokens than num_blocks*block_size covers"
+                ) from e
+            if keys:
+                self.bm.register_prefix(r.req_id, keys)
+            self._active[r.req_id] = r
+            row = self.bm.padded_block_table(r.req_id, nblk,
+                                             self.scratch_block)
+            # a follower never rewrites pages its leader already owns
+            # (the leader may be mid-decode attending them): shared
+            # leading pages route to scratch in the follower's scatter
+            for j in range(alloc.shared_prefix_blocks):
+                row[j] = self.scratch_block
+            tables[i] = row
+        return toks, seq_lens, tables
 
     # ------------------------------------------------------------- decode
     def _copy_step(self) -> Tuple[graphs.Step, float]:
@@ -963,12 +1040,26 @@ class PagedRealExecutor(_ExecutorBase):
         """Device-side CoW: clone page ``src`` into ``dst`` across all layers
         before the diverging write, as one step (captured at first use)."""
         if self._copy_fn is None:
-            self._copy_fn, dt = self._copy_step()
-            self._compile_s += dt
-        self._copy_fn(np.array([src, dst], np.int32))
+            self._copy_fn = self._first_use(self._copy_step)
+        with trace.span(self.tracer, "cow"):
+            self._run_step(self._copy_fn, (np.array([src, dst], np.int32),),
+                           "decode")
         self.cow_copies += 1
 
     def _decode_issue(self, reqs: List[Request]) -> object:
+        with trace.span(self.tracer, "decode.prep"):
+            inputs = self._decode_inputs(reqs)
+        key = inputs[2].shape           # the tables': (batch, blocks)
+        if key not in self._decode_fn:
+            self._decode_fn[key] = self._first_use(self._decode_step, *key)
+        logits, _ = self._run_step(self._decode_fn[key], inputs, "decode")
+        return logits
+
+    def _decode_inputs(self, reqs: List[Request]) -> Tuple[np.ndarray, ...]:
+        """Each request's next token slot (a copy-on-write first where its
+        last block is shared) and the decode step's inputs: tokens,
+        positions, block tables and context lengths, padded to the (batch,
+        blocks) bucket."""
         positions = []
         for r in reqs:
             pos = self.bm.context_len(r.req_id)
@@ -995,18 +1086,17 @@ class PagedRealExecutor(_ExecutorBase):
             ctx[i] = pos + 1
             tables[i] = self.bm.padded_block_table(r.req_id, NB,
                                                    self.scratch_block)
-        key = (B, NB)
-        if key not in self._decode_fn:
-            self._decode_fn[key], dt = self._decode_step(B, NB)
-            self._compile_s += dt
-        logits, _ = self._decode_fn[key](tokens, pos_arr, tables, ctx)
-        return logits
+        return tokens, pos_arr, tables, ctx
 
     # ------------------------------------------------------------- engine API
     def dispatch(self, batch: Batch, now: float) -> InFlight:
         """Launch one unified batch: block allocation, prefill + pool scatter
         and the paged decode step; logits stay on the device until ``wait``.
         Block frees of requests finishing in this batch happen in ``wait``."""
+        with trace.span(self.tracer, "dispatch"):
+            return self._dispatch(batch)
+
+    def _dispatch(self, batch: Batch) -> InFlight:
         prefill_reqs = [r for r in batch.prefill_requests
                         if batch.completes_prompt(r)]
         pending: List = []
@@ -1032,42 +1122,52 @@ class PagedRealExecutor(_ExecutorBase):
                         decode_pending=decode_logits, decode_reqs=reqs,
                         decode_rows=[], utok=utok,
                         prefill_issue_s=prefill_issue,
-                        decode_issue_s=decode_issue, produced=produced)
+                        decode_issue_s=decode_issue, produced=produced,
+                        timed=self._take_timed())
 
     def wait(self, inflight: InFlight) -> Tuple[float, BatchResult]:
         """Same phase-separated timing contract as the dense executor:
         sample each prefill group then the decode step, free the blocks of
         anything that finished."""
+        with trace.span(self.tracer, "wait"):
+            return self._wait(inflight)
+
+    def _wait(self, inflight: InFlight) -> Tuple[float, BatchResult]:
         outputs: Dict[str, Tuple[int, bool]] = {}
         prefill_dur = inflight.prefill_issue_s
         if inflight.prefill_pending:
             t0 = _time.perf_counter()
             for grp, logits in inflight.prefill_pending:
-                out_tokens = self._sample(logits)
-                for i, r in enumerate(grp):
-                    tok = int(out_tokens[i])
-                    finished = self._is_finish_token(r, tok,
-                                                     inflight.produced[r.req_id])
-                    outputs[r.req_id] = (tok, finished)
-                    if finished:
-                        self.release_request(r.req_id)
+                with trace.span(self.tracer, "sample", phase="prefill"):
+                    out_tokens = self._sample(logits)
+                self._finish(grp, out_tokens, inflight, outputs)
             prefill_dur += _time.perf_counter() - t0
             self.prefill_samples.append((inflight.utok, prefill_dur))
         decode_dur = inflight.decode_issue_s
         if inflight.decode_pending is not None:
             t1 = _time.perf_counter()
-            out = self._sample(inflight.decode_pending)
-            for i, r in enumerate(inflight.decode_reqs):
-                tok = int(out[i])
+            with trace.span(self.tracer, "sample", phase="decode"):
+                out = self._sample(inflight.decode_pending)
+            self._finish(inflight.decode_reqs, out, inflight, outputs)
+            decode_dur += _time.perf_counter() - t1
+            self.decode_samples.append((len(inflight.decode_reqs), decode_dur))
+        with trace.span(self.tracer, "stash"):
+            self._materialize_host_stash()
+        self._note_device_ms(inflight)
+        return prefill_dur + decode_dur, BatchResult(outputs)
+
+    def _finish(self, reqs: List[Request], tokens: np.ndarray,
+                inflight: InFlight, outputs: Dict[str, Tuple[int, bool]]) -> None:
+        """Each request's sampled token into ``outputs``; the blocks of
+        those that finished are freed."""
+        with trace.span(self.tracer, "finish"):
+            for i, r in enumerate(reqs):
+                tok = int(tokens[i])
                 finished = self._is_finish_token(r, tok,
                                                  inflight.produced[r.req_id])
                 outputs[r.req_id] = (tok, finished)
                 if finished:
                     self.release_request(r.req_id)
-            decode_dur += _time.perf_counter() - t1
-            self.decode_samples.append((len(inflight.decode_reqs), decode_dur))
-        self._materialize_host_stash()
-        return prefill_dur + decode_dur, BatchResult(outputs)
 
     def execute(self, batch: Batch, now: float) -> Tuple[float, BatchResult]:
         """Serial composition of the split contract."""

@@ -20,8 +20,8 @@ private ``pool`` (every graph of one executor shares one). Without a pool
 calls ``fn`` at every call.
 
 A call copies its host arrays into the step's static input buffer with one
-host-to-device copy (through pinned memory on CUDA), then replays the graph
-or calls ``fn``. A replay returns the graph's static outputs cloned: two
+host-to-device copy (through pinned memory on CUDA; ``Step.load``), then
+replays the graph or calls ``fn`` (``Step.run``). A replay returns the graph's static outputs cloned: two
 replays of one bucket in a batch (two dense prefills of one length) would
 otherwise leave both requests the second one's logits.
 
@@ -140,6 +140,11 @@ class Step:
 
     def __call__(self, *arrays):
         self.load(arrays)
+        return self.run()
+
+    def run(self):
+        """Serve one step on the inputs ``load`` left: replay the graph (or
+        call ``fn``)."""
         self.calls += 1
         if self.graph is None:
             return self.fn(*self.inputs)

@@ -1638,3 +1638,52 @@ def test_captured_copy_on_write_equals_eager(card):
         pools[eager] = {n: p.clone() for n, p in ex.pools.items()}
     for n in pools[False]:
         assert torch.equal(pools[False][n], pools[True][n]), n
+
+
+def test_traced_serve_times_each_phase_on_the_card(card):
+    """A traced paged serve on the card (``engine/trace.py``): in every
+    batch the two phases' device milliseconds (CUDA events around the step
+    calls) fit in the batch's tick span, and a batch with a completed
+    prefill and a decode has device time in both phases."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.priority import BatchLimits
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.trace import TraceConfig, build_trace
+    from repro_torch.engine.tokenizer import HashTokenizer
+    from repro_torch.engine.trace import Tracer
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import build_real_engine
+
+    cfg = get_smoke_config("qwen3-1.7b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    trace = build_trace(make_dataset("beer", num_rows=64, seed=1),
+                        TraceConfig(num_relqueries=3, rate=100.0, seed=4,
+                                    max_requests=4, output_token_cap=8),
+                        tokenizer=HashTokenizer(vocab_size=cfg.vocab_size - 2))
+    engine = build_real_engine("qwen3-1.7b", "relserve", "paged", model=model,
+                               params=params, max_len=512, device=card,
+                               limits=BatchLimits(cap=100_000),
+                               prefix_sharing=True)
+    tracer = Tracer()
+    engine.core.tracer = engine.executor.tracer = tracer
+    rqs = sorted(copy.deepcopy(trace), key=lambda rq: rq.arrival_time)
+    now, i = 0.0, 0
+    while i < len(rqs) or engine.core.has_work():
+        while i < len(rqs) and rqs[i].arrival_time <= now:
+            engine.core.admit(rqs[i], now)
+            i += 1
+        engine.core.tick(now)
+        now += 0.01
+    ticks = [s for s in tracer.take().spans if s.name == "tick"]
+    assert ticks
+    both = 0
+    for t in ticks:
+        pre, dec = t.attrs["device_prefill_ms"], t.attrs["device_decode_ms"]
+        assert (pre or 0.0) + (dec or 0.0) <= (t.end_ns - t.start_ns) * 1e-6
+        if pre is not None and t.attrs["decode"]:
+            both += 1
+            assert dec > 0 and pre > 0
+    assert both

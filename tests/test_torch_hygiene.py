@@ -1,20 +1,31 @@
 """Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``,
-``tools/kernel_ab.py`` and the entry module of the spawned gloo ranks import
-neither jax nor anything of the JAX package ``repro``; a real serve (a dense,
-an MoE and a hybrid smoke model), a simulated multi-replica replay with a
-crash, a planned real serve and a training run with a checkpoint run with
-jax blocked; and the entry points never fall back to the CPU on their own.
+``tools/kernel_ab.py``, ``tools/trace_cell.py`` and the entry module of the
+spawned gloo ranks import neither jax nor anything of the JAX package
+``repro``; a real serve (a dense, an MoE and a hybrid smoke model), a
+simulated multi-replica replay with a crash, a planned real serve and a
+training run with a checkpoint run with jax blocked; and the entry points
+never fall back to the CPU on their own.
 
 Beside those, small CPU cases of the real executors that need no trace
 (2 layers, narrow widths, f32): the swap hooks' pending list and its
 materialisation in ``wait()``, a release between a swap-out and that
 ``wait()``, a swap-in or prefetch issued before it; copy-on-write held
-against the JAX executor on a forked sequence; and whisper's ``init_cache``
-and ``with_layers`` against the reference."""
+against the JAX executor on a forked sequence; whisper's ``init_cache``
+and ``with_layers`` against the reference; and the serving path's tracer
+(``engine/trace.py``) on a tiny paged engine: with no tracer a serve reads
+no tracer clock and calls no ``record_function``, and serves the tokens a
+traced serve does; traced, every tick holds its children nested in time
+with its batch id, a batch with a completed prefill and a decode samples
+each phase, each request's queued record ends at the tick that first
+schedules it; and a program span lines up with the profiler's interval of
+the op inside it."""
 import ast
+import copy
+import functools
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -37,7 +48,8 @@ def _imported_modules(path: Path):
 
 def test_no_jax_or_repro_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "tools" / "kernel_ab.py"]
+                                          REPO / "tools" / "kernel_ab.py",
+                                          REPO / "tools" / "trace_cell.py"]
     assert len(files) > 30
     for mod in ("models/moe.py", "models/hymba.py", "models/whisper.py",
                 "training/__init__.py", "training/optimizer.py",
@@ -186,11 +198,32 @@ VERBATIM = [
 ]
 
 
+# Copies the port extends with its tracer's sites (``engine/trace.py``): below
+# the module docstring, every line of the reference, in order and reindented
+# at most, with lines added between.
+EXTENDED = ("engine/engine.py",)
+
+
+def _code_lines(text: str) -> list:
+    """The non-empty lines after the module docstring, stripped."""
+    start = ast.parse(text).body[1].lineno - 1
+    return [ln.strip() for ln in text.splitlines()[start:] if ln.strip()]
+
+
+def _in_order(lines: list, within: list) -> bool:
+    rest = iter(within)
+    return all(any(ln == x for x in rest) for ln in lines)
+
+
 @pytest.mark.parametrize("path", VERBATIM)
 def test_framework_free_module_is_a_copy_of_the_reference(path):
     port = (PORT / path).read_text(encoding="utf-8")
     ref = (REPO / "src" / "repro" / path).read_text(encoding="utf-8")
-    assert port.replace("repro_torch", "repro") == ref
+    port = port.replace("repro_torch", "repro")
+    if path in EXTENDED:
+        assert _in_order(_code_lines(ref), _code_lines(port))
+    else:
+        assert port == ref
 
 
 def test_snapshot_codec_is_the_serving_half_of_the_reference():
@@ -408,3 +441,182 @@ def test_whisper_cache_and_depth_match_the_reference():
         assert tuple(x.shape) == want[k].shape, k
         assert str(x.dtype).removeprefix("torch.") == np.dtype(want[k].dtype).name, k
         assert x.device.type == "cpu" and not x.any(), k
+
+
+# ----------------------------------------------------------------------------
+# the serving path's tracer (engine/trace.py) on a tiny paged engine
+# ----------------------------------------------------------------------------
+_TICK_CHILDREN = {"schedule", "dispatch", "wait", "complete", "listener"}
+_DISPATCH_CHILDREN = {"prefill.prep", "decode.prep", "step.load",
+                      "step.replay", "capture"}
+_WAIT_CHILDREN = {"sample", "finish", "stash"}
+
+
+@functools.lru_cache(maxsize=None)
+def _traced_model():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.trace import TraceConfig, build_trace
+    from repro_torch.engine.tokenizer import HashTokenizer
+    from repro_torch.models.registry import build_model
+
+    cfg = get_smoke_config("qwen3-1.7b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    tok = HashTokenizer(vocab_size=cfg.vocab_size - 2)
+    rqs = build_trace(make_dataset("beer", num_rows=64, seed=1),
+                      TraceConfig(num_relqueries=3, rate=100.0, seed=4,
+                                  max_requests=4, output_token_cap=8),
+                      tokenizer=tok)
+    return model, params, rqs
+
+
+def _traced_serve(tracer):
+    """Serve the relQueries on a clock of 10 ms a tick, each admitted at
+    the first tick after its arrival. Returns the streams, each request's
+    admission and first batch's clock, and each batch id's clock."""
+    from repro_torch.core.priority import BatchLimits
+    from repro_torch.serving import build_real_engine
+
+    model, params, trace_rqs = _traced_model()
+    engine = build_real_engine("qwen3-1.7b", "relserve", "paged", model=model,
+                               params=params, max_len=512, device="cpu",
+                               limits=BatchLimits(cap=100_000),
+                               prefix_sharing=True)
+    core = engine.core
+    core.tracer = engine.executor.tracer = tracer
+    first = {}
+    core.on_batch = lambda event, batch, result: [
+        first.setdefault(r.req_id, event.start) for r in batch.prefill_requests]
+    rqs = sorted(copy.deepcopy(trace_rqs), key=lambda rq: rq.arrival_time)
+    admitted, at = {}, {}
+    now, i = 0.0, 0
+    while i < len(rqs) or core.has_work():
+        while i < len(rqs) and rqs[i].arrival_time <= now:
+            core.admit(rqs[i], now)
+            admitted.update((r.req_id, now) for r in rqs[i].requests)
+            i += 1
+        at[core.iterations] = now
+        core.tick(now)
+        now += 0.01
+    streams = [tuple(r.output_tokens) for rq in rqs for r in rq.requests]
+    return streams, admitted, first, at
+
+
+@functools.lru_cache(maxsize=None)
+def _traced():
+    from repro_torch.engine import trace
+
+    tracer = trace.Tracer()
+    streams, admitted, first, at = _traced_serve(tracer)
+    return streams, admitted, first, at, tracer.take()
+
+
+def test_untraced_serve_reads_no_tracer_clock_and_calls_no_record_function(
+        monkeypatch):
+    from repro_torch.engine import trace
+
+    calls = {"clock": 0, "record_function": 0}
+    clock = trace._clock
+
+    def counted_clock():
+        calls["clock"] += 1
+        return clock()
+
+    def counted(real):
+        def record_function(*a, **k):
+            calls["record_function"] += 1
+            return real(*a, **k)
+        return record_function
+
+    monkeypatch.setattr(trace, "_clock", counted_clock)
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        counted(torch.profiler.record_function))
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counted(torch.autograd.profiler.record_function))
+    streams, *_ = _traced_serve(None)
+    assert calls == {"clock": 0, "record_function": 0}
+    traced, *_ = _traced_serve(trace.Tracer())
+    assert calls["clock"] > 0 and calls["record_function"] == 0
+    assert streams == traced == _traced()[0]
+
+
+def _children(spans, parent):
+    return [s for s in spans if s.parent is parent]
+
+
+def test_every_tick_holds_its_children_nested_with_its_batch_id():
+    *_, at, records = _traced()
+    spans = records.spans
+    ticks = [s for s in spans if s.name == "tick"]
+    assert [t.batch for t in ticks] == list(range(len(ticks))) == sorted(at)
+    for t in ticks:
+        names = [c.name for c in _children(spans, t)]
+        assert set(names) == _TICK_CHILDREN and len(names) == len(_TICK_CHILDREN)
+        assert {"kind", "prefill", "decode", "uncached_tokens",
+                "device_prefill_ms", "device_decode_ms"} <= set(t.attrs)
+        # on the CPU no step is timed by CUDA events
+        assert t.attrs["device_prefill_ms"] is t.attrs["device_decode_ms"] is None
+        for c in _children(spans, t):
+            sub = {g.name for g in _children(spans, c)}
+            assert sub <= {"dispatch": _DISPATCH_CHILDREN,
+                           "wait": _WAIT_CHILDREN}.get(c.name, set())
+    for s in spans:
+        if s.parent is not None:
+            p = s.parent
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+            assert s.batch == p.batch
+    assert {s.name for s in spans} >= {"prefill.prep", "decode.prep", "step.load",
+                                       "step.replay", "capture", "sample",
+                                       "finish", "stash"}
+
+
+def test_a_batch_with_a_completed_prefill_and_a_decode_samples_each_phase():
+    *_, records = _traced()
+    spans = records.spans
+    both = [t for t in spans if t.name == "tick" and t.attrs["decode"]
+            and t.attrs["uncached_tokens"]]
+    assert both
+    for t in both:
+        wait = next(c for c in _children(spans, t) if c.name == "wait")
+        phases = [s.attrs["phase"] for s in _children(spans, wait)
+                  if s.name == "sample"]
+        assert phases.count("decode") == 1 and "prefill" in phases
+        dispatch = next(c for c in _children(spans, t) if c.name == "dispatch")
+        groups = sum(s.name == "step.replay" for s in _children(spans, dispatch))
+        assert phases.count("prefill") == groups - 1
+
+
+def test_each_request_is_queued_until_the_tick_that_first_schedules_it():
+    _, admitted, first, _, records = _traced()
+    assert set(records.requests) == set(admitted) == set(first)
+    for rid, q in records.requests.items():
+        assert (q.admit, q.scheduled) == (admitted[rid], first[rid])
+        assert q.rel_id and q.admit <= q.scheduled
+
+
+def test_program_spans_hold_the_profiler_interval_of_their_op():
+    """Spans converted by ``offset_ns`` lie on the profiler's clock: each
+    holds the ``aten::mm`` it ran around (with half a millisecond of host
+    work on each side of the op)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import trace
+
+    tracer = trace.Tracer()
+    x = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with tracer.span("op"):
+                time.sleep(5e-4)
+                x @ x
+                time.sleep(5e-4)
+    ops = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.name() == "aten::mm")
+    spans = tracer.take().spans
+    assert len(ops) == len(spans) == 3
+    off = tracer.offset_ns
+    for s, (a, b) in zip(spans, ops):
+        assert s.start_ns + off <= a < b <= s.end_ns + off
+        assert a - (s.start_ns + off) < 5e6      # within 5 ms, not a clock apart
